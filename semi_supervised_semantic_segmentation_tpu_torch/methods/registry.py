@@ -1,0 +1,19 @@
+"""Method registry: config name -> method module (init_state / make_train_step)."""
+
+from __future__ import annotations
+
+from types import ModuleType
+
+_PORTED = {"fixmatch_cutmix"}
+_ALL = ("supervised", "mean_teacher", "fixmatch_cutmix", "cps")
+
+
+def get_method(name: str) -> ModuleType:
+    if name not in _ALL:
+        raise ValueError(f"unknown method {name!r}; valid: {list(_ALL)}")
+    if name not in _PORTED:
+        raise NotImplementedError(
+            f"method {name!r} is not yet ported (ROADMAP.md Queue 1); ported: {sorted(_PORTED)}")
+    from semi_supervised_semantic_segmentation_tpu_torch.methods import fixmatch
+
+    return fixmatch

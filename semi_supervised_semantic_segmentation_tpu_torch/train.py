@@ -1,0 +1,41 @@
+"""Training entry point of the PyTorch port.
+
+Usage:
+  python -m semi_supervised_semantic_segmentation_tpu_torch.train \\
+      --config configs/3_fixmatch_dlv3p_r50_voc_512.yaml \\
+      --set data.dataset=synthetic data.cutmix_impl=pallas model.stem_impl=pallas
+  ... --device cpu   (explicit CPU run; the default is CUDA, which must exist)
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+
+from semi_supervised_semantic_segmentation_tpu_torch.config import load_config, parse_overrides
+from semi_supervised_semantic_segmentation_tpu_torch.engine.trainer import Trainer
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", required=True, help="YAML config path")
+    p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
+                   help="dotted config overrides, e.g. optim.lr=0.02")
+    p.add_argument("--work_dir", default=None)
+    p.add_argument("--device", default=None, help="cuda (default) | cpu | cuda:N")
+    args = p.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    try:
+        overrides = parse_overrides(args.set)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if args.work_dir is not None:
+        overrides["train.work_dir"] = args.work_dir
+    cfg = load_config(args.config, overrides)
+    last = Trainer(cfg, device=args.device).fit()
+    print(json.dumps(last))
+
+
+if __name__ == "__main__":
+    main()
