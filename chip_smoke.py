@@ -6,17 +6,25 @@
 Phases; any failure exits non-zero and prints no result:
  1. build    -- compile ``csrc/*.cu`` with nvcc for sm_90a (one nvcc per
                 source, started together) and print the seconds;
- 2. kernels  -- at config 3's shapes, each hand-written kernel against its
-                plain PyTorch version on the same inputs, with its time, the
-                plain version's, the library call's where one exists, and
-                its bound on this card;
- 3. reference -- at a small size, the stem segment (forward, backward)
-                and one FixMatch step on the card (kernels) against the
-                CPU (plain versions), from the same weights and inputs;
+ 2. kernels  -- each hand-written kernel against its plain PyTorch version
+                on the same inputs, at the shapes its path gives it (A, B, C
+                at config 3's; D and E at config 5's two eligible HRNet
+                branches, [8,48,256,256] and [8,96,128,128]), with its time,
+                the plain version's, the library call's where one exists,
+                and its bound on this card;
+ 3. reference -- at a small size, on the card (kernels) against the CPU
+                (plain versions), from the same weights and inputs: the stem
+                segment and one config-3 FixMatch step; an HRModule (branches
+                16/32) forward and backward; one config-5 FixMatch step (OHEM,
+                fused branch convs, remat 'stages:3') on a width-8 HRNet;
  4. slice    -- the port's ``Trainer`` trains config 3 (synthetic data,
                 8 + 8 images at 512^2, ``model.stem_impl=pallas``,
-                ``data.cutmix_impl=pallas``) for a few steps: losses finite,
-                every kernel's launch counter advancing each step.
+                ``data.cutmix_impl=pallas``) and then config 5 as shipped
+                (synthetic data, 4 + 4 images at 1024^2, HRNet-W48 + HRNetV2
+                head, ``branch_conv=pallas``, remat 'stages:3', OHEM) for a
+                few steps each: losses finite, each path's kernels launched
+                the derived number of times at every step, time per step,
+                peak memory and a profile.
 Then it prints the card's name and power limit, one JSON line of kernel
 records, and the ok line.  A longer report goes to
 ``chiprun_out/chip_smoke_report.json``.
@@ -36,6 +44,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG3 = os.path.join(REPO, "configs", "3_fixmatch_dlv3p_r50_voc_512.yaml")
+CONFIG5 = os.path.join(REPO, "configs", "5_hrnet_w48_1024_full_ssl.yaml")
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 
 # Published dense peaks (NVIDIA data sheets): (name substring, bytes/s, bf16 FLOP/s,
@@ -48,6 +57,11 @@ PEAKS = [
 ]
 
 
+# Failed checks; the script runs every phase, then exits non-zero before
+# printing any result if this is not empty.
+FAILURES = []
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -55,7 +69,8 @@ def fail(msg: str) -> None:
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
-        fail(msg)
+        print(f"chip_smoke: CHECK FAILED: {msg}", file=sys.stderr, flush=True)
+        FAILURES.append(msg)
 
 
 def main() -> None:
@@ -66,7 +81,7 @@ def main() -> None:
     sys.path.insert(0, REPO)
     try:
         from semi_supervised_semantic_segmentation_tpu_torch.ops import (
-            augment, cuda_build, stem)
+            augment, branch_conv, cuda_build, stem)
         from semi_supervised_semantic_segmentation_tpu_torch.ops import (
             cutmix_normalize as cmn)
     except ImportError as e:
@@ -93,13 +108,14 @@ def main() -> None:
 
     # ------------------------------------------------------------- 1. build
     t0 = time.time()
-    built = cuda_build.build_all(["stem.cu"], extra=["-Xptxas", "-v"])
+    built = cuda_build.build_all(["stem.cu", "branch_conv.cu"], extra=["-Xptxas", "-v"])
     build_s = time.time() - t0
-    print(f"[build] nvcc {', '.join(built)}: {build_s:.1f} s", flush=True)
+    print(f"[build] nvcc {', '.join(built)} in parallel: {build_s:.1f} s", flush=True)
     report["build"] = {k: {"seconds": v["seconds"], "log": v["log"]} for k, v in built.items()}
-    for line in built["stem.cu"]["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}", flush=True)
+    for src, b in built.items():
+        for line in b["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {src} ptxas: {line.strip()}", flush=True)
 
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
 
@@ -222,12 +238,34 @@ def main() -> None:
     del imgs, labs, conf, oi, ol, oc, pi, pl, pc
     report["triton_first_launch_s"] = triton_s
 
+    # ------------------------------------------ 2. kernels: D, E (config 5)
+    d_rows, e_rows = branch_kernels(torch, dev, branch_conv, time_ms, bound, bf16_peak)
+    report["branch_kernels"] = {"D": d_rows, "E": e_rows}
+    # the record of the line: branch 0's shape, the modes the path runs most
+    kernels["branch_conv_fwd"] = d_rows["N8_C48_256x256 pre+stats"]
+    kernels["branch_conv_dw"] = e_rows["N8_C48_256x256 fuse+pre"]
+
     # -------------------------------------------- 3. reference, small size
     report["reference"] = reference_phase(torch, dev)
 
-    # ------------------------------------------------------- 4. the slice
-    slice_report, launches = slice_phase(torch, dev)
-    report["slice"] = slice_report
+    # ------------------------------------------------------ 4. the slices
+    counters = {"cutmix_normalize": cmn.cutmix_normalize_triton, "stem_fwd": stem.stem_fwd_cuda,
+                "stem_dw": stem.stem_dw_cuda, "branch_conv_fwd": branch_conv.conv3x3_fwd_cuda,
+                "branch_conv_dw": branch_conv.conv3x3_dw_cuda}
+    none = {k: 0 for k in counters}
+    report["slice_config3"], launches3 = slice_phase(torch, "config 3", CONFIG3, {
+        "data.synthetic_canvas": 512, "data.synthetic_size": 48, "data.cutmix_impl": "pallas",
+        "model.stem_impl": "pallas"}, counters,
+        {**none, "cutmix_normalize": 1, "stem_fwd": 2, "stem_dw": 1}, steps=8)
+    # D: 8 modules x 2 eligible branches (48 and 96 ch) x 4 blocks x 2 convs
+    # = 128 per forward: teacher 128 + student 128 + stage 3's 4 modules
+    # re-run by the checkpoint (64) + the dx convs (128); E: 128.
+    report["slice_config5"], launches5 = slice_phase(torch, "config 5", CONFIG5, {
+        "data.synthetic_canvas": 1024, "data.synthetic_size": 8,
+        "train.labeled_batch_size": 4, "train.unlabeled_batch_size": 4}, counters,
+        {**none, "branch_conv_fwd": 448, "branch_conv_dw": 128}, steps=8)
+    launches = {**launches3, "branch_conv_fwd": launches5["branch_conv_fwd"],
+                "branch_conv_dw": launches5["branch_conv_dw"]}
 
     meta = {
         "cutmix_normalize": ("triton", "semi_supervised_semantic_segmentation_tpu_torch/ops/cutmix_normalize.py",
@@ -236,6 +274,10 @@ def main() -> None:
                      "semi_supervised_semantic_segmentation_tpu/ops/pallas_stem.py:206"),
         "stem_dw": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/stem.cu",
                     "semi_supervised_semantic_segmentation_tpu/ops/pallas_stem.py:235"),
+        "branch_conv_fwd": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
+                            "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:328"),
+        "branch_conv_dw": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
+                           "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:536"),
     }
     records = []
     for kname, (route, source, replaces) in meta.items():
@@ -247,14 +289,101 @@ def main() -> None:
             "library_ms": k["library_ms"],
         })
     report["kernels"] = records
+    report["failures"] = FAILURES
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
+    if FAILURES:
+        fail(f"{len(FAILURES)} check(s) failed: {FAILURES}")
 
     print(f"card: {smi_line}", flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
+
+
+def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak):
+    """Kernels D and E at config 5's two eligible branch shapes (N = 8, the
+    student's [labeled; unlabeled] batch): D plain + stats, D pre + stats
+    and D as the dx conv (flipped weights, no stats); E with the stats
+    cotangent fused, without and with the input transform.  Each against
+    its plain version on the same inputs: y within one bf16 ulp, stats
+    within 1e-3 of each row's max, dk within 1e-3 of max|dk|, dY exact."""
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(5)
+    d_rows, e_rows = {}, {}
+    for n, c, h in ((8, 48, 256), (8, 96, 128)):
+        tag = f"N{n}_C{c}_{h}x{h}"
+        x = torch.randn(n, c, h, h, generator=g, device=dev).to(bf16)
+        w = torch.randn(c, c, 3, 3, generator=g, device=dev) / (3.0 * c ** 0.5)
+        mul = torch.rand(c, generator=g, device=dev) + 0.5
+        add = torch.randn(c, generator=g, device=dev) * 0.1
+        dy = (torch.randn(n, c, h, h, generator=g, device=dev) * 1e-2).to(bf16)
+        ds = torch.randn(2, c, generator=g, device=dev) * 1e-3
+        act = x.numel() * 2
+        flops = 2.0 * n * h * h * c * 9 * c
+        w_bf = w.to(bf16)
+        lib_fwd = time_ms(lambda: F.conv2d(x, w_bf, padding=1))
+        for mode, pre, stats, flip in (("stats", (), True, False),
+                                       ("pre+stats", (mul, add), True, False),
+                                       ("dx", (), False, True)):
+            src = dy if flip else x
+            y, s = bc.conv3x3_fwd_cuda(src, w, *pre, stats=stats, flip=flip)
+            torch.cuda.synchronize()
+            yp, sp = bc.conv3x3_fwd_plain(src, w, *pre, stats=stats, flip=flip)
+            err = (y.float() - yp.float()).abs()
+            check(bool((err <= 2.0 ** -7 * yp.float().abs() + 1e-4).all()),
+                  f"D {tag} {mode}: y differs from the plain version by {err.max().item()}")
+            if stats:
+                err_s = (s - sp).abs()
+                check(bool((err_s <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all()),
+                      f"D {tag} {mode}: stats differ by {err_s.max().item()}")
+            row = {
+                "ms": time_ms(lambda: bc.conv3x3_fwd_cuda(src, w, *pre, stats=stats, flip=flip)),
+                "plain_ms": time_ms(lambda: bc.conv3x3_fwd_plain(src, w, *pre, stats=stats,
+                                                                  flip=flip)),
+                # the conv alone: no transform, no statistics
+                "library_ms": lib_fwd,
+                "max_abs_err": err.max().item(),
+            }
+            nbytes = 2 * act + w.numel() * 4 + (2 * c * 4 if pre else 0) + (2 * c * 4 if stats else 0)
+            row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf16_peak)
+            d_rows[f"{tag} {mode}"] = row
+            print(f"[kernel D branch_conv_fwd] {tag} {mode}: max|dy|={row['max_abs_err']:.3g}  "
+                  f"kernel {row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms  F.conv2d "
+                  f"{row['library_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+                  flush=True)
+            del y, yp
+        y, _ = bc.conv3x3_fwd_cuda(x, w)
+        dY_lib = bc.fold_stats_cotangent(dy, y, ds)
+        lib_dw = time_ms(lambda: torch.nn.grad.conv2d_weight(x, w.shape, dY_lib, padding=1))
+        for mode, pre in (("fuse", ()), ("fuse+pre", (mul, add))):
+            dk, dY = bc.conv3x3_dw_cuda(x, dy, y, ds, *pre)
+            torch.cuda.synchronize()
+            dkp, dYp = bc.conv3x3_dw_plain(x, dy, y, ds, *pre)
+            check(torch.equal(dY, dYp), f"E {tag} {mode}: dY is not bit-equal to the plain version "
+                  f"({(dY.float() - dYp.float()).abs().max().item()})")
+            err = (dk - dkp).abs().max().item()
+            check(err <= 1e-3 * dkp.abs().max().item(),
+                  f"E {tag} {mode}: dk differs by {err} (max|dk| {dkp.abs().max().item()})")
+            row = {
+                "ms": time_ms(lambda: bc.conv3x3_dw_cuda(x, dy, y, ds, *pre)),
+                "plain_ms": time_ms(lambda: bc.conv3x3_dw_plain(x, dy, y, ds, *pre)),
+                # the weight gradient alone: no fold, no transform
+                "library_ms": lib_dw,
+                "max_abs_err": err,
+            }
+            nbytes = 4 * act + ds.numel() * 4 + (2 * c * 4 if pre else 0) + w.numel() * 4
+            row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf16_peak)
+            e_rows[f"{tag} {mode}"] = row
+            print(f"[kernel E branch_conv_dw] {tag} {mode}: dY exact, max|ddk|={err:.3g} (max|dk| "
+                  f"{dkp.abs().max().item():.3g})  kernel {row['ms']:.3f} ms  plain "
+                  f"{row['plain_ms']:.3f} ms  conv2d_weight {row['library_ms']:.3f} ms  bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+            del dk, dY, dkp, dYp
+        del x, dy, y, dY_lib
+    return d_rows, e_rows
 
 
 def _to(obj, dev):
@@ -269,8 +398,43 @@ def _to(obj, dev):
     return obj
 
 
+def step_losses(torch, dev, cfg, num_classes: int, seed: int, dropout):
+    """One FixMatch step of ``cfg`` (2 + 2 images at its crop, random
+    weights from seed 0) on the card and on the CPU, from the same batches
+    and draws (``dropout``: the ASPP keep-mask, or None): (loss, sup, unsup)
+    of each, computed before the update."""
+    import numpy as np
+
+    from semi_supervised_semantic_segmentation_tpu_torch.methods import common, fixmatch
+    from semi_supervised_semantic_segmentation_tpu_torch.models import build_model
+
+    crop = cfg.data.crop_size
+    rng = np.random.RandomState(seed)
+
+    def batch(labeled: bool):
+        img = (rng.rand(2, crop, crop, 3) * 255).astype(np.uint8)
+        lab = (rng.randint(0, num_classes, (2, crop, crop)) if labeled
+               else np.full((2, crop, crop), 255)).astype(np.int32)
+        return {"image": img, "label": lab, "size": np.full((2, 2), crop, np.int32)}
+
+    bl, bu = batch(True), batch(False)
+    draws = fixmatch.draw(cfg, common.to_device(bl, "cpu"), common.to_device(bu, "cpu"),
+                          common.step_generator(1, 0, "cpu"))
+    draws.dropout = dropout
+    step_fn = fixmatch.make_train_step(cfg, 10)
+    runs = {}
+    for where in (dev, "cpu"):
+        state = fixmatch.init_state(cfg, build_model(cfg, seed=0).to(where), 10)
+        m = step_fn(state, common.to_device(bl, where), common.to_device(bu, where),
+                    _to(draws, where))
+        runs[str(where)] = np.array([float(m[k]) for k in ("loss", "sup_loss", "unsup_loss")])
+    check(bool(np.all(np.isfinite(runs[str(dev)]))),
+          f"reference: non-finite losses on the card {runs[str(dev)]}")
+    return runs[str(dev)], runs["cpu"]
+
+
 def reference_phase(torch, dev) -> dict:
-    """The kernels inside the model against the plain path on the CPU, at a
+    """The kernels inside the models against the plain path on the CPU, at a
     small size, from the same weights and inputs:
 
     (a) the stem segment (kernel B, BatchNorm folded from the kernel's own
@@ -279,16 +443,21 @@ def reference_phase(torch, dev) -> dict:
         goes through kernel C with the statistics' cotangent ds != 0;
     (b) one FixMatch step at crop 64 (2 + 2 images, bf16) on the card
         (kernels A, B and C) and on the CPU (plain versions): the step's
-        losses, which are computed before its update.
+        losses, which are computed before its update;
+    (c) an HRModule with branches (16, 32) at H 64 / 32, both through the
+        fused branch flow (kernels D and E), forward and backward in train
+        mode: outputs, running statistics and every gradient (as one
+        vector, beside the CPU's own spread under a tiny perturbation);
+    (d) one config-5 FixMatch step (OHEM, ``branch_conv=pallas``, remat
+        'stages:3') on a width-8 HRNet at crop 256 (branches 0 and 1
+        eligible), 2 + 2 images in bf16: the step's losses.
 
-    Only the first step is compared: a randomly initialised R50 at crop 64
+    Only first steps are compared: a randomly initialised R50 at crop 64
     is numerically chaotic (tests/test_torch_fixmatch.py), so later steps
     of two backends part for reasons that are not the kernels'."""
     import numpy as np
 
     from semi_supervised_semantic_segmentation_tpu_torch.config import load_config
-    from semi_supervised_semantic_segmentation_tpu_torch.methods import common, fixmatch
-    from semi_supervised_semantic_segmentation_tpu_torch.models import build_model
     from semi_supervised_semantic_segmentation_tpu_torch.models.layers import StemSegment
 
     out = {}
@@ -339,56 +508,112 @@ def reference_phase(torch, dev) -> dict:
         "data.cutmix_impl": "pallas", "train.labeled_batch_size": 2,
         "train.unlabeled_batch_size": 2, "method.conf_thresh": 0.0,
     })
-    rng = np.random.RandomState(0)
-
-    def batch(labeled: bool):
-        img = (rng.rand(2, crop, crop, 3) * 255).astype(np.uint8)
-        lab = (rng.randint(0, 21, (2, crop, crop)) if labeled
-               else np.full((2, crop, crop), 255)).astype(np.int32)
-        return {"image": img, "label": lab, "size": np.full((2, 2), crop, np.int32)}
-
-    bl, bu = batch(True), batch(False)
-    draws = fixmatch.draw(cfg, common.to_device(bl, "cpu"), common.to_device(bu, "cpu"),
-                          common.step_generator(1, 0, "cpu"))
-    draws.dropout = torch.rand(4, 256, crop // 16, crop // 16,
-                               generator=torch.Generator().manual_seed(0)) < 0.5
-    step_fn = fixmatch.make_train_step(cfg, 10)
-    runs = {}
-    for where in (dev, "cpu"):
-        state = fixmatch.init_state(cfg, build_model(cfg, seed=0).to(where), 10)
-        m = step_fn(state, common.to_device(bl, where), common.to_device(bu, where),
-                    _to(draws, where))
-        runs[str(where)] = np.array([float(m[k]) for k in ("loss", "sup_loss", "unsup_loss")])
-    lg, lc = runs[str(dev)], runs["cpu"]
-    check(bool(np.all(np.isfinite(lg))), f"reference: non-finite losses on the card {lg}")
+    keep = torch.rand(4, 256, crop // 16, crop // 16,
+                      generator=torch.Generator().manual_seed(0)) < 0.5
+    lg, lc = step_losses(torch, dev, cfg, 21, 0, keep)
     rel = np.abs(lg - lc) / np.maximum(np.abs(lc), 1e-3)
     check(float(rel.max()) < 5e-2, f"reference: losses card {lg.tolist()} vs cpu {lc.tolist()}")
     print(f"[reference] FixMatch step, crop {crop}, 2+2 bf16: (loss, sup, unsup) card "
           f"{lg.tolist()} cpu {lc.tolist()} max rel {rel.max():.3g} (tolerance 5e-2: bf16 "
           f"convolutions of two backends through 60 layers)", flush=True)
     out["fixmatch_step"] = {"losses_card": lg.tolist(), "losses_cpu": lc.tolist()}
+
+    # ---- (c) HRModule, branches (16, 32), both through kernels D and E
+    from semi_supervised_semantic_segmentation_tpu_torch.models.hrnet import HRModule
+
+    g = torch.Generator().manual_seed(4)
+    xs = [torch.randn(2, 16, 64, 48, generator=g).to(torch.bfloat16),
+          torch.randn(2, 32, 32, 24, generator=g).to(torch.bfloat16)]
+    cots = [torch.randn(x.shape, generator=g) for x in xs]
+    mod0 = HRModule((16, 32), branch_conv="pallas")
+    with torch.no_grad():
+        for name, prm in mod0.named_parameters():
+            if "BatchNorm" in name:  # non-trivial folds for the kernels' input transform
+                prm.add_(0.1 * torch.randn(prm.shape, generator=g))
+    def hrmodule_run(where, perturb=0.0):
+        mod = copy.deepcopy(mod0)
+        if perturb:
+            with torch.no_grad():
+                for prm in mod.parameters():
+                    prm.mul_(1.0 + perturb * torch.randn(prm.shape, generator=g))
+        mod = mod.to(where).train()
+        ins = [x.to(where).clone().requires_grad_() for x in xs]
+        outs = mod(ins)
+        sum((o.float() * c.to(where)).sum() for o, c in zip(outs, cots)).backward()
+        grads = {k: prm.grad.float().cpu() for k, prm in mod.named_parameters()}
+        grads.update({f"input{i}": t.grad.float().cpu() for i, t in enumerate(ins)})
+        return ([o.detach().float().cpu() for o in outs],
+                {k: v.float().cpu() for k, v in mod.state_dict().items() if "running_" in k}, grads)
+
+    def vec_rel(a, b):
+        num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
+        return math.sqrt(num / sum(float((b[k] ** 2).sum()) for k in b))
+
+    (oc, sc, gc), (op, sp, gp) = hrmodule_run(dev), hrmodule_run("cpu")
+    for i, (a, b) in enumerate(zip(oc, op)):
+        # one-ulp differences of y move the BN fold, the fma, the residual
+        # and the fuse sum by a few bf16 ulps each: 2^-5 relative + 5e-2
+        err = (a - b).abs()
+        check(bool((err <= 2.0 ** -5 * b.abs() + 5e-2).all()),
+              f"reference: HRModule output {i} differs by {err.max().item()}")
+    for k in sp:
+        # batch statistics of outputs that differ by a few bf16 ulps (the
+        # outputs' bound above), relative to each tensor's own scale
+        err = (sc[k] - sp[k]).abs().max().item()
+        check(err <= 5e-2 * sp[k].abs().max().item() + 1e-3,
+              f"reference: HRModule {k} differs by {err}")
+    # The gradients of this module in bf16 at random init are chaotic: the
+    # CPU's own move about as far as the card's differ when its weights
+    # move by 1e-6 (relative), far below a bf16 ulp; the line below prints
+    # that spread.  So they are compared as one vector, against 0.25; a
+    # wrong kernel gradient moves it by O(1).
+    rel = vec_rel(gc, gp)
+    self_rel = vec_rel(hrmodule_run("cpu", 1e-6)[2], gp)
+    check(rel <= 0.25, f"reference: HRModule gradients differ by {rel:.3g} as one vector")
+    worst = {k: (gc[k] - b).abs().max().item() / max(b.abs().max().item(), 1e-12)
+             for k, b in gp.items()}
+    k_worst = max(worst, key=worst.get)
+    print(f"[reference] HRModule (16, 32) at H 64/32, bf16, train fwd+bwd through D and E: "
+          f"outputs max|d| {max((a - b).abs().max().item() for a, b in zip(oc, op)):.3g}; "
+          f"gradients as one vector {rel:.3g} relative (tolerance 0.25; the CPU against itself "
+          f"under a 1e-6 weight perturbation: {self_rel:.3g}); worst single tensor {k_worst} "
+          f"{worst[k_worst]:.3g}", flush=True)
+    out["hrmodule"] = {"grad_vec_rel": rel, "cpu_self_rel": self_rel, "grad_rel": worst}
+
+    # ---- (d) one config-5 FixMatch step on a width-8 HRNet
+    crop = 256
+    cfg5 = load_config(CONFIG5, {
+        "data.dataset": "synthetic", "data.crop_size": crop, "model.hrnet_width": 8,
+        "model.hrnet_modules": (1, 1, 1), "train.labeled_batch_size": 2,
+        "train.unlabeled_batch_size": 2, "method.conf_thresh": 0.0,
+    })
+    lg, lc = step_losses(torch, dev, cfg5, 19, 1, None)  # the HRNet head has no dropout
+    rel = np.abs(lg - lc) / np.maximum(np.abs(lc), 1e-3)
+    check(float(rel.max()) < 5e-2, f"reference: config-5 losses card {lg.tolist()} vs cpu {lc.tolist()}")
+    print(f"[reference] config-5 FixMatch step (OHEM, branch_conv=pallas, remat stages:3), width-8 "
+          f"HRNet, crop {crop}, 2+2 bf16: (loss, sup, unsup) card {lg.tolist()} cpu {lc.tolist()} "
+          f"max rel {rel.max():.3g} (tolerance 5e-2)", flush=True)
+    out["config5_step"] = {"losses_card": lg.tolist(), "losses_cpu": lc.tolist()}
     return out
 
 
-def slice_phase(torch, dev):
-    """Config 3 through the Trainer: 8 + 8 images at 512^2 for a few steps.
-    Steps 3-6 are timed; the last two run under torch.profiler for the
-    breakdown of device time by kernel."""
+def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: dict,
+                expected: dict, steps: int):
+    """One config through the Trainer on synthetic data for ``steps`` steps.
+    Every launch counter is set to 0 just before and read just after; each
+    step must launch each kernel ``expected`` times.  Steps 3..steps-2 are
+    timed; the last two run under torch.profiler for the breakdown of device
+    time by kernel."""
     from semi_supervised_semantic_segmentation_tpu_torch.config import load_config
     from semi_supervised_semantic_segmentation_tpu_torch.engine.trainer import Trainer
-    from semi_supervised_semantic_segmentation_tpu_torch.ops import cutmix_normalize as cmn
-    from semi_supervised_semantic_segmentation_tpu_torch.ops import stem
 
-    steps, warm, profiled = 8, 2, 2
-    cfg = load_config(CONFIG3, {
-        "data.dataset": "synthetic", "data.synthetic_canvas": 512, "data.synthetic_size": 48,
-        "data.cutmix_impl": "pallas", "model.stem_impl": "pallas", "data.num_workers": 8,
-        "train.iters_per_epoch": steps, "train.epochs": 1, "train.log_interval": 1,
-        "train.work_dir": os.path.join(OUT_DIR, "chip_smoke_run"),
+    warm, profiled = 2, 2
+    cfg = load_config(config_path, {
+        "data.dataset": "synthetic", "data.num_workers": 8, "train.iters_per_epoch": steps,
+        "train.epochs": 1, "train.log_interval": 1,
+        "train.work_dir": os.path.join(OUT_DIR, f"chip_smoke_{label.replace(' ', '')}"),
+        **overrides,
     })
-    counters = {"cutmix_normalize": cmn.cutmix_normalize_triton,
-                "stem_fwd": stem.stem_fwd_cuda, "stem_dw": stem.stem_dw_cuda}
-    expected = {"cutmix_normalize": 1, "stem_fwd": 2, "stem_dw": 1}
     trainer = Trainer(cfg)  # default device: CUDA
     inner = trainer.train_step
     per_step, losses, times = [], [], []
@@ -419,20 +644,22 @@ def slice_phase(torch, dev):
         f.launches = 0
     trainer.fit()
     launches = {k: f.launches for k, f in counters.items()}
-    check(len(losses) == steps, f"slice: ran {len(losses)} steps, expected {steps}")
-    check(all(math.isfinite(v) for v in losses), f"slice: non-finite loss {losses}")
+    check(len(losses) == steps, f"{label}: ran {len(losses)} steps, expected {steps}")
+    check(all(math.isfinite(v) for v in losses), f"{label}: non-finite loss {losses}")
     for i, d in enumerate(per_step):
-        check(d == expected, f"slice: step {i} launched {d}, expected {expected}")
-    check(all(launches[k] == steps * expected[k] for k in expected), f"slice: launches {launches}")
+        check(d == expected, f"{label}: step {i} launched {d}, expected {expected}")
+    check(all(launches[k] == steps * expected[k] for k in expected),
+          f"{label}: launches {launches}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     timed = times[warm:steps - profiled]
     ms = statistics.median(timed) * 1e3
     imgs = cfg.train.labeled_batch_size + cfg.train.unlabeled_batch_size
-    print(f"[slice] config 3 synthetic, {cfg.train.labeled_batch_size}+"
-          f"{cfg.train.unlabeled_batch_size} at {cfg.data.crop_size}^2, {steps} steps: losses "
-          f"{[round(v, 4) for v in losses]}; launches per step {per_step[-1]}; "
-          f"{ms:.1f} ms/step (median of steps {warm + 1}-{steps - profiled}) = {imgs / ms * 1e3:.1f} img/s; "
-          f"peak memory {peak_gb:.2f} GB; step times s {[round(t, 3) for t in times]}", flush=True)
+    print(f"[slice] {label} synthetic, {cfg.model.backbone}+{cfg.model.decoder}, "
+          f"{cfg.train.labeled_batch_size}+{cfg.train.unlabeled_batch_size} at "
+          f"{cfg.data.crop_size}^2, {steps} steps: losses {[round(v, 4) for v in losses]}; "
+          f"launches per step {per_step[-1]}; {ms:.1f} ms/step (median of steps "
+          f"{warm + 1}-{steps - profiled}) = {imgs / ms * 1e3:.2f} img/s; peak memory "
+          f"{peak_gb:.2f} GB; step times s {[round(t, 3) for t in times]}", flush=True)
     breakdown = device_breakdown(torch, prof, (window[1] - window[0]) * 1e3, profiled)
     return ({"losses": losses, "step_s": times, "ms_per_step": ms,
              "img_per_s": imgs / ms * 1e3, "peak_gb": peak_gb, "per_step_launches": per_step,
@@ -442,6 +669,8 @@ def slice_phase(torch, dev):
 # lower-cased kernel-name fragments -> group, first match wins
 GROUPS = [
     ("stem kernels (B, C)", ("stem_fwd_kernel", "stem_dw_kernel", "reduce_partials_kernel")),
+    ("branch conv kernels (D, E)", ("conv_fwd_kernel", "conv_dw_kernel", "reduce_rows_kernel",
+                                    "reduce_dk_kernel")),
     ("cutmix kernel (A)", ("_cutmix_normalize_kernel",)),
     ("cuDNN layout transforms", ("nchwtonhwc", "nhwctonchw")),
     ("conv / GEMM (cuDNN, cuBLAS)", ("cudnn", "conv", "xmma", "gemm", "cutlass", "sm90",

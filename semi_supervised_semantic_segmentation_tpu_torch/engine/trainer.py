@@ -101,11 +101,13 @@ class Trainer:
         os.makedirs(t.work_dir, exist_ok=True)
         save_config(cfg, os.path.join(t.work_dir, "config.json"))
         self._metrics_path = os.path.join(t.work_dir, "metrics.jsonl")
-        log.info("device=%s (%s) model=%s/%s stem_impl=%s cutmix_impl=%s steps=%d",
+        log.info("device=%s (%s) model=%s/%s stem_impl=%s branch_conv=%s remat=%s "
+                 "cutmix_impl=%s sup_loss=%s steps=%d",
                  self.device, torch.cuda.get_device_name(self.device)
                  if self.device.type == "cuda" else "cpu",
                  cfg.model.backbone, cfg.model.decoder, cfg.model.stem_impl,
-                 cfg.data.cutmix_impl, self.total_steps)
+                 cfg.model.branch_conv, cfg.model.remat, cfg.data.cutmix_impl,
+                 cfg.method.sup_loss, self.total_steps)
 
     def _pairs(self, start_epoch: int):
         epoch = start_epoch

@@ -1,6 +1,7 @@
 """Shared plumbing of the SSL methods (counterpart of ``methods/common.py``):
 the per-step generator, batch transfer, the weak / strong views and the
-normalization, each taking its sampled parameters explicitly."""
+normalization, each taking its sampled parameters explicitly, and the
+supervised loss that ``method.sup_loss`` selects."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import numpy as np
 import torch
 
 from semi_supervised_semantic_segmentation_tpu_torch.config import Config
-from semi_supervised_semantic_segmentation_tpu_torch.ops import augment
+from semi_supervised_semantic_segmentation_tpu_torch.ops import augment, losses
 
 Batch = Dict[str, torch.Tensor]
 
@@ -64,3 +65,13 @@ def strong_view(cfg: Config, images01: torch.Tensor, params: augment.StrongParam
 
 def normalize(cfg: Config, images01: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return augment.normalize_images(images01, tuple(cfg.data.mean), tuple(cfg.data.std), dtype)
+
+
+def sup_loss_fn(cfg: Config):
+    """The supervised pixel loss of ``method.sup_loss``: CE with the ignore
+    index, or OHEM (hard-pixel mining, the Cityscapes HRNet recipe)."""
+    m, ignore = cfg.method, cfg.data.ignore_index
+    if m.sup_loss == "ohem":
+        return lambda logits, labels: losses.ohem_cross_entropy(
+            logits, labels, ignore, m.ohem_thresh, m.ohem_min_kept)
+    return lambda logits, labels: losses.cross_entropy(logits, labels, ignore)

@@ -1,4 +1,4 @@
-"""FixMatch-style pseudo-labeling with CutMix (config 3).
+"""FixMatch-style pseudo-labeling with CutMix (configs 3 and 5).
 
 Follows the reference's ``methods/fixmatch.py`` step:
   weak views of both batches; strong view of the unlabeled one;
@@ -6,7 +6,7 @@ Follows the reference's ``methods/fixmatch.py`` step:
   padding -> ignore BEFORE CutMix; CutMix of the strong image, pseudo-label
   and confidence with the roll-by-1 partner, then normalize (kernel A when
   ``data.cutmix_impl=pallas``);
-  one student forward over [labeled; mixed]; CE + lambda * masked CE;
+  one student forward over [labeled; mixed]; CE or OHEM + lambda * masked CE;
   SGD; EMA update of parameters and BN running statistics.
 
 Every random parameter of a step is drawn up front (:func:`draw`) from a
@@ -67,8 +67,7 @@ def init_state(cfg: Config, model: torch.nn.Module, total_steps: int) -> TrainSt
 
 def make_train_step(cfg: Config, total_steps: int):
     m = cfg.method
-    if m.sup_loss != "ce":
-        raise NotImplementedError(f"method.sup_loss={m.sup_loss!r} is not yet ported")
+    sup_fn = common.sup_loss_fn(cfg)
     ignore = cfg.data.ignore_index
     mean, std = tuple(cfg.data.mean), tuple(cfg.data.std)
 
@@ -104,7 +103,7 @@ def make_train_step(cfg: Config, total_steps: int):
 
         model.train()
         logits = model(torch.cat([xl, xu_s], dim=0), draws.dropout)
-        sup = losses.cross_entropy(logits[:nl], y, ignore)
+        sup = sup_fn(logits[:nl], y)
         unsup = losses.confidence_masked_ce(logits[nl:], pseudo, conf, ignore, normalize="all")
         loss = sup + lam * unsup
         state.optimizer.zero_grad()

@@ -9,13 +9,44 @@ layout.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
+from semi_supervised_semantic_segmentation_tpu_torch.ops import branch_conv
 from semi_supervised_semantic_segmentation_tpu_torch.ops.stem import stem_conv_bn
+
+_RECOMPUTE = threading.local()
+
+
+def recomputing() -> bool:
+    """True while :func:`checkpoint` re-runs a forward for the backward."""
+    return getattr(_RECOMPUTE, "on", False)
+
+
+@contextlib.contextmanager
+def _recompute_scope():
+    prev, _RECOMPUTE.on = recomputing(), True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = prev
+
+
+def checkpoint(fn, *args):
+    """Activation checkpointing (the reference's ``nn.remat``): ``fn``'s
+    activations are not kept; the backward re-runs its forward.  Unlike
+    flax's remat, torch re-runs the module code, so the re-run is marked
+    (:func:`recomputing`) and BatchNorm does not update its running
+    statistics a second time.  ``fn`` draws no random numbers."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recompute_scope()))
 
 
 class Conv2d(nn.Conv2d):
@@ -43,10 +74,11 @@ class BatchNorm(nn.Module):
 
     Normal mode is ``F.batch_norm`` (cuDNN on the card).  Folded mode
     (:meth:`fold`) takes the per-channel (sum, sum of squares) [2, C] of
-    ``count`` elements -- the stem kernel's own statistics -- updates the
-    running stats identically and returns the f32 (mul, add) pair for the
-    caller to apply; it is differentiable in the sums, so their cotangent
-    reaches the kernel's backward."""
+    ``count`` elements -- a kernel's own statistics -- updates the running
+    stats identically and returns the f32 (mul, add) pair for the caller to
+    apply; it is differentiable in the sums, so their cotangent reaches the
+    kernel's backward.  Neither mode updates the running statistics while a
+    checkpointed forward is re-run (:func:`recomputing`)."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -58,22 +90,30 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            self.training, 1.0 - self.momentum, self.eps)
+        rm, rv = self.running_mean, self.running_var
+        if self.training and recomputing():
+            # a re-run updates copies (the same ops save the same tensors)
+            rm, rv = rm.clone(), rv.clone()
+        return F.batch_norm(x, rm, rv, self.weight, self.bias, self.training,
+                            1.0 - self.momentum, self.eps)
 
     def fold(self, sums: torch.Tensor, count: int) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.training:
             mean = sums[0] / count
             var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                unbiased = var * (count / max(count - 1, 1))
-                self.running_mean.mul_(m).add_((1.0 - m) * mean)
-                self.running_var.mul_(m).add_((1.0 - m) * unbiased)
+            if not recomputing():
+                self._update_running(mean.detach(), var.detach(), count)
         else:
             mean, var = self.running_mean, self.running_var
         mul = self.weight * torch.rsqrt(var + self.eps)
         return mul, self.bias - mean * mul
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor, count: int) -> None:
+        m = self.momentum
+        unbiased = var * (count / max(count - 1, 1))
+        self.running_mean.mul_(m).add_((1.0 - m) * mean)
+        self.running_var.mul_(m).add_((1.0 - m) * unbiased)
 
 
 class Norm(nn.Module):
@@ -101,6 +141,25 @@ class ConvNormAct(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.Norm_0(self.Conv_0(x))
         return F.relu(x) if self.act else x
+
+    def raw(self, x: torch.Tensor, fold: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """The fused branch-chain flow (the reference's NCHW
+        ``ConvNormAct(raw_out=True)`` over ``PallasConvBN``): a stride-1 3x3
+        conv through ``ops.branch_conv`` (kernels D and E on the card) that
+        applies the previous layer's folded BatchNorm + ReLU ``fold`` to its
+        input inside the kernel, and returns the conv output before its own
+        BatchNorm with that BatchNorm's folded f32 (mul, add), computed from
+        the kernel's statistics.  The caller applies the pair (or hands it
+        to the next conv) and the activation."""
+        conv = self.Conv_0
+        x = x.to(conv.compute_dtype)
+        if not (conv.kernel_size == (3, 3) and conv.stride == (1, 1) and conv.dilation == (1, 1)
+                and branch_conv.supported(x.shape, x.shape[1], conv.out_channels)):
+            raise ValueError(f"fused branch conv needs a stride-1 3x3 conv with C_in == C_out "
+                             f"<= 128 and H % 32 == 0, got {tuple(x.shape)} -> {conv.out_channels}")
+        y, sums = branch_conv.conv3x3_bn_nchw(x, conv.weight, *(fold or ()))
+        n, _, h, w = y.shape
+        return y, self.Norm_0.BatchNorm_0.fold(sums, n * h * w)
 
 
 class StemSegment(nn.Module):

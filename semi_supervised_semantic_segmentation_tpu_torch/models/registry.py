@@ -1,23 +1,38 @@
 """Model registry: (backbone, decoder) -> ``SegModel``.
 
-Counterpart of the reference's ``models/registry.py`` for ResNet-50 +
-DeepLabV3+; other backbones and decoders raise until their slice is ported
-(ROADMAP.md Queue 1).
+Counterpart of the reference's ``models/registry.py`` for the backbones
+ResNet-50 and HRNet-W48 and the decoders DeepLabV3+ and the HRNetV2 head;
+the others (ResNet-18/101, U-Net) raise until their slice is ported
+(ROADMAP.md Queue 1).  ``model.hrnet_width`` / ``model.hrnet_modules``
+(default 48 and (1, 4, 3), the reference's fixed W48) size the HRNet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from semi_supervised_semantic_segmentation_tpu_torch.config import Config
 from semi_supervised_semantic_segmentation_tpu_torch.models.deeplab import DeepLabV3Plus
+from semi_supervised_semantic_segmentation_tpu_torch.models.hrnet import HRNet, HRNetV2Head
 from semi_supervised_semantic_segmentation_tpu_torch.models.resnet import ResNet
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def remat_stages(remat: str) -> Tuple[int, ...]:
+    """A remat plan string -> HRNet stage ids (1 = layer1)."""
+    if remat in ("", "none"):
+        return ()
+    if remat in ("blocks", "branches"):
+        return (1, 2, 3, 4)
+    for prefix in ("stages:", "branches:"):
+        if remat.startswith(prefix):
+            return tuple(int(s) for s in remat[len(prefix):].split(",") if s)
+    raise ValueError(f"unknown remat plan: {remat!r}")
 
 
 class SegModel(nn.Module):
@@ -29,17 +44,36 @@ class SegModel(nn.Module):
                  num_classes: int = 21, output_stride: int = 16, bn_momentum: float = 0.9,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  aspp_dilations: Sequence[int] = (6, 12, 18), decoder_channels: int = 256,
-                 stem_impl: str = "conv"):
+                 stem_impl: str = "conv", remat: str = "", branch_conv: str = "xla",
+                 head_fuse: str = "conv_first", hrnet_width: int = 48,
+                 hrnet_modules: Tuple[int, int, int] = (1, 4, 3)):
         super().__init__()
-        if backbone != "resnet50":
-            raise NotImplementedError(f"backbone {backbone!r} is not yet ported")
-        if decoder != "deeplabv3plus":
-            raise NotImplementedError(f"decoder {decoder!r} is not yet ported")
         self.compute_dtype = compute_dtype
-        self.encoder = ResNet(backbone, output_stride, bn_momentum, compute_dtype, stem_impl)
-        rates = tuple(r * (16 // output_stride) for r in aspp_dilations)
-        self.decoder = DeepLabV3Plus(num_classes, features=decoder_channels, dilations=rates,
-                                     bn_momentum=bn_momentum, compute_dtype=compute_dtype)
+        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype)
+        if backbone == "resnet50":
+            if remat not in ("", "none"):
+                raise NotImplementedError(f"model.remat={remat!r} is not yet ported for ResNet")
+            self.encoder = ResNet(backbone, output_stride if decoder == "deeplabv3plus" else 32,
+                                  stem_impl=stem_impl, **kw)
+            chans = (256, 512, 1024, 2048)
+        elif backbone == "hrnet_w48":
+            # 's2d' and 'pallas' stems are the reference's TPU formulations
+            # of the same 3x3 convs; 'branches' plans checkpoint only blocks
+            self.encoder = HRNet(
+                hrnet_width, stage_modules=hrnet_modules, remat_stages=remat_stages(remat),
+                remat_scope="branch_blocks" if remat.startswith("branches") else "module",
+                branch_conv=branch_conv, **kw)
+            chans = self.encoder.branch_widths
+        else:
+            raise NotImplementedError(f"backbone {backbone!r} is not yet ported")
+        if decoder == "deeplabv3plus":
+            rates = tuple(r * (16 // output_stride) for r in aspp_dilations)
+            self.decoder = DeepLabV3Plus(num_classes, in_channels=chans[3], low_channels=chans[0],
+                                         features=decoder_channels, dilations=rates, **kw)
+        elif decoder == "hrnet_head":
+            self.decoder = HRNetV2Head(num_classes, chans, fuse_order=head_fuse, **kw)
+        else:
+            raise NotImplementedError(f"decoder {decoder!r} is not yet ported")
 
     def forward(self, x: torch.Tensor, rng: Optional[object] = None) -> torch.Tensor:
         return self.decoder(self.encoder(x), (x.shape[1], x.shape[2]), rng)
@@ -63,15 +97,16 @@ def build_model(cfg: Config, seed: Optional[int] = None) -> SegModel:
     m = cfg.model
     if m.norm != "batchnorm":
         raise NotImplementedError(f"model.norm={m.norm!r} is not yet ported")
-    if m.remat not in ("", "none"):
-        raise NotImplementedError(f"model.remat={m.remat!r} is not yet ported")
-    # 's2d' is the reference's TPU-layout formulation of the same conv.
+    # 's2d' is the reference's TPU-layout formulation of the same conv, and
+    # so is fuse_impl='s2d' of HRNet's stride-2 convs: both map to the plain conv.
     stem_impl = "pallas" if m.stem_impl == "pallas" else "conv"
     model = SegModel(
         backbone=m.backbone, decoder=m.decoder, num_classes=cfg.data.num_classes,
         output_stride=m.output_stride, bn_momentum=m.bn_momentum,
         compute_dtype=DTYPES[m.compute_dtype], aspp_dilations=m.aspp_dilations,
         decoder_channels=m.decoder_channels, stem_impl=stem_impl,
+        remat="" if m.remat == "none" else m.remat, branch_conv=m.branch_conv,
+        head_fuse=m.head_fuse, hrnet_width=m.hrnet_width, hrnet_modules=tuple(m.hrnet_modules),
     )
     init_weights(model, cfg.train.seed if seed is None else seed)
     if m.pretrained:

@@ -1,4 +1,5 @@
-"""ResNet-50 encoder (torchvision v1.5 bottlenecks, dilated for DeepLab).
+"""ResNet-50 encoder (torchvision v1.5 bottlenecks, dilated for DeepLab)
+and the BasicBlock of HRNet's branches.
 
 Counterpart of the reference's ``models/resnet.py``: stride on the 3x3
 conv of the bottleneck; output stride 16 moves layer4's stride into
@@ -21,6 +22,32 @@ from semi_supervised_semantic_segmentation_tpu_torch.models.layers import (
 )
 
 _SPECS = {"resnet50": (3, 4, 6, 3)}
+
+
+class BasicBlock(nn.Module):
+    """Two 3x3 Conv-BN with an identity shortcut (stride 1, no downsample:
+    the HRNet branch blocks).  ``fused=True`` is the reference's NCHW branch
+    flow: both convs run through ``ConvNormAct.raw`` (kernels D and E on
+    the card), conv1's BatchNorm + ReLU is applied inside conv2's kernel,
+    and conv2's BatchNorm is applied before the residual.  Same math and
+    parameters either way."""
+
+    def __init__(self, planes: int, bn_momentum: float = 0.9,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype)
+        self.conv1 = ConvNormAct(planes, planes, 3, **kw)
+        self.conv2 = ConvNormAct(planes, planes, 3, act=False, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
+        if not fused:
+            return F.relu(self.conv2(self.conv1(x)) + x)
+        y1, fold1 = self.conv1.raw(x)
+        y2, (mul2, add2) = self.conv2.raw(y1, fold1)
+        d = self.compute_dtype
+        out = y2 * mul2.to(d)[None, :, None, None] + add2.to(d)[None, :, None, None]
+        return F.relu(out + x)
 
 
 class Bottleneck(nn.Module):

@@ -1,0 +1,335 @@
+"""HRNet branch-chain 3x3 conv with fused BatchNorm: kernels D and E.
+
+Replaces ``semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py``
+(``_conv3x3_nchw_impl`` -- kernel D -- and ``_conv3x3_dw_impl`` -- kernel E;
+public as ``conv3x3_nchw`` and ``conv3x3_bn_nchw``).  Contract, with x NCHW
+[N,C,H,W] in bf16 and the weight OIHW [C,C,3,3] f32 (cast to bf16):
+
+- D (``conv3x3_fwd``): stride-1 SAME 3x3 conv.  With (mul, add) the conv
+  input is t = relu(bf16(bf16(x * bf16(mul)) + bf16(add))) -- the previous
+  layer's folded BatchNorm and ReLU, rounded as the reference's kernel
+  rounds it -- and SAME padding pads t with zeros.  f32 accumulation, one
+  rounding of y; the optional [2,C] f32 statistics are the per-channel
+  (sum, sum of squares) of the ROUNDED y.  ``flip`` convolves with the
+  tap-flipped, in/out-swapped weights (the dx conv).
+- E (``conv3x3_dw``): with the statistics cotangent ds, the total output
+  cotangent dY = bf16((dy + ds[0]) + (2*y)*ds[1]) composed in f32 (also
+  returned, for the dx conv); dk = sum over pixels of dY (x) shifted t in
+  f32, OIHW.
+
+On a CUDA tensor the wrappers launch the hand-written kernels of
+``csrc/branch_conv.cu`` (bf16, C <= 128, H % 8 == 0; anything else raises).
+On a CPU tensor they run the plain versions below, which the kernels are
+tested against.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from semi_supervised_semantic_segmentation_tpu_torch.ops import cuda_build
+from semi_supervised_semantic_segmentation_tpu_torch.ops.stem import fold_stats_cotangent
+
+SOURCE = "branch_conv.cu"
+MAX_C = 128
+BH = 32  # the reference's row window: eligibility needs H % BH == 0
+
+
+def supported(shape, c_in: int, c_out: int) -> bool:
+    """Eligibility of x [N, C, H, W] for the kernels (the reference's gate)."""
+    _, _, h, _ = shape
+    return c_in == c_out and c_in <= MAX_C and h % BH == 0 and h >= BH
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the kernels' specification)
+# ---------------------------------------------------------------------------
+
+
+def transform_input(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor) -> torch.Tensor:
+    """relu(bf16(bf16(x * mul_r) + add_r)) with mul_r, add_r rounded to x's dtype."""
+    mul_r = mul.to(x.dtype).float()[None, :, None, None]
+    add_r = add.to(x.dtype).float()[None, :, None, None]
+    t = ((x.float() * mul_r).to(x.dtype).float() + add_r).to(x.dtype)
+    return torch.clamp_min(t, 0)
+
+
+def flip_weight(w: torch.Tensor) -> torch.Tensor:
+    """OIHW weights of the dx conv: taps flipped, in and out swapped."""
+    return w.flip(2, 3).transpose(0, 1)
+
+
+def conv3x3_fwd_plain(x, w, mul=None, add=None, stats: bool = True, flip: bool = False):
+    """-> (y in x's dtype, [2,C] f32 stats or None)."""
+    t = x if mul is None else transform_input(x, mul, add)
+    wf = (flip_weight(w) if flip else w).to(x.dtype).float()
+    y = F.conv2d(t.float(), wf, padding=1).to(x.dtype)
+    if not stats:
+        return y, None
+    y32 = y.float()
+    return y, torch.stack([y32.sum(dim=(0, 2, 3)), (y32 * y32).sum(dim=(0, 2, 3))])
+
+
+def conv3x3_dw_plain(x, dy, y=None, ds=None, mul=None, add=None):
+    """-> (dk OIHW f32, dY in x's dtype or None).  With (y, ds) the stats
+    cotangent is folded into dY first."""
+    dY = fold_stats_cotangent(dy, y, ds) if y is not None else dy.to(x.dtype)
+    t = x if mul is None else transform_input(x, mul, add)
+    c = x.shape[1]
+    dk = torch.nn.grad.conv2d_weight(t.float(), (dY.shape[1], c, 3, 3), dY.float(), padding=1)
+    return dk, (dY if y is not None else None)
+
+
+def pre_backward(x, dt, mul, add):
+    """Chain dt (the gradient of t = relu(x*mul + add)) back to x, mul and
+    add, as the reference's XLA code after its dx kernel: the mask is the
+    same bf16 fma the kernels apply, strictly > 0 (the ReLU gradient is 0 at
+    0); dx = bf16(dtm * mul) with the raw f32 mul."""
+    mul_r = mul.to(x.dtype).float()[None, :, None, None]
+    add_r = add.to(x.dtype).float()[None, :, None, None]
+    pre = ((x.float() * mul_r).to(x.dtype).float() + add_r).to(x.dtype)
+    dtm = torch.where(pre > 0, dt.float(), torch.zeros((), device=dt.device))
+    dx = (dtm * mul.float()[None, :, None, None]).to(x.dtype)
+    return dx, (dtm * x.float()).sum(dim=(0, 2, 3)), dtm.sum(dim=(0, 2, 3))
+
+
+# ---------------------------------------------------------------------------
+# CUDA launch wrappers
+# ---------------------------------------------------------------------------
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load(SOURCE)
+    if not getattr(lib, "_typed", False):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.branch_conv_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
+        lib.branch_conv_plan.restype = i
+        lib.branch_conv_fwd.argtypes = [vp] * 7 + [i] * 8 + [vp]
+        lib.branch_conv_fwd.restype = i
+        lib.branch_conv_dw.argtypes = [vp] * 9 + [i] * 7 + [vp]
+        lib.branch_conv_dw.restype = i
+        lib._typed = True
+    return lib
+
+
+def _plan(c: int, h: int, w: int) -> Tuple[int, int, int, int, int]:
+    """(D's shared bytes, D's C_out split, E's shared bytes, E's column
+    split, tiles per image) from the kernel source's own geometry."""
+    out = (ctypes.c_int * 5)()
+    _raise_on(_lib().branch_conv_plan(c, h, w, out), "branch_conv_plan")
+    return tuple(out)
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"branch conv kernel: {msg}")
+
+
+def _check_act(name: str, t: torch.Tensor, shape=None) -> None:
+    _check(t.is_cuda and t.dtype == torch.bfloat16 and t.is_contiguous() and t.dim() == 4,
+           f"{name} must be a contiguous CUDA bf16 NCHW tensor, got {t.dtype} {tuple(t.shape)} "
+           f"on {t.device}")
+    if shape is not None:
+        _check(tuple(t.shape) == tuple(shape), f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _check_vec(name: str, t: torch.Tensor, shape, device) -> None:
+    _check(t.dtype == torch.float32 and t.is_contiguous() and tuple(t.shape) == tuple(shape)
+           and t.device == device, f"{name} must be contiguous f32 {tuple(shape)} on {device}")
+
+
+def _geometry(x: torch.Tensor, w: torch.Tensor):
+    _check_act("x", x)
+    n, c, h, wd = x.shape
+    _check(c <= MAX_C and h % 8 == 0, f"needs C <= {MAX_C} and H % 8 == 0, got C={c} H={h}")
+    _check_vec("w", w, (c, c, 3, 3), x.device)
+    return n, c, h, wd
+
+
+def _slabs(device: torch.device, per_sm: int, split: int, tiles: int) -> int:
+    """Persistent blocks per C_out/column split: as many as run on the card
+    at once (``per_sm`` blocks on each SM), never more than tiles."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(tiles, per_sm * sms // split))
+
+
+def conv3x3_fwd_cuda(x: torch.Tensor, w: torch.Tensor, mul=None, add=None, stats: bool = True,
+                     flip: bool = False):
+    """Kernel D: x bf16 NCHW, w f32 OIHW -> (y bf16, [2,C] f32 or None)."""
+    n, c, h, wd = _geometry(x, w)
+    if mul is not None:
+        _check_vec("mul", mul, (c,), x.device)
+        _check_vec("add", add, (c,), x.device)
+    smem, nmt, _, _, tiles = _plan(c, h, wd)
+    # D: 2 blocks per SM where the shared memory allows (C <= 48)
+    nslab = _slabs(x.device, 2 if 2 * smem <= 227 * 1024 else 1, nmt, n * tiles)
+    y = torch.empty_like(x)
+    sums = partial = None
+    if stats:
+        sums = torch.empty((2, c), dtype=torch.float32, device=x.device)
+        partial = torch.empty((nslab, 2, c), dtype=torch.float32, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib().branch_conv_fwd(x.data_ptr(), w.data_ptr(), ptr(mul), ptr(add), y.data_ptr(),
+                                 ptr(partial), ptr(sums), n, c, h, wd, int(mul is not None),
+                                 int(stats), int(flip), nslab, stream)
+    _raise_on(err, "branch_conv_fwd")
+    conv3x3_fwd_cuda.launches += 1
+    return y, sums
+
+
+conv3x3_fwd_cuda.launches = 0
+
+
+def conv3x3_dw_cuda(x: torch.Tensor, dy: torch.Tensor, y=None, ds=None, mul=None, add=None):
+    """Kernel E: -> (dk f32 OIHW [C,C,3,3], dY bf16 or None)."""
+    dk = torch.empty((x.shape[1], x.shape[1], 3, 3), dtype=torch.float32, device=x.device)
+    n, c, h, wd = _geometry(x, dk)
+    _check_act("dy", dy, x.shape)
+    fuse = y is not None
+    if fuse:
+        _check_act("y", y, x.shape)
+        _check_vec("ds", ds, (2, c), x.device)
+    if mul is not None:
+        _check_vec("mul", mul, (c,), x.device)
+        _check_vec("add", add, (c,), x.device)
+    _, _, _, ngroup, tiles = _plan(c, h, wd)
+    cp = (c + 15) // 16 * 16
+    # E: one block per SM (its f32 partial fills the registers)
+    nslab = _slabs(x.device, 1, ngroup, n * tiles)
+    partial = torch.empty((nslab, cp, 9 * cp), dtype=torch.float32, device=x.device)
+    dY = torch.empty_like(x) if fuse else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib().branch_conv_dw(x.data_ptr(), dy.data_ptr(), ptr(y), ptr(ds), ptr(mul), ptr(add),
+                                ptr(dY), partial.data_ptr(), dk.data_ptr(), n, c, h, wd,
+                                int(mul is not None), int(fuse), nslab, stream)
+    _raise_on(err, "branch_conv_dw")
+    conv3x3_dw_cuda.launches += 1
+    return dk, dY
+
+
+conv3x3_dw_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Dispatching wrappers + autograd
+# ---------------------------------------------------------------------------
+
+
+def _on_cpu(x: torch.Tensor) -> bool:
+    if x.is_cuda:
+        return False
+    if x.device.type != "cpu":
+        raise ValueError(f"branch conv: unsupported device {x.device}")
+    return True
+
+
+def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.detach().float().contiguous()
+
+
+def conv3x3_fwd(x, w, mul=None, add=None, stats: bool = True, flip: bool = False):
+    """Kernel D on CUDA tensors, the plain version on CPU tensors."""
+    if _on_cpu(x):
+        return conv3x3_fwd_plain(x, w, mul, add, stats, flip)
+    return conv3x3_fwd_cuda(x.contiguous(), _f32(w), _f32(mul), _f32(add), stats, flip)
+
+
+def conv3x3_dw(x, dy, y=None, ds=None, mul=None, add=None):
+    """Kernel E on CUDA tensors, the plain version on CPU tensors."""
+    if _on_cpu(x):
+        return conv3x3_dw_plain(x, dy, y, ds, mul, add)
+    return conv3x3_dw_cuda(x.contiguous(), dy.to(x.dtype).contiguous(), y, _f32(ds), _f32(mul),
+                           _f32(add))
+
+
+def _cotangents(dy, ds, y):
+    if dy is None:
+        dy = torch.zeros_like(y)
+    if ds is None:
+        ds = torch.zeros((2, y.shape[1]), dtype=torch.float32, device=y.device)
+    return dy, ds
+
+
+class _Conv(torch.autograd.Function):
+    """(x, w) -> y.  Backward: E for dk, D with the flipped weights for dx."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return conv3x3_fwd(x, w, stats=False)[0]
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        dk = conv3x3_dw(x, dy)[0]
+        dx = conv3x3_fwd(dy, w, stats=False, flip=True)[0] if ctx.needs_input_grad[0] else None
+        return dx, dk
+
+
+class _ConvBN(torch.autograd.Function):
+    """(x, w) -> (y, s).  Backward: E with the stats cotangent folded gives
+    (dk, dY), then D on dY with the flipped weights gives dx."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        y, s = conv3x3_fwd(x, w)
+        ctx.save_for_backward(x, w, y)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        x, w, y = ctx.saved_tensors
+        dy, ds = _cotangents(dy, ds, y)
+        dk, dY = conv3x3_dw(x, dy, y, ds)
+        dx = conv3x3_fwd(dY, w, stats=False, flip=True)[0] if ctx.needs_input_grad[0] else None
+        return dx, dk
+
+
+class _ConvBNPre(torch.autograd.Function):
+    """(x, w, mul, add) -> (y, s) with the input transform inside the
+    kernels.  Backward: E with the stats cotangent and the transform gives
+    (dk, dY), D gives dt, then :func:`pre_backward` in plain torch."""
+
+    @staticmethod
+    def forward(ctx, x, w, mul, add):
+        y, s = conv3x3_fwd(x, w, mul, add)
+        ctx.save_for_backward(x, w, mul, add, y)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        x, w, mul, add, y = ctx.saved_tensors
+        dy, ds = _cotangents(dy, ds, y)
+        dk, dY = conv3x3_dw(x, dy, y, ds, mul, add)
+        dt = conv3x3_fwd(dY, w, stats=False, flip=True)[0]
+        dx, dmul, dadd = pre_backward(x, dt, mul, add)
+        return dx, dk, dmul, dadd
+
+
+def conv3x3_nchw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """SAME stride-1 3x3 conv of x [N,C,H,W] (compute dtype) with w OIHW f32
+    cast to x's dtype; differentiable in both."""
+    return _Conv.apply(x, w)
+
+
+def conv3x3_bn_nchw(x: torch.Tensor, w: torch.Tensor, mul: Optional[torch.Tensor] = None,
+                    add: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused branch-chain conv: y = conv3x3(t, w) with t = relu(x*mul + add)
+    when (mul, add) (f32 [C], the previous folded BatchNorm) are given, else
+    t = x.  Returns (y, [2,C] f32 (sum, sum of squares) of y): the next
+    BatchNorm's batch statistics.  Differentiable in x, w, mul and add."""
+    if mul is None:
+        return _ConvBN.apply(x, w)
+    return _ConvBNPre.apply(x, w, mul, add)

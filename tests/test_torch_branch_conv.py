@@ -1,0 +1,132 @@
+"""The port's branch conv (``ops/branch_conv.py``: kernels D and E, run here
+as their plain versions) against the reference's Pallas kernels in
+interpret mode (``ops/pallas_conv.py``), at the shapes and tolerances of
+tests/test_pallas_conv.py.  Inputs come from numpy with a seed and cross as
+bf16; the reference's HWIO weights are the port's OIHW transposed."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from semi_supervised_semantic_segmentation_tpu.ops import pallas_conv
+from semi_supervised_semantic_segmentation_tpu_torch.engine.compat import conv_flax_to_torch
+from semi_supervised_semantic_segmentation_tpu_torch.ops import branch_conv as bc
+
+
+def _bf16_pair(a):
+    """numpy f32 -> (JAX bf16, torch bf16) holding the same values."""
+    j = jnp.asarray(a, jnp.bfloat16)
+    return j, torch.from_numpy(np.asarray(j, np.float32)).to(torch.bfloat16)
+
+
+def _np(t):
+    return t.detach().float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
+
+
+@pytest.mark.parametrize("shape,c", [((2, 8, 64, 16), 8), ((1, 48, 32, 128), 48)])
+def test_conv3x3_nchw_forward_matches_pallas(shape, c):
+    rng = np.random.RandomState(0)
+    xj, xt = _bf16_pair(rng.randn(*shape).astype(np.float32))
+    k = (rng.randn(3, 3, c, c) * 0.1).astype(np.float32)
+    want = pallas_conv.conv3x3_nchw(xj, jnp.asarray(k), interpret=True)
+    got = bc.conv3x3_nchw(xt, torch.from_numpy(conv_flax_to_torch(k)))
+    assert got.dtype == torch.bfloat16
+    # test_pallas_conv's bound: one bf16 ulp from f32 summation order
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-2, atol=2e-2)
+
+
+def test_conv3x3_nchw_grads_match_pallas():
+    rng = np.random.RandomState(1)
+    xj, xt = _bf16_pair(rng.randn(2, 8, 64, 16).astype(np.float32))
+    k = (rng.randn(3, 3, 8, 8) * 0.1).astype(np.float32)
+
+    def loss_j(x, kk):
+        return jnp.sum(pallas_conv.conv3x3_nchw(x, kk, True).astype(jnp.float32) ** 2)
+
+    gx_j, gk_j = jax.grad(loss_j, argnums=(0, 1))(xj, jnp.asarray(k))
+    xt.requires_grad_()
+    kt = torch.from_numpy(conv_flax_to_torch(k)).requires_grad_()
+    (bc.conv3x3_nchw(xt, kt).float() ** 2).sum().backward()
+    np.testing.assert_allclose(_np(xt.grad), _np(gx_j), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(_np(kt.grad), conv_flax_to_torch(np.asarray(gk_j)),
+                               rtol=2e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("with_pre", [True, False])
+def test_conv3x3_bn_nchw_matches_pallas(with_pre):
+    """y, the [2,C] statistics and every gradient (x, k and, with the input
+    transform, mul and add) of the fused op, with a loss that reads both
+    outputs so the statistics' cotangent reaches the weight gradient."""
+    rng = np.random.RandomState(5)
+    c = 48
+    xj, xt = _bf16_pair(rng.randn(2, c, 64, 64).astype(np.float32))
+    k = (rng.randn(3, 3, c, c) * 0.05).astype(np.float32)
+    mul = (rng.rand(c) + 0.5).astype(np.float32)
+    add = (rng.randn(c) * 0.1).astype(np.float32)
+    coj, cot = _bf16_pair(rng.randn(2, c, 64, 64).astype(np.float32))
+    w1 = (rng.randn(c) * 0.1).astype(np.float32)
+    w2 = (rng.randn(c) * 0.01).astype(np.float32)
+    pre = (mul, add) if with_pre else ()
+
+    def loss_j(x, kk, *p):
+        y, s = pallas_conv.conv3x3_bn_nchw(x, kk, *p, interpret=True)
+        return (jnp.vdot(y.astype(jnp.float32), coj.astype(jnp.float32))
+                + jnp.vdot(s[0], w1) + jnp.vdot(s[1], w2)), (y, s)
+
+    args_j = (xj, jnp.asarray(k), *map(jnp.asarray, pre))
+    (_, (y_j, s_j)), g_j = jax.value_and_grad(loss_j, argnums=tuple(range(len(args_j))),
+                                              has_aux=True)(*args_j)
+    args_t = [xt, torch.from_numpy(conv_flax_to_torch(k)), *map(torch.from_numpy, pre)]
+    for a in args_t:
+        a.requires_grad_()
+    y_t, s_t = bc.conv3x3_bn_nchw(*args_t)
+    ((y_t.float() * cot.float()).sum() + (s_t[0] * torch.from_numpy(w1)).sum()
+     + (s_t[1] * torch.from_numpy(w2)).sum()).backward()
+
+    np.testing.assert_allclose(_np(y_t), _np(y_j), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(_np(s_t), _np(s_j), rtol=2e-2, atol=2e-1)
+    names = ("dx", "dk", "dmul", "dadd")
+    # test_pallas_conv's bounds; dmul/dadd are per-channel reductions of
+    # cancellation-heavy bf16 products summed in another order
+    tol = {"dx": 2e-2, "dk": 2e-2, "dmul": 8e-2, "dadd": 8e-2}
+    for name, a, b in zip(names, args_t, g_j):
+        want = _np(b)
+        if name == "dk":
+            want = conv_flax_to_torch(want)
+        rel = np.max(np.abs(_np(a.grad) - want)) / (np.max(np.abs(want)) + 1e-6)
+        assert rel < tol[name], f"{name}: max-rel {rel}"
+
+
+def test_supported_is_the_reference_gate():
+    shapes = [((2, 8, 64, 16), 8, 8), ((2, 8, 48, 16), 8, 8), ((2, 192, 64, 16), 192, 192),
+              ((2, 8, 64, 16), 8, 16), ((1, 128, 32, 7), 128, 128), ((1, 8, 0, 8), 8, 8)]
+    for shape, ci, co in shapes:
+        assert bc.supported(shape, ci, co) == pallas_conv.supported(shape, ci, co), shape
+    assert bc.supported((2, 8, 64, 16), 8, 8) and not bc.supported((1, 8, 0, 8), 8, 8)
+
+
+def test_plain_versions_hold_the_rounding_contract():
+    """The plain D rounds the input transform twice and pads the
+    TRANSFORMED input with zeros; the plain E's dY is the f32 composition
+    rounded once (bit for bit the stem's fold)."""
+    g = torch.Generator().manual_seed(0)
+    c = 8
+    x = torch.randn(1, c, 32, 8, generator=g).to(torch.bfloat16)
+    w = torch.randn(c, c, 3, 3, generator=g)
+    mul, add = torch.rand(c, generator=g) + 0.5, torch.rand(c, generator=g) + 0.1
+    t = bc.transform_input(x, mul, add)
+    want = ((x.float() * mul.to(torch.bfloat16).float()[None, :, None, None]).to(torch.bfloat16)
+            .float() + add.to(torch.bfloat16).float()[None, :, None, None]).to(torch.bfloat16)
+    assert torch.equal(t, want.clamp_min(0))
+    # add > 0 makes relu(add) > 0 outside the image: zero padding must win
+    y, _ = bc.conv3x3_fwd_plain(x, w, mul, add)
+    yp = torch.nn.functional.conv2d(torch.nn.functional.pad(t.float(), (1, 1, 1, 1)),
+                                    w.to(torch.bfloat16).float()).to(torch.bfloat16)
+    assert torch.equal(y, yp)
+    dy = torch.randn(x.shape, generator=g).to(torch.bfloat16)
+    ds = torch.randn(2, c, generator=g)
+    _, dY = bc.conv3x3_dw_plain(x, dy, y, ds)
+    f = (dy.float() + ds[0][None, :, None, None]) + (2.0 * y.float()) * ds[1][None, :, None, None]
+    assert torch.equal(dY, f.to(torch.bfloat16))

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from semi_supervised_semantic_segmentation_tpu_torch.ops import augment, stem
+from semi_supervised_semantic_segmentation_tpu_torch.ops import branch_conv as bc
 from semi_supervised_semantic_segmentation_tpu_torch.ops import cutmix_normalize as cmn
 
 pytestmark = pytest.mark.cuda
@@ -20,6 +21,8 @@ MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # the plain versions' f32 convolutions in full f32, not TF32
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -60,3 +63,70 @@ def test_cutmix_normalize_kernel_matches_plain(dev, b, h, w):
     pi, pl, pc = cmn.cutmix_normalize_plain(imgs, labs, conf, boxes, MEAN, STD, torch.bfloat16)
     assert bool(((oi.float() - pi.float()).abs() <= 2.0 ** -7 * pi.float().abs() + 1e-6).all())
     assert torch.equal(ol, pl) and torch.equal(oc, pc)
+
+
+def _within_one_ulp(got, want):
+    """bf16 roundings of f32 sums taken in another order: one ulp apart."""
+    return bool(((got.float() - want.float()).abs() <= 2.0 ** -7 * want.float().abs() + 1e-4).all())
+
+
+@pytest.mark.parametrize("n,c,h,w", [(2, 8, 32, 40), (2, 16, 16, 24), (2, 48, 32, 70),
+                                     (1, 96, 64, 33), (1, 128, 32, 20)])
+def test_branch_conv_kernels_match_plain(dev, n, c, h, w):
+    """D (plain, pre, flipped dx conv) and E (fused dY with ds != 0, with and
+    without pre; unfused) against their plain versions, at widths that pad
+    to the MMA's 16 and at W not a multiple of the 32-pixel tile."""
+    g = torch.Generator(device=dev).manual_seed(c)
+    x = torch.randn(n, c, h, w, generator=g, device=dev).to(torch.bfloat16)
+    wt = torch.randn(c, c, 3, 3, generator=g, device=dev) / (3.0 * c ** 0.5)
+    mul = torch.rand(c, generator=g, device=dev) + 0.5
+    add = torch.randn(c, generator=g, device=dev) * 0.1
+    dy = (torch.randn(n, c, h, w, generator=g, device=dev) * 1e-2).to(torch.bfloat16)
+    ds = torch.randn(2, c, generator=g, device=dev) * 1e-3
+    for pre in ((), (mul, add)):
+        y, s = bc.conv3x3_fwd(x, wt, *pre)
+        yp, sp = bc.conv3x3_fwd_plain(x, wt, *pre)
+        torch.cuda.synchronize()
+        assert _within_one_ulp(y, yp), (pre != (), (y.float() - yp.float()).abs().max().item())
+        assert bool(((s - sp).abs() <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all())
+        dk, dY = bc.conv3x3_dw(x, dy, y, ds, *pre)
+        dkp, dYp = bc.conv3x3_dw_plain(x, dy, y, ds, *pre)
+        assert torch.equal(dY, dYp)
+        assert (dk - dkp).abs().max().item() <= 1e-3 * dkp.abs().max().item()
+    dx, none = bc.conv3x3_fwd(dy, wt, stats=False, flip=True)
+    assert none is None
+    assert _within_one_ulp(dx, bc.conv3x3_fwd_plain(dy, wt, stats=False, flip=True)[0])
+    dk, dY = bc.conv3x3_dw(x, dy)
+    assert dY is None
+    dkp = bc.conv3x3_dw_plain(x, dy)[0]
+    assert (dk - dkp).abs().max().item() <= 1e-3 * dkp.abs().max().item()
+
+
+def test_branch_conv_autograd_on_the_card_matches_the_cpu(dev):
+    """The fused op's four gradients through kernels D and E against the
+    same op on the CPU's plain versions."""
+    torch.manual_seed(0)
+    c = 16
+    x = torch.randn(2, c, 32, 24).to(torch.bfloat16)
+    wt = torch.randn(c, c, 3, 3) * 0.1
+    mul, add = torch.rand(c) + 0.5, torch.randn(c) * 0.1
+    co, ws = torch.randn(2, c, 32, 24), torch.randn(2, c) * 0.1
+    grads = []
+    for where in (dev, "cpu"):
+        args = [t.to(where).requires_grad_() for t in (x, wt, mul, add)]
+        y, s = bc.conv3x3_bn_nchw(*args)
+        ((y.float() * co.to(where)).sum() + (s * ws.to(where)).sum()).backward()
+        grads.append([a.grad.float().cpu() for a in args])
+    for name, a, b in zip(("dx", "dk", "dmul", "dadd"), *grads):
+        assert (a - b).abs().max().item() <= 2e-2 * b.abs().max().item(), name
+
+
+def test_branch_conv_kernels_refuse_what_they_do_not_take(dev):
+    w = torch.zeros(8, 8, 3, 3, device=dev)
+    with pytest.raises(ValueError):
+        bc.conv3x3_fwd_cuda(torch.zeros(1, 8, 32, 16, device=dev), w)  # f32 input
+    with pytest.raises(ValueError):
+        bc.conv3x3_fwd_cuda(torch.zeros(1, 8, 12, 16, device=dev, dtype=torch.bfloat16), w)
+    with pytest.raises(ValueError):
+        bc.conv3x3_fwd_cuda(torch.zeros(1, 144, 32, 16, device=dev, dtype=torch.bfloat16),
+                            torch.zeros(144, 144, 3, 3, device=dev))

@@ -32,13 +32,16 @@ from semi_supervised_semantic_segmentation_tpu import config as jconfig
 from semi_supervised_semantic_segmentation_tpu.engine import compat as jcompat
 from semi_supervised_semantic_segmentation_tpu.methods import fixmatch as jfixmatch
 from semi_supervised_semantic_segmentation_tpu.models.registry import build_model as jbuild
-from semi_supervised_semantic_segmentation_tpu.ops import augment as jaug
 from semi_supervised_semantic_segmentation_tpu_torch import config
 from semi_supervised_semantic_segmentation_tpu_torch.engine import compat
 from semi_supervised_semantic_segmentation_tpu_torch.methods import fixmatch
 from semi_supervised_semantic_segmentation_tpu_torch.models import build_model
-from semi_supervised_semantic_segmentation_tpu_torch.ops import augment
-from tests.torch_port_helpers import boxes_from_masks, capture_dropout_masks, nhwc_keep_to_nchw
+from tests.torch_port_helpers import (
+    capture_dropout_masks,
+    identity_draws,
+    nhwc_keep_to_nchw,
+    replay_cutmix_boxes,
+)
 
 CROP, NCLS, NL, NU, STEPS = 64, 4, 2, 2, 3
 RAW = {
@@ -67,31 +70,6 @@ def _batches(batch, seed, labeled):
         out.append({"image": image, "label": label,
                     "size": np.full((batch, 2), CROP, np.int32)})
     return out
-
-
-def _replay_box(rng_data, step):
-    """The JAX step's CutMix randomness: fold_in(key, step) -> split(5)[3]."""
-    key = jax.random.fold_in(jax.random.wrap_key_data(jnp.asarray(rng_data)), step)
-    kmix = jax.random.split(key, 5)[3]
-    kbox, kapply = jax.random.split(kmix)
-    box = jaug.cutmix_boxes(kbox, NU, CROP, CROP)
-    apply = jax.random.uniform(kapply, (NU,)) < 1.0
-    return boxes_from_masks(np.asarray(box & apply[:, None, None]))
-
-
-def _identity_draws(boxes, keep_nhwc):
-    def weak(b):
-        z = torch.zeros(b)
-        return augment.WeakParams(scale=torch.ones(b), oy=z, ox=z.clone(),
-                                  flip=torch.zeros(b, dtype=torch.bool))
-
-    off = torch.zeros(NU, dtype=torch.bool)
-    strong = augment.StrongParams(factors=torch.ones(NU, 4), perm=torch.arange(4).repeat(NU, 1),
-                                  apply_jitter=off, apply_gray=off, sigma=torch.ones(NU),
-                                  apply_blur=off)
-    return fixmatch.Draws(weak_l=weak(NL), weak_u=weak(NU), strong=strong,
-                          boxes=torch.from_numpy(boxes),
-                          dropout=torch.from_numpy(nhwc_keep_to_nchw(keep_nhwc)))
 
 
 def _close(flat, sd, bound):
@@ -133,7 +111,8 @@ def test_fixmatch_steps_match_jax():
             jl.append([float(jm[c]) for c in cols])
             jax.effects_barrier()
             assert len(masks) == i + 1
-            draws = _identity_draws(_replay_box(rng0, i), masks[i])
+            draws = identity_draws(NL, NU, replay_cutmix_boxes(rng0, i, NU, CROP),
+                                   torch.from_numpy(nhwc_keep_to_nchw(masks[i])))
             tm = step(state, {k: torch.from_numpy(v) for k, v in lab[i].items()},
                       {k: torch.from_numpy(v) for k, v in unlab[i].items()}, draws)
             tl.append([float(tm[c]) for c in cols])

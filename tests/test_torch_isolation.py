@@ -38,7 +38,20 @@ def test_importing_every_module_loads_no_jax_or_reference_module():
     got = json.loads(out.strip().splitlines()[-1])
     assert f"{PKG}.methods.fixmatch" in got["modules"]
     assert f"{PKG}.ops.stem" in got["modules"]
+    assert {f"{PKG}.ops.branch_conv", f"{PKG}.models.hrnet"} <= set(got["modules"])
     assert got["bad"] == []
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py runs on the card's machine, which has no JAX: its own
+    imports and every port module it loads stay clear of JAX."""
+    probe = ("import json, sys; sys.argv = ['chip_smoke.py']; import chip_smoke; "
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
+             "'optax', 'semi_supervised_semantic_segmentation_tpu')); print(json.dumps(bad))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env, check=True,
+                         capture_output=True, text=True, timeout=300).stdout
+    assert json.loads(out.strip().splitlines()[-1]) == []
 
 
 def _cfg(tmp_path):
@@ -80,3 +93,21 @@ def test_train_entry_point_runs_on_an_explicit_cpu(tmp_path, capsys):
     assert [r["step"] for r in lines] == [1, 2]
     assert all(np.isfinite(r["loss"]) for r in lines)
     assert last["loss"] == lines[-1]["loss"]
+
+
+def test_train_entry_point_builds_and_trains_config5_on_an_explicit_cpu(tmp_path, capsys):
+    """Config 5 as shipped (HRNet + HRNetV2Head, remat 'stages:3',
+    branch_conv 'pallas', OHEM) through ``python -m ...train --device cpu``,
+    narrowed to width 8 and one module per stage at crop 64."""
+    from semi_supervised_semantic_segmentation_tpu_torch import train
+
+    train.main([
+        "--config", os.path.join(REPO, "configs", "5_hrnet_w48_1024_full_ssl.yaml"),
+        "--device", "cpu", "--work_dir", str(tmp_path),
+        "--set", "data.dataset=synthetic", "data.crop_size=64", "data.synthetic_size=4",
+        "data.num_workers=1", "model.hrnet_width=8", "model.hrnet_modules=[1,1,1]",
+        "train.labeled_batch_size=2", "train.unlabeled_batch_size=2", "train.epochs=1",
+        "train.iters_per_epoch=2", "train.log_interval=1",
+    ])
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert np.isfinite(last["loss"]) and np.isfinite(last["sup_loss"])
