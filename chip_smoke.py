@@ -11,7 +11,10 @@ Phases; any failure exits non-zero and prints no result:
                 at config 3's; D and E at config 5's two eligible HRNet
                 branches, [8,48,256,256] and [8,96,128,128]), with its time,
                 the plain version's, the library call's where one exists,
-                and its bound on this card;
+                and its bound on this card; E also twice on the same inputs
+                and through its synchronous fill (a misaligned input) beside
+                its asynchronous ring, all bit-equal, with its tile plan and
+                the registers ptxas gives it;
  3. reference -- at a small size, on the card (kernels) against the CPU
                 (plain versions), from the same weights and inputs: the stem
                 segment and one config-3 FixMatch step; an HRModule (branches
@@ -23,7 +26,8 @@ Phases; any failure exits non-zero and prints no result:
                 (synthetic data, 4 + 4 images at 1024^2, HRNet-W48 + HRNetV2
                 head, ``branch_conv=pallas``, remat 'stages:3', OHEM) for a
                 few steps each: losses finite, each path's kernels launched
-                the derived number of times at every step, time per step,
+                the derived number of times at every step (E on its
+                asynchronous ring every time), time per step,
                 peak memory and a profile.
 Then it prints the card's name and power limit, one JSON line of kernel
 records, and the ok line.  A longer report goes to
@@ -37,6 +41,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -116,6 +121,7 @@ def main() -> None:
         for line in b["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {src} ptxas: {line.strip()}", flush=True)
+    report["ptxas_E"] = ptxas = ptxas_usage(built["branch_conv.cu"]["log"])
 
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
 
@@ -239,8 +245,9 @@ def main() -> None:
     report["triton_first_launch_s"] = triton_s
 
     # ------------------------------------------ 2. kernels: D, E (config 5)
-    d_rows, e_rows = branch_kernels(torch, dev, branch_conv, time_ms, bound, bf16_peak)
-    report["branch_kernels"] = {"D": d_rows, "E": e_rows}
+    d_rows, e_rows, e_plans = branch_kernels(torch, dev, branch_conv, time_ms, bound, bf16_peak,
+                                             ptxas)
+    report["branch_kernels"] = {"D": d_rows, "E": e_rows, "E_plan": e_plans}
     # the record of the line: branch 0's shape, the modes the path runs most
     kernels["branch_conv_fwd"] = d_rows["N8_C48_256x256 pre+stats"]
     kernels["branch_conv_dw"] = e_rows["N8_C48_256x256 fuse+pre"]
@@ -249,9 +256,14 @@ def main() -> None:
     report["reference"] = reference_phase(torch, dev)
 
     # ------------------------------------------------------ 4. the slices
-    counters = {"cutmix_normalize": cmn.cutmix_normalize_triton, "stem_fwd": stem.stem_fwd_cuda,
-                "stem_dw": stem.stem_dw_cuda, "branch_conv_fwd": branch_conv.conv3x3_fwd_cuda,
-                "branch_conv_dw": branch_conv.conv3x3_dw_cuda}
+    # name -> (wrapper, counter attribute); the last counts E's launches on
+    # its asynchronous ring
+    counters = {"cutmix_normalize": (cmn.cutmix_normalize_triton, "launches"),
+                "stem_fwd": (stem.stem_fwd_cuda, "launches"),
+                "stem_dw": (stem.stem_dw_cuda, "launches"),
+                "branch_conv_fwd": (branch_conv.conv3x3_fwd_cuda, "launches"),
+                "branch_conv_dw": (branch_conv.conv3x3_dw_cuda, "launches"),
+                "branch_conv_dw_async": (branch_conv.conv3x3_dw_cuda, "launches_async")}
     none = {k: 0 for k in counters}
     report["slice_config3"], launches3 = slice_phase(torch, "config 3", CONFIG3, {
         "data.synthetic_canvas": 512, "data.synthetic_size": 48, "data.cutmix_impl": "pallas",
@@ -263,7 +275,8 @@ def main() -> None:
     report["slice_config5"], launches5 = slice_phase(torch, "config 5", CONFIG5, {
         "data.synthetic_canvas": 1024, "data.synthetic_size": 8,
         "train.labeled_batch_size": 4, "train.unlabeled_batch_size": 4}, counters,
-        {**none, "branch_conv_fwd": 448, "branch_conv_dw": 128}, steps=8)
+        {**none, "branch_conv_fwd": 448, "branch_conv_dw": 128, "branch_conv_dw_async": 128},
+        steps=8)
     launches = {**launches3, "branch_conv_fwd": launches5["branch_conv_fwd"],
                 "branch_conv_dw": launches5["branch_conv_dw"]}
 
@@ -302,17 +315,44 @@ def main() -> None:
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 
-def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak):
+def ptxas_usage(log: str) -> dict:
+    """Kernel E's template argument (Cp / 16) -> "N registers, S bytes
+    spilled", from the ``-Xptxas -v`` log of branch_conv.cu."""
+    out, cur, spill = {}, None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"'_Z14conv_dw_kernelILi(\d+)E", line)
+            cur = int(m.group(1)) if m else None
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            out[cur] = f"{m.group(1)} registers, {spill} bytes spilled"
+    return out
+
+
+def _misaligned(torch, t):
+    """A contiguous copy of t whose data starts 2 bytes past a 16-byte
+    boundary: kernel E then takes its synchronous fill."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
     """Kernels D and E at config 5's two eligible branch shapes (N = 8, the
     student's [labeled; unlabeled] batch): D plain + stats, D pre + stats
     and D as the dx conv (flipped weights, no stats); E with the stats
     cotangent fused, without and with the input transform.  Each against
     its plain version on the same inputs: y within one bf16 ulp, stats
-    within 1e-3 of each row's max, dk within 1e-3 of max|dk|, dY exact."""
+    within 1e-3 of each row's max, dk within 1e-3 of max|dk|, dY exact.
+    E also: on its asynchronous ring (counted), bit-equal over two launches,
+    and through its synchronous fill (x at a 2-byte offset), which must give
+    the ring's bits, with its own time."""
     F = torch.nn.functional
     bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(5)
-    d_rows, e_rows = {}, {}
+    d_rows, e_rows, e_plans = {}, {}, {}
     for n, c, h in ((8, 48, 256), (8, 96, 128)):
         tag = f"N{n}_C{c}_{h}x{h}"
         x = torch.randn(n, c, h, h, generator=g, device=dev).to(bf16)
@@ -358,32 +398,57 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak):
         y, _ = bc.conv3x3_fwd_cuda(x, w)
         dY_lib = bc.fold_stats_cotangent(dy, y, ds)
         lib_dw = time_ms(lambda: torch.nn.grad.conv2d_weight(x, w.shape, dY_lib, padding=1))
+        plan = bc.dw_plan(c, h, h)
+        plan["ptxas"] = ptxas.get((c + 15) // 16, "not in the log")
+        e_plans[tag] = plan
+        print(f"[kernel E plan] {tag}: {plan['rows']} dk rows per block, {plan['row_blocks']} "
+              f"block(s) per slab, tiles of {plan['tile_rows']}x32 pixels, "
+              f"{plan['stages']} ring stages, {plan['smem']} shared bytes, ptxas "
+              f"{plan['ptxas']}", flush=True)
+        xm = _misaligned(torch, x)
         for mode, pre in (("fuse", ()), ("fuse+pre", (mul, add))):
+            ring0 = bc.conv3x3_dw_cuda.launches_async
             dk, dY = bc.conv3x3_dw_cuda(x, dy, y, ds, *pre)
+            check(bc.conv3x3_dw_cuda.launches_async == ring0 + 1,
+                  f"E {tag} {mode}: did not take the asynchronous ring")
+            dk2, dY2 = bc.conv3x3_dw_cuda(x, dy, y, ds, *pre)
             torch.cuda.synchronize()
+            check(torch.equal(dk, dk2) and torch.equal(dY, dY2),
+                  f"E {tag} {mode}: two launches on the same inputs differ")
             dkp, dYp = bc.conv3x3_dw_plain(x, dy, y, ds, *pre)
             check(torch.equal(dY, dYp), f"E {tag} {mode}: dY is not bit-equal to the plain version "
                   f"({(dY.float() - dYp.float()).abs().max().item()})")
             err = (dk - dkp).abs().max().item()
             check(err <= 1e-3 * dkp.abs().max().item(),
                   f"E {tag} {mode}: dk differs by {err} (max|dk| {dkp.abs().max().item()})")
+            ring0 = bc.conv3x3_dw_cuda.launches_async
+            dks, dYs = bc.conv3x3_dw_cuda(xm, dy, y, ds, *pre)
+            torch.cuda.synchronize()
+            check(bc.conv3x3_dw_cuda.launches_async == ring0,
+                  f"E {tag} {mode}: a misaligned input took the asynchronous ring")
+            # the same tiles through the same products: the same bits
+            check(torch.equal(dYs, dY) and torch.equal(dks, dk),
+                  f"E {tag} {mode}: the synchronous fill differs from the ring (dk by "
+                  f"{(dks - dk).abs().max().item()})")
             row = {
                 "ms": time_ms(lambda: bc.conv3x3_dw_cuda(x, dy, y, ds, *pre)),
                 "plain_ms": time_ms(lambda: bc.conv3x3_dw_plain(x, dy, y, ds, *pre)),
                 # the weight gradient alone: no fold, no transform
                 "library_ms": lib_dw,
                 "max_abs_err": err,
+                "sync_fill_ms": time_ms(lambda: bc.conv3x3_dw_cuda(xm, dy, y, ds, *pre)),
             }
             nbytes = 4 * act + ds.numel() * 4 + (2 * c * 4 if pre else 0) + w.numel() * 4
             row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf16_peak)
             e_rows[f"{tag} {mode}"] = row
             print(f"[kernel E branch_conv_dw] {tag} {mode}: dY exact, max|ddk|={err:.3g} (max|dk| "
-                  f"{dkp.abs().max().item():.3g})  kernel {row['ms']:.3f} ms  plain "
+                  f"{dkp.abs().max().item():.3g}), two launches bit-equal  kernel {row['ms']:.3f} "
+                  f"ms (synchronous fill {row['sync_fill_ms']:.3f} ms)  plain "
                   f"{row['plain_ms']:.3f} ms  conv2d_weight {row['library_ms']:.3f} ms  bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
-            del dk, dY, dkp, dYp
-        del x, dy, y, dY_lib
-    return d_rows, e_rows
+            del dk, dY, dk2, dY2, dkp, dYp, dks, dYs
+        del x, xm, dy, y, dY_lib
+    return d_rows, e_rows, e_plans
 
 
 def _to(obj, dev):
@@ -525,7 +590,12 @@ def reference_phase(torch, dev) -> dict:
     xs = [torch.randn(2, 16, 64, 48, generator=g).to(torch.bfloat16),
           torch.randn(2, 32, 32, 24, generator=g).to(torch.bfloat16)]
     cots = [torch.randn(x.shape, generator=g) for x in xs]
-    mod0 = HRModule((16, 32), branch_conv="pallas")
+    # the module's own initialisation from a seed too: the global generator's
+    # state here depends on the phases before, so its weights would differ
+    # from run to run
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(4)
+        mod0 = HRModule((16, 32), branch_conv="pallas")
     with torch.no_grad():
         for name, prm in mod0.named_parameters():
             if "BatchNorm" in name:  # non-trivial folds for the kernels' input transform
@@ -622,7 +692,7 @@ def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: 
     window = []
 
     def counted(state, lab, unlab):
-        before = {k: f.launches for k, f in counters.items()}
+        before = {k: getattr(f, a) for k, (f, a) in counters.items()}
         if len(times) == steps - profiled:
             prof.start()
             window.append(time.time())
@@ -630,7 +700,7 @@ def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: 
         metrics = inner(state, lab, unlab)
         torch.cuda.synchronize()
         times.append(time.time() - t0)
-        per_step.append({k: f.launches - before[k] for k, f in counters.items()})
+        per_step.append({k: getattr(f, a) - before[k] for k, (f, a) in counters.items()})
         losses.append(float(metrics["loss"]))
         if len(times) == steps:
             window.append(time.time())
@@ -640,10 +710,10 @@ def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: 
     trainer.train_step = counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for f in counters.values():
-        f.launches = 0
+    for f, a in counters.values():
+        setattr(f, a, 0)
     trainer.fit()
-    launches = {k: f.launches for k, f in counters.items()}
+    launches = {k: getattr(f, a) for k, (f, a) in counters.items()}
     check(len(losses) == steps, f"{label}: ran {len(losses)} steps, expected {steps}")
     check(all(math.isfinite(v) for v in losses), f"{label}: non-finite loss {losses}")
     for i, d in enumerate(per_step):

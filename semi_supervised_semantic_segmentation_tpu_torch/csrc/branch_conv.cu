@@ -22,8 +22,8 @@
 //
 // Design: implicit GEMMs on the tensor cores (mma.sync m16n8k16 bf16 -> f32,
 // operands from shared memory with ldmatrix).  A block stages the halo'd,
-// transformed input tile of 8 x 32 output pixels in shared memory once, in
-// pixel-major layout with the channels contiguous ([pixel][C], padded to 16
+// transformed input tile of 8 (D) or 4 (E) x 32 output pixels in shared
+// memory once, in pixel-major layout with the channels contiguous ([pixel][C], padded to 16
 // channels plus an 8-channel skew so ldmatrix rows hit distinct banks).  A
 // tap (kh, kw) of the conv is then just an offset of the pixel row
 // addresses, so no im2col buffer and no shifted copies exist.
@@ -35,17 +35,37 @@
 //      persistent over tiles.  Statistics are per-block partials of the
 //      rounded y, reduced by a second kernel in a fixed order (no atomics:
 //      the same inputs give the same bits).
-//   E: M = C_out (all rows), N = 9 * C_in, K = the tile's pixels.  The
-//      block composes dY for its tile into shared memory ([co][pixel]) and
-//      writes it out once; the input tile is read with ldmatrix.trans.  The
-//      f32 dk partial of a block lives in registers: C = 48 keeps all 432
-//      columns in one block, wider C splits the columns over 4-6 blocks
-//      that share a slab of tiles.  Each slab writes one [C][9C] partial
+//   E: M = C_out, N = 9 * C_in, K = the tile's pixels (4 x 32 output
+//      pixels per tile).  A block owns a slice of dk's rows (C_out) and all
+//      9C columns, with the f32 partial in registers: C = 48 one block of
+//      48 rows, C = 96 three blocks of 32 rows (the plan per width is
+//      dw_mt below).  The blocks of a row split walk the same slab of
+//      tiles; each composes and writes only its own rows of dY, so no two
+//      blocks compose the same dY.  Each slab writes one [Cp][9Cp] partial
 //      and a second kernel sums them in a fixed order into OIHW dk.
 // What bounds it: D moves ~100 MB and does 21.7 GFLOP per [8,48,256,256]
-// call (bound ~30 us, bytes); E reads x, dy, y and writes dY (~201 MB,
-// ~60 us).  This first version does not pipeline the tile loads against
-// the MMAs (no cp.async / TMA, no wgmma), so it sits well above the bound.
+// call (bound ~30 us, bytes).  E reads x, dy, y and writes dY: ~201 MB per
+// [8,48,256,256] call (~60 us) and ~101 MB per [8,96,128,128] call (~30
+// us), against 21.7 GFLOP (~22 us): bytes.  With one block per SM (the
+// partial fills the registers) a tile's loads must be in flight long
+// before its MMAs, or the block waits on memory latency.  So E stages the
+// raw x, dy and y rows of the tiles ahead with cp.async 16-byte copies
+// into a ring of 2-3 stages (zero-filled outside the image), and
+// transforms x (packed bf16 arithmetic) and composes dY shared -> shared
+// while the next tiles' copies land; dY goes out with 16-byte stores.  The
+// zero-filled staging is masked by position, never by value: the input's
+// halo stays 0 (not relu(add)) and dY beyond W stays 0 (not ds0).  The
+// product loop loads every fragment of a k-step (B in pairs with
+// ldmatrix.x4.trans, from per-lane offsets fixed for the kernel) before
+// its first mma, so the loads' latency is not paid once per n8 tile.
+// Shapes the copies cannot take (W % 8 != 0, a pointer not 16-byte
+// aligned) keep a synchronous fill inside the same kernel; the wrapper
+// picks the path from the shape and the pointers.  What still holds E
+// above its bound: the cp.async copies (16 bytes each, 1.5 x the rows and
+// 1.5 x the columns of x for the halo, x once per row block at C = 96)
+// and the block's phases (copy wait, transform, compose, products)
+// following one another between barriers; products stay mma.sync, not
+// wgmma.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -114,16 +134,18 @@ __device__ void stage_pre(float* pm, const float* __restrict__ mul,
   }
 }
 
-// Stage the transformed input of output rows oy0..oy0+TH-1, columns
-// ox0..ox0+TW-1 plus the 1-pixel halo: tile[(r*HW2 + c)*cps + ci] =
+// E's synchronous fill (the shapes its asynchronous ring cannot take): the
+// transformed input of output rows oy0..oy0+ETH-1, columns ox0..ox0+TW-1
+// plus the 1-pixel halo: tile[(r*HW2 + c)*cps + ci] =
 // t[n, ci, oy0-1+r, ox0-1+c], 0 outside the image and for ci >= C.
 // Each thread packs 8 channels of one pixel into one 16-byte store;
-// neighbouring threads read neighbouring pixels of a channel row.  E uses
-// this form: one channel loaded, transformed and converted at a time.
-__device__ void fill_tile(bf16* tile, const bf16* __restrict__ x, const float* pm, bool pre,
+// neighbouring threads read neighbouring pixels of a channel row; one
+// channel is loaded, transformed and converted at a time.
+#define ETH 4  // E's tile rows
+__device__ void fill_tile(bf16* tile, const bf16* __restrict__ x, const bf16* pmb, bool pre,
                           const Geo& g, int n, int oy0, int ox0) {
   const int cps = g.Cp + 8;
-  const int npx = (TH + 2) * HW2;
+  const int npx = (ETH + 2) * HW2;
   const int ngrp = g.Cp / 8;
   for (int e = threadIdx.x; e < npx * ngrp; e += NT) {
     const int grp = e / npx, p = e - grp * npx;
@@ -139,8 +161,8 @@ __device__ void fill_tile(bf16* tile, const bf16* __restrict__ x, const float* p
         f = __bfloat162float(x[(((size_t)n * g.C + ci) * g.H + iy) * g.W + ix]);
         if (pre) {
           // bf16(bf16(x * mul_r) + add_r), then ReLU: the reference's bf16 fma
-          const float pmv = bf16r(__fmul_rn(f, pm[ci]));
-          f = fmaxf(bf16r(__fadd_rn(pmv, pm[g.Cp + ci])), 0.f);
+          const float pmv = bf16r(__fmul_rn(f, __bfloat162float(pmb[ci])));
+          f = fmaxf(bf16r(__fadd_rn(pmv, __bfloat162float(pmb[g.Cp + ci]))), 0.f);
         }
       }
       v[j] = __float2bfloat16(f);
@@ -149,10 +171,8 @@ __device__ void fill_tile(bf16* tile, const bf16* __restrict__ x, const float* p
   }
 }
 
-// The same tile, with the 8 loads of a thread issued before any transform,
-// so they are in flight together.  D uses this form.  E keeps the one
-// above: its f32 partial holds most of its registers, and the 8 values
-// held across the loads cost it more than the overlap gains.
+// D's tile (TH rows), with the 8 loads of a thread issued before any
+// transform, so they are in flight together.
 __device__ void fill_tile_batched(bf16* tile, const bf16* __restrict__ x, const float* pm,
                                   bool pre, const Geo& g, int n, int oy0, int ox0) {
   const int cps = g.Cp + 8;
@@ -321,106 +341,386 @@ conv_fwd_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
 // E: weight gradient (+ fused dY composition) (+ pre)
 // ---------------------------------------------------------------------------
 
-// n8 tiles per warp for MT = Cp/16 m16 tiles: keeps MT*NW*4 accumulators
-// per thread at or below ~96 registers.
-__host__ __device__ constexpr int dw_nw(int mt) {
-  return (24 / mt) < (18 * mt + 7) / 8 ? (24 / mt) : (18 * mt + 7) / 8;
+#define EPIX (ETH * TW)    // pixels per E tile: the K of one tile's products
+#define DST (EPIX + 8)     // dY tile row stride (elements): an odd number of 16-byte units
+#define XRW 48             // raw x row in the ring: columns ox0-8 .. ox0+39, six 16-byte chunks
+#define SMEM_MAX 232448    // shared memory one block may use (227 KB)
+
+// The tile plan of one channel width, K16 = Cp / 16.  A block of 8 warps
+// owns 16 * MT rows of dk and all 9 * Cp columns (18 * K16 n8 tiles); its
+// warps split the columns, NW n8 tiles each.  MT is the most of {3, 2, 1}
+// that divides K16 and keeps the MT * NW * 4 f32 accumulators of a thread
+// at or below 112: C = 48 -> one block of 48 rows, C = 96 -> 3 blocks of 32.
+__host__ __device__ constexpr int dw_nw(int k16) { return (18 * k16 + 7) / 8; }
+
+__host__ __device__ constexpr int dw_mt(int k16) {
+  return (k16 % 3 == 0 && 3 * dw_nw(k16) * 4 <= 112) ? 3
+       : (k16 % 2 == 0 && 2 * dw_nw(k16) * 4 <= 112) ? 2 : 1;
 }
 
-#define DST (TH * TW + 8)  // dY tile row stride (elements): an odd number of 16-byte units
+// One ring stage: raw x [Cp][ETH+2][XRW], dy [rows][DST] (composed into dY
+// in place) and y [rows][EPIX], bf16.
+__host__ __device__ constexpr int dw_stage_bytes(int k16) {
+  return (16 * k16 * (ETH + 2) * XRW + 16 * dw_mt(k16) * (DST + EPIX)) * 2;
+}
 
-template <int MT>
+// Outside the ring: the transformed x operand [(ETH+2)*HW2][Cp+8] bf16, ds
+// of the block's rows [2][rows] f32 and the transform's bf16-rounded (mul,
+// add) [2][Cp] bf16.
+__host__ __device__ constexpr int dw_fixed_bytes(int k16) {
+  return (ETH + 2) * HW2 * (16 * k16 + 8) * 2 + 2 * 16 * dw_mt(k16) * 4 + 2 * 16 * k16 * 2;
+}
+
+// Ring stages: as many as fit, at most 3 (2 tiles in flight behind the one
+// being multiplied).
+__host__ __device__ constexpr int dw_stages(int k16) {
+  return (SMEM_MAX - dw_fixed_bytes(k16)) / dw_stage_bytes(k16) < 3
+             ? (SMEM_MAX - dw_fixed_bytes(k16)) / dw_stage_bytes(k16) : 3;
+}
+
+__host__ __device__ constexpr int dw_smem(int k16) {
+  return dw_stages(k16) * dw_stage_bytes(k16) + dw_fixed_bytes(k16);
+}
+
+static Geo make_dw_geo(int N, int C, int H, int W) {
+  Geo g = make_geo(N, C, H, W);
+  g.nty = H / ETH;
+  g.ntiles = N * g.nty * g.ntx;
+  return g;
+}
+
+__device__ __forceinline__ void dw_tile_coords(const Geo& g, int tile, int& n, int& oy0, int& ox0) {
+  const int tx = tile % g.ntx;
+  const int r = tile / g.ntx;
+  oy0 = (r % g.nty) * ETH;
+  n = r / g.nty;
+  ox0 = tx * TW;
+}
+
+// 16-byte asynchronous copy global -> shared; !valid copies nothing and
+// fills the 16 bytes with zeros (src is not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+
+// The input transform on two bf16 of a 32-bit word: relu(bf16(bf16(x *
+// mul_r) + add_r)).  Packed bf16 arithmetic with explicit .rn (no
+// contraction into an fma) rounds each step once, which is the
+// reference's f32-then-round: a product of two bf16 is exact in f32, and an
+// f32 sum of two bf16 is exact or too far from a bf16 midpoint to round
+// twice.
+__device__ __forceinline__ uint32_t pre2(uint32_t x, uint32_t m, uint32_t a) {
+  uint32_t v;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(v) : "r"(x), "r"(m));
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(v) : "r"(v), "r"(a));
+  asm("max.bf16x2 %0, %1, %2;\n" : "=r"(v) : "r"(v), "r"(0u));
+  return v;
+}
+
+// dY = bf16((dy + ds0) + (2*y)*ds1) for the two bf16 of a 32-bit word, with
+// no contraction into an FMA: the plain version's roundings, so dY is the
+// same bf16.
+__device__ __forceinline__ uint32_t fold2(uint32_t d, uint32_t yv, float s0, float s1) {
+  return pack_bf16(__fadd_rn(__fadd_rn(__uint_as_float(d << 16), s0),
+                             __fmul_rn(__fmul_rn(2.f, __uint_as_float(yv << 16)), s1)),
+                   __fadd_rn(__fadd_rn(__uint_as_float(d & 0xffff0000u), s0),
+                             __fmul_rn(__fmul_rn(2.f, __uint_as_float(yv & 0xffff0000u)), s1)));
+}
+
+// Issue the copies of one tile into ring stage st: x rows oy0-1..oy0+ETH of
+// every channel < C (columns ox0-8..ox0+39), dy (and y with fuse) rows
+// oy0..oy0+ETH-1 of the block's rows < C.  Rows and chunks outside the
+// image are zero-filled; needs W % 8 == 0 and 16-byte aligned tensors.
+template <int K16>
+__device__ __forceinline__ void dw_issue(bf16* st, const bf16* __restrict__ x,
+                                         const bf16* __restrict__ dy, const bf16* __restrict__ y,
+                                         const Geo& g, int fuse, int co_base, int n, int oy0,
+                                         int ox0) {
+  constexpr int CP = 16 * K16, ROWS = 16 * dw_mt(K16), XR = ETH + 2;
+  const uint32_t xs = smem_addr(st);
+  for (int e = threadIdx.x; e < g.C * XR * (XRW / 8); e += NT) {
+    const int ch = e % (XRW / 8), rr = e / (XRW / 8);
+    const int r = rr % XR, ci = rr / XR;
+    const int iy = oy0 - 1 + r, ix = ox0 - 8 + 8 * ch;
+    const bool ok = iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
+    const bf16* src = x + (((size_t)n * g.C + ci) * g.H + iy) * g.W + ix;
+    cp_async16(xs + ((ci * XR + r) * XRW + 8 * ch) * 2, ok ? src : x, ok);
+  }
+  const uint32_t dys = xs + CP * XR * XRW * 2, ys = dys + ROWS * DST * 2;
+  const int nrow = min(ROWS, g.C - co_base);
+  for (int e = threadIdx.x; e < nrow * ETH * (TW / 8); e += NT) {
+    const int ch = e % (TW / 8), rr = e / (TW / 8);
+    const int r = rr % ETH, co = rr / ETH;
+    const int ox = ox0 + 8 * ch;
+    const bool ok = ox < g.W;
+    const size_t idx = (((size_t)n * g.C + co_base + co) * g.H + oy0 + r) * g.W + ox;
+    cp_async16(dys + (co * DST + r * TW + 8 * ch) * 2, ok ? dy + idx : dy, ok);
+    if (fuse) cp_async16(ys + (co * EPIX + r * TW + 8 * ch) * 2, ok ? y + idx : y, ok);
+  }
+}
+
+// The staged raw x of a tile -> the transformed operand tile
+// xop[(r*HW2 + c)*(Cp+8) + ci] = t[n, ci, oy0-1+r, ox0-1+c], shared ->
+// shared; a thread takes 8 channels of a pixel, two pixels at a time so
+// that their 16 loads are in flight together.  By position, never by
+// value: the halo, columns >= W and channels >= C are 0 (the zero-filled
+// raw would give relu(add)).
+template <int K16>
+__device__ __forceinline__ void dw_transform(bf16* xop, const bf16* raw, const bf16* pmb,
+                                             bool pre, const Geo& g, int oy0, int ox0) {
+  constexpr int CP = 16 * K16, CPS = CP + 8, XR = ETH + 2, NPX = XR * HW2;
+  constexpr int ITEMS = NPX * (CP / 8);
+  const uint16_t* rw = reinterpret_cast<const uint16_t*>(raw);
+  for (int e0 = threadIdx.x; e0 < ITEMS; e0 += 2 * NT) {
+    uint32_t w[2][4], keep[2][4];
+    int grp[2], dst[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = e0 + u * NT;
+      grp[u] = e / NPX;
+      const int p = e - grp[u] * NPX;
+      const int r = p / HW2, c = p - r * HW2;
+      const int iy = oy0 - 1 + r, ix = ox0 - 1 + c;
+      const bool inside = e < ITEMS && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
+      dst[u] = e < ITEMS ? p * CPS + grp[u] * 8 : -1;
+      const uint16_t* src = rw + (grp[u] * 8 * XR + r) * XRW + c + 7;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int ci = grp[u] * 8 + 2 * jj;
+        const bool lo = inside && ci < g.C, hi = inside && ci + 1 < g.C;
+        keep[u][jj] = (lo ? 0xffffu : 0u) | (hi ? 0xffff0000u : 0u);
+        w[u][jj] = (lo ? (uint32_t)src[2 * jj * XR * XRW] : 0u) |
+                   (hi ? (uint32_t)src[(2 * jj + 1) * XR * XRW] << 16 : 0u);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (dst[u] < 0) continue;
+      if (pre) {
+        const uint4 m4 = *reinterpret_cast<const uint4*>(&pmb[grp[u] * 8]);
+        const uint4 a4 = *reinterpret_cast<const uint4*>(&pmb[CP + grp[u] * 8]);
+        w[u][0] = pre2(w[u][0], m4.x, a4.x) & keep[u][0];
+        w[u][1] = pre2(w[u][1], m4.y, a4.y) & keep[u][1];
+        w[u][2] = pre2(w[u][2], m4.z, a4.z) & keep[u][2];
+        w[u][3] = pre2(w[u][3], m4.w, a4.w) & keep[u][3];
+      }
+      *reinterpret_cast<uint4*>(&xop[dst[u]]) = make_uint4(w[u][0], w[u][1], w[u][2], w[u][3]);
+    }
+  }
+}
+
+// The staged dy of a tile -> dY in place (with fuse: the stats cotangent
+// folded in, and written out with 16-byte stores).  By position, never by
+// value: rows >= C and pixels at ox >= W are 0 in the operand (the
+// zero-filled dy would give ds0), and are not written out.
+template <int K16>
+__device__ __forceinline__ void dw_compose(bf16* dys, const bf16* ys, const float* dss,
+                                           bf16* __restrict__ dY, const Geo& g, int fuse,
+                                           int co_base, int n, int oy0, int ox0) {
+  constexpr int ROWS = 16 * dw_mt(K16), CH = EPIX / 8;
+  for (int e = threadIdx.x; e < ROWS * CH; e += NT) {
+    const int co = e / CH, k = e - co * CH;
+    const int r = k / (TW / 8), c = (k - r * (TW / 8)) * 8;
+    const int cog = co_base + co, ox = ox0 + c;
+    uint4* d = reinterpret_cast<uint4*>(&dys[co * DST + r * TW + c]);
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (cog < g.C && ox < g.W) {
+      v = *d;
+      if (fuse) {
+        const uint4 yv = *reinterpret_cast<const uint4*>(&ys[co * EPIX + r * TW + c]);
+        const float s0 = dss[co], s1 = dss[ROWS + co];
+        v = make_uint4(fold2(v.x, yv.x, s0, s1), fold2(v.y, yv.y, s0, s1),
+                       fold2(v.z, yv.z, s0, s1), fold2(v.w, yv.w, s0, s1));
+        *reinterpret_cast<uint4*>(&dY[(((size_t)n * g.C + cog) * g.H + oy0 + r) * g.W + ox]) = v;
+      }
+    }
+    *d = v;
+  }
+}
+
+// The synchronous form of dw_compose, from device memory, one element at a
+// time (any W, any alignment).
+template <int K16>
+__device__ __forceinline__ void dw_compose_sync(bf16* dys, const bf16* __restrict__ dy,
+                                                const bf16* __restrict__ y, const float* dss,
+                                                bf16* __restrict__ dY, const Geo& g, int fuse,
+                                                int co_base, int n, int oy0, int ox0) {
+  constexpr int ROWS = 16 * dw_mt(K16);
+  for (int e = threadIdx.x; e < ROWS * EPIX; e += NT) {
+    const int co = e / EPIX, p = e - co * EPIX;
+    const int r = p / TW, c = p - r * TW;
+    const int cog = co_base + co, ox = ox0 + c;
+    float v = 0.f;
+    if (cog < g.C && ox < g.W) {
+      const size_t idx = (((size_t)n * g.C + cog) * g.H + oy0 + r) * g.W + ox;
+      v = __bfloat162float(dy[idx]);
+      if (fuse) {
+        v = bf16r(__fadd_rn(__fadd_rn(v, dss[co]),
+                            __fmul_rn(__fmul_rn(2.f, __bfloat162float(y[idx])), dss[ROWS + co])));
+        dY[idx] = __float2bfloat16(v);
+      }
+    }
+    dys[co * DST + p] = __float2bfloat16(v);
+  }
+}
+
+// Blocks: blockIdx = slab * (Cp / rows) + row block.  A slab's blocks walk
+// the tiles slab, slab + nslab, ...; async_copy picks the ring (else the
+// synchronous fill).
+template <int K16>
 __global__ void __launch_bounds__(NT, 1)
 conv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
                const bf16* __restrict__ y, const float* __restrict__ ds,
                const float* __restrict__ mul, const float* __restrict__ add,
                bf16* __restrict__ dY, float* __restrict__ partial, Geo g, int pre, int fuse,
-               int ngroup) {
-  constexpr int NW = dw_nw(MT);
+               int async_copy) {
+  constexpr int CP = 16 * K16, CPS = CP + 8, MT = dw_mt(K16), NW = dw_nw(K16);
+  constexpr int ROWS = 16 * MT, NRB = K16 / MT, NS = dw_stages(K16);
+  constexpr int STAGE = dw_stage_bytes(K16) / 2, XRAW = CP * (ETH + 2) * XRW;
+  constexpr int N8 = 9 * CP / 8, CP8 = CP / 8, NP = (NW + 1) / 2;
+  static_assert(NS >= 2, "E's ring needs two stages");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int cp = g.Cp, cps = cp + 8, C = g.C;
-  bf16* tile = reinterpret_cast<bf16*>(smem_raw);             // [(TH+2)*HW2][cps]
-  bf16* dys = tile + (TH + 2) * HW2 * cps;                     // [Cp][DST]
-  float* dss = reinterpret_cast<float*>(dys + cp * DST);       // [2][Cp]
-  float* pm = dss + 2 * cp;                                    // [2][Cp]
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);                  // [NS][STAGE]
+  bf16* xop = ring + NS * STAGE;                                    // [(ETH+2)*HW2][CPS]
+  float* dss = reinterpret_cast<float*>(xop + (ETH + 2) * HW2 * CPS);  // [2][ROWS]
+  bf16* pmb = reinterpret_cast<bf16*>(dss + 2 * ROWS);              // [2][Cp]
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int group = blockIdx.x % ngroup, slab = blockIdx.x / ngroup;
-  const int nslab = gridDim.x / ngroup;
-  const int n8 = 9 * cp / 8, cp8 = cp / 8;
-  const int qbase = (group * 8 + warp) * NW;
-  for (int e = t; e < 2 * cp; e += NT) {
-    const int which = e / cp, co = e - which * cp;
+  const int rb = blockIdx.x % NRB, slab = blockIdx.x / NRB, nslab = gridDim.x / NRB;
+  const int co_base = rb * ROWS, C = g.C;
+  for (int e = t; e < 2 * ROWS; e += NT) {
+    const int which = e / ROWS, co = co_base + e - which * ROWS;
     dss[e] = (fuse && co < C) ? ds[which * C + co] : 0.f;
   }
-  stage_pre(pm, mul, add, pre != 0, g);
+  for (int e = t; e < 2 * CP; e += NT) {
+    const int which = e / CP, ci = e - which * CP;
+    pmb[e] = __float2bfloat16((pre && ci < C) ? (which ? add : mul)[ci] : 0.f);
+  }
 
+  // Per-lane ldmatrix offsets, fixed for the whole kernel.  A: dY rows
+  // a_row, pixels a_col.  B: the warp's n8 tiles q = warp*NW + j in pairs,
+  // one ldmatrix.x4.trans per pair (lanes 0-15 address tile j, lanes 16-31
+  // tile j+1): pixel row b_k of tap (kh, kw), channels ci0..ci0+7.  Tiles
+  // past the last (q >= N8) load tile N8-1 and are not multiplied.
   const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
-  const int b_k = (lane & 7) + ((lane >> 3) & 1) * 8;  // pixel row of ldmatrix.trans
-  const uint32_t dys_s = smem_addr(dys), tile_s = smem_addr(tile);
+  const int b_k = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const uint32_t a_off = (a_row * DST + a_col) * 2;
+  const int nj = N8 - warp * NW;  // this warp's n8 tiles (may exceed NW, may be <= 0)
+  uint32_t b_off[NP];
+#pragma unroll
+  for (int pp = 0; pp < NP; ++pp) {
+    const int q = min(warp * NW + 2 * pp + (lane >> 4), N8 - 1);
+    const int tap = q / CP8, ci0 = (q - tap * CP8) * 8;
+    const int kh = tap / 3, kw = tap - kh * 3;
+    b_off[pp] = smem_addr(xop) + ((kh * HW2 + b_k + kw) * CPS + ci0) * 2;
+  }
   float acc[MT][NW][4];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int j = 0; j < NW; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
 
-  for (int tl = slab; tl < g.ntiles; tl += nslab) {
-    int n, oy0, ox0;
-    tile_coords(g, tl, n, oy0, ox0);
-    __syncthreads();  // ds staged / previous tile consumed
-    fill_tile(tile, x, pm, pre != 0, g, n, oy0, ox0);
-    for (int e = t; e < cp * TH * TW; e += NT) {
-      const int co = e / (TH * TW), p = e - co * (TH * TW);
-      const int r = p / TW, c = p - r * TW;
-      const int ox = ox0 + c;
-      float v = 0.f;
-      if (co < C && ox < g.W) {
-        const size_t idx = (((size_t)n * C + co) * g.H + oy0 + r) * g.W + ox;
-        v = __bfloat162float(dy[idx]);
-        if (fuse) {
-          // (dy + ds0) + (2*y)*ds1 with no contraction into an FMA: the
-          // plain version's roundings, so dY is the same bf16.
-          v = bf16r(__fadd_rn(__fadd_rn(v, dss[co]),
-                              __fmul_rn(__fmul_rn(2.f, __bfloat162float(y[idx])), dss[cp + co])));
-          if (group == 0) dY[idx] = __float2bfloat16(v);
+  // dk[rows][q*8..] += dY[rows][pixels] * xop[pixels + tap][ci]: per k-step
+  // every fragment is loaded before the first product.
+  auto mma_tile = [&](const bf16* dys) {
+    const uint32_t a_base = smem_addr(dys) + a_off;
+#pragma unroll
+    for (int kc = 0; kc < EPIX; kc += 16) {
+      const int r = kc / TW, c0 = kc - r * TW;
+      const uint32_t b_step = (r * HW2 + c0) * CPS * 2;
+      uint32_t af[MT][4], bfr[2 * NP][2];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) ldsm_x4(af[m], a_base + (m * 16 * DST + kc) * 2);
+#pragma unroll
+      for (int pp = 0; pp < NP; ++pp) {
+        if (2 * pp + 1 < NW) {
+          uint32_t b4[4];
+          ldsm_x4_trans(b4, b_off[pp] + b_step);
+          bfr[2 * pp][0] = b4[0]; bfr[2 * pp][1] = b4[1];
+          bfr[2 * pp + 1][0] = b4[2]; bfr[2 * pp + 1][1] = b4[3];
+        } else {
+          ldsm_x2_trans(bfr[2 * pp], b_off[pp] + b_step);
         }
       }
-      dys[co * DST + p] = __float2bfloat16(v);
-    }
-    __syncthreads();
-
-    for (int kc = 0; kc < TH * TW; kc += 16) {
-      const int r = kc / TW, c0 = kc - r * TW;
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-        ldsm_x4(af[m], dys_s + ((m * 16 + a_row) * DST + kc + a_col) * 2);
 #pragma unroll
       for (int j = 0; j < NW; ++j) {
-        const int q = qbase + j;
-        if (q >= n8) break;  // warp-uniform
-        const int tap = q / cp8, ci0 = (q - tap * cp8) * 8;
-        const int kh = tap / 3, kw = tap - kh * 3;
-        uint32_t bfr[2];
-        ldsm_x2_trans(bfr, tile_s + (((r + kh) * HW2 + c0 + b_k + kw) * cps + ci0) * 2);
+        if (j < nj) {
 #pragma unroll
-        for (int m = 0; m < MT; ++m) mma_bf16(acc[m][j], af[m], bfr);
+          for (int m = 0; m < MT; ++m) mma_bf16(acc[m][j], af[m], bfr[j]);
+        }
       }
+    }
+  };
+
+  const int ntl = (g.ntiles - slab + nslab - 1) / nslab;  // this slab's tiles
+  if (async_copy) {
+    auto issue = [&](int k) {
+      int n, oy0, ox0;
+      dw_tile_coords(g, slab + k * nslab, n, oy0, ox0);
+      dw_issue<K16>(ring + (k % NS) * STAGE, x, dy, y, g, fuse, co_base, n, oy0, ox0);
+    };
+    for (int k = 0; k < NS - 1; ++k) {
+      if (k < ntl) issue(k);
+      cp_async_commit();
+    }
+    for (int i = 0; i < ntl; ++i) {
+      __syncthreads();  // tile i-1's products done: its stage and xop are free
+      if (i + NS - 1 < ntl) issue(i + NS - 1);
+      cp_async_commit();
+      cp_async_wait<NS - 1>();  // this thread's copies of tile i have landed
+      __syncthreads();          // ... and every thread's
+      int n, oy0, ox0;
+      dw_tile_coords(g, slab + i * nslab, n, oy0, ox0);
+      bf16* st = ring + (i % NS) * STAGE;
+      dw_transform<K16>(xop, st, pmb, pre != 0, g, oy0, ox0);
+      dw_compose<K16>(st + XRAW, st + XRAW + ROWS * DST, dss, dY, g, fuse, co_base, n, oy0, ox0);
+      __syncthreads();
+      mma_tile(st + XRAW);
+    }
+  } else {
+    bf16* dys = ring + XRAW;  // stage 0's dY
+    for (int i = 0; i < ntl; ++i) {
+      int n, oy0, ox0;
+      dw_tile_coords(g, slab + i * nslab, n, oy0, ox0);
+      __syncthreads();  // ds staged / previous tile consumed
+      fill_tile(xop, x, pmb, pre != 0, g, n, oy0, ox0);
+      dw_compose_sync<K16>(dys, dy, y, dss, dY, g, fuse, co_base, n, oy0, ox0);
+      __syncthreads();
+      mma_tile(dys);
     }
   }
 
-  // partial[slab][co][tap*Cp + ci]
-  const size_t width = 9 * (size_t)cp;
+  // partial[slab][co][tap*Cp + ci] for the block's rows
+  const size_t width = 9 * (size_t)CP;
 #pragma unroll
   for (int j = 0; j < NW; ++j) {
-    const int q = qbase + j;
-    if (q >= n8) break;
-    const int col = q * 8 + (lane & 3) * 2;
+    if (j >= nj) break;
+    const int col = (warp * NW + j) * 8 + (lane & 3) * 2;
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int row = m * 16 + half * 8 + (lane >> 2);
-        float* dst = partial + ((size_t)slab * cp + row) * width + col;
+        const int row = co_base + m * 16 + half * 8 + (lane >> 2);
+        float* dst = partial + ((size_t)slab * CP + row) * width + col;
         dst[0] = acc[m][j][2 * half];
         dst[1] = acc[m][j][2 * half + 1];
       }
@@ -466,28 +766,34 @@ static int fwd_smem(int cp) {
   return (rows * (9 * cp + 8) + (TH + 2) * HW2 * (cp + 8)) * 2 + (8 * 2 * rows + 2 * cp) * 4;
 }
 
-static int dw_smem(int cp) {
-  return ((TH + 2) * HW2 * (cp + 8) + cp * DST) * 2 + 4 * cp * 4;
-}
-
-static int dw_ngroup(int cp) {
-  const int mt = cp / 16;
-  const int per_block = 8 * dw_nw(mt);
-  return (9 * cp / 8 + per_block - 1) / per_block;
-}
-
 // out[0] = D's shared bytes, out[1] = D's blocks per tile (C_out split),
-// out[2] = E's shared bytes, out[3] = E's blocks per slab (column split),
-// out[4] = tiles per image plane (for the grid).
+// out[2] = E's shared bytes, out[3] = E's blocks per slab (row split),
+// out[4] = D's tiles per image plane (for the grid).
 extern "C" int branch_conv_plan(int C, int H, int W, int* out) {
   if (C < 1 || C > MAXC) return (int)cudaErrorInvalidValue;
   const Geo g = make_geo(1, C, H, W);
   const int mt = fwd_mt(g.Cp);
   out[0] = fwd_smem(g.Cp);
   out[1] = (g.Cp + 16 * mt - 1) / (16 * mt);
-  out[2] = dw_smem(g.Cp);
-  out[3] = dw_ngroup(g.Cp);
+  out[2] = dw_smem(g.Cp / 16);
+  out[3] = g.Cp / 16 / dw_mt(g.Cp / 16);
   out[4] = g.ntiles;
+  return 0;
+}
+
+// E's tile plan: out[0] = shared bytes, out[1] = blocks per slab (row
+// split), out[2] = dk rows per block, out[3] = tile rows, out[4] = ring
+// stages, out[5] = tiles per image plane (for the grid).
+extern "C" int branch_conv_dw_plan(int C, int H, int W, int* out) {
+  if (C < 1 || C > MAXC) return (int)cudaErrorInvalidValue;
+  const Geo g = make_dw_geo(1, C, H, W);
+  const int k16 = g.Cp / 16;
+  out[0] = dw_smem(k16);
+  out[1] = k16 / dw_mt(k16);
+  out[2] = 16 * dw_mt(k16);
+  out[3] = ETH;
+  out[4] = dw_stages(k16);
+  out[5] = g.ntiles;
   return 0;
 }
 
@@ -534,38 +840,45 @@ extern "C" int branch_conv_fwd(const void* x, const void* w, const void* mul, co
   return (int)cudaGetLastError();
 }
 
-template <int MT>
+template <int K16>
 static cudaError_t launch_dw(const void* x, const void* dy, const void* y, const void* ds,
                              const void* mul, const void* add, void* dY, void* partial,
-                             const Geo& g, int pre, int fuse, int grid, int ngroup,
+                             const Geo& g, int pre, int fuse, int async_copy, int grid,
                              cudaStream_t s) {
-  const int smem = dw_smem(g.Cp);
-  cudaError_t err = cudaFuncSetAttribute(conv_dw_kernel<MT>,
+  const int smem = dw_smem(K16);
+  cudaError_t err = cudaFuncSetAttribute(conv_dw_kernel<K16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  conv_dw_kernel<MT><<<grid, NT, smem, s>>>(
+  conv_dw_kernel<K16><<<grid, NT, smem, s>>>(
       (const bf16*)x, (const bf16*)dy, (const bf16*)y, (const float*)ds, (const float*)mul,
-      (const float*)add, (bf16*)dY, (float*)partial, g, pre, fuse, ngroup);
+      (const float*)add, (bf16*)dY, (float*)partial, g, pre, fuse, async_copy);
   return cudaGetLastError();
 }
 
+static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 // Kernel E.  x, dy [N,C,H,W] bf16; y [N,C,H,W] bf16 and ds [2][C] f32 (fuse);
 // mul, add [C] f32 (pre); dY [N,C,H,W] bf16 (fuse); partial [nslab][Cp][9*Cp]
-// f32; dk [C,C,3,3] f32 (OIHW).  The grid is nslab * (E's column split).
+// f32; dk [C,C,3,3] f32 (OIHW).  The grid is nslab * (E's row split).
+// async_copy = 1 stages through the cp.async ring, which needs W % 8 == 0
+// and x, dy (y, dY with fuse) 16-byte aligned; 0 the synchronous fill.
 extern "C" int branch_conv_dw(const void* x, const void* dy, const void* y, const void* ds,
                               const void* mul, const void* add, void* dY, void* partial,
                               void* dk, int N, int C, int H, int W, int pre, int fuse, int nslab,
-                              void* stream) {
+                              int async_copy, void* stream) {
   if (!geo_ok(N, C, H, W) || nslab < 1) return (int)cudaErrorInvalidValue;
-  const Geo g = make_geo(N, C, H, W);
+  const Geo g = make_dw_geo(N, C, H, W);
   if (nslab > g.ntiles) return (int)cudaErrorInvalidValue;
+  if (async_copy && (W % 8 != 0 || !aligned16(x) || !aligned16(dy) ||
+                     (fuse && (!aligned16(y) || !aligned16(dY)))))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int ngroup = dw_ngroup(g.Cp);
-  const int grid = nslab * ngroup;
+  const int k16 = g.Cp / 16;
+  const int grid = nslab * (k16 / dw_mt(k16));
   cudaError_t err;
-  switch (g.Cp / 16) {
-#define DW_CASE(M) \
-    case M: err = launch_dw<M>(x, dy, y, ds, mul, add, dY, partial, g, pre, fuse, grid, ngroup, s); break;
+  switch (k16) {
+#define DW_CASE(K) \
+    case K: err = launch_dw<K>(x, dy, y, ds, mul, add, dY, partial, g, pre, fuse, async_copy, grid, s); break;
     DW_CASE(1) DW_CASE(2) DW_CASE(3) DW_CASE(4) DW_CASE(5) DW_CASE(6) DW_CASE(7) DW_CASE(8)
 #undef DW_CASE
     default: return (int)cudaErrorInvalidValue;

@@ -19,8 +19,11 @@ public as ``conv3x3_nchw`` and ``conv3x3_bn_nchw``).  Contract, with x NCHW
 
 On a CUDA tensor the wrappers launch the hand-written kernels of
 ``csrc/branch_conv.cu`` (bf16, C <= 128, H % 8 == 0; anything else raises).
-On a CPU tensor they run the plain versions below, which the kernels are
-tested against.
+E stages its tiles through an asynchronous ring where the shape and the
+pointers allow it (:func:`dw_async`) and fills them synchronously
+otherwise, in the same kernel; ``conv3x3_dw_cuda.launches_async`` counts the
+ring's launches.  On a CPU tensor they run the plain versions below, which
+the kernels are tested against.
 """
 
 from __future__ import annotations
@@ -110,18 +113,40 @@ def _lib() -> ctypes.CDLL:
         lib.branch_conv_plan.restype = i
         lib.branch_conv_fwd.argtypes = [vp] * 7 + [i] * 8 + [vp]
         lib.branch_conv_fwd.restype = i
-        lib.branch_conv_dw.argtypes = [vp] * 9 + [i] * 7 + [vp]
+        lib.branch_conv_dw_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
+        lib.branch_conv_dw_plan.restype = i
+        lib.branch_conv_dw.argtypes = [vp] * 9 + [i] * 8 + [vp]
         lib.branch_conv_dw.restype = i
         lib._typed = True
     return lib
 
 
 def _plan(c: int, h: int, w: int) -> Tuple[int, int, int, int, int]:
-    """(D's shared bytes, D's C_out split, E's shared bytes, E's column
-    split, tiles per image) from the kernel source's own geometry."""
+    """(D's shared bytes, D's C_out split, E's shared bytes, E's row
+    split, D's tiles per image) from the kernel source's own geometry."""
     out = (ctypes.c_int * 5)()
     _raise_on(_lib().branch_conv_plan(c, h, w, out), "branch_conv_plan")
     return tuple(out)
+
+
+DW_PLAN_KEYS = ("smem", "row_blocks", "rows", "tile_rows", "stages", "tiles")
+
+
+def dw_plan(c: int, h: int, w: int) -> dict:
+    """E's tile plan for C channels at H x W, from the kernel source: shared
+    bytes, blocks per slab (the split of dk's rows), dk rows per block, tile
+    rows, ring stages, tiles per image."""
+    out = (ctypes.c_int * len(DW_PLAN_KEYS))()
+    _raise_on(_lib().branch_conv_dw_plan(c, h, w, out), "branch_conv_dw_plan")
+    return dict(zip(DW_PLAN_KEYS, out))
+
+
+def dw_async(shape, ptrs) -> bool:
+    """E's staging path, decided before the launch from x's shape [N,C,H,W]
+    and the tensors' addresses alone: the asynchronous ring copies whole
+    16-byte chunks of rows, so it needs W % 8 == 0 and every pointer 16-byte
+    aligned; anything else takes the synchronous fill."""
+    return shape[3] % 8 == 0 and all(p % 16 == 0 for p in ptrs)
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -202,23 +227,26 @@ def conv3x3_dw_cuda(x: torch.Tensor, dy: torch.Tensor, y=None, ds=None, mul=None
     if mul is not None:
         _check_vec("mul", mul, (c,), x.device)
         _check_vec("add", add, (c,), x.device)
-    _, _, _, ngroup, tiles = _plan(c, h, wd)
+    plan = dw_plan(c, h, wd)
     cp = (c + 15) // 16 * 16
     # E: one block per SM (its f32 partial fills the registers)
-    nslab = _slabs(x.device, 1, ngroup, n * tiles)
+    nslab = _slabs(x.device, 1, plan["row_blocks"], n * plan["tiles"])
     partial = torch.empty((nslab, cp, 9 * cp), dtype=torch.float32, device=x.device)
     dY = torch.empty_like(x) if fuse else None
+    ring = dw_async(x.shape, [t.data_ptr() for t in (x, dy, y, dY) if t is not None])
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().branch_conv_dw(x.data_ptr(), dy.data_ptr(), ptr(y), ptr(ds), ptr(mul), ptr(add),
                                 ptr(dY), partial.data_ptr(), dk.data_ptr(), n, c, h, wd,
-                                int(mul is not None), int(fuse), nslab, stream)
+                                int(mul is not None), int(fuse), nslab, int(ring), stream)
     _raise_on(err, "branch_conv_dw")
     conv3x3_dw_cuda.launches += 1
+    conv3x3_dw_cuda.launches_async += int(ring)
     return dk, dY
 
 
 conv3x3_dw_cuda.launches = 0
+conv3x3_dw_cuda.launches_async = 0
 
 
 # ---------------------------------------------------------------------------

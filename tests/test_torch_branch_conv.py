@@ -107,6 +107,24 @@ def test_supported_is_the_reference_gate():
     assert bc.supported((2, 8, 64, 16), 8, 8) and not bc.supported((1, 8, 0, 8), 8, 8)
 
 
+@pytest.mark.parametrize("shape,ptrs,ring", [
+    ((8, 48, 256, 256), (0x7f0000000000, 0x7f0000400000, 0x7f0000800000), True),
+    ((8, 96, 128, 128), (0x7f0000000000, 0x7f0000400000), True),
+    ((2, 48, 32, 40), (256, 512), True),       # ragged last column tile, still whole chunks
+    ((2, 48, 32, 70), (256, 512), False),      # W % 8 != 0: rows do not start on a chunk
+    ((1, 96, 64, 33), (256, 512), False),
+    ((2, 48, 32, 64), (258, 512), False),      # x 2 bytes past a 16-byte boundary
+    ((2, 48, 32, 64), (256, 512, 520), False),  # y 8 bytes past it
+    ((1, 96, 32, 8), (16, 32), True),
+    ((1, 128, 32, 8), (16, 32), True),
+])
+def test_dw_path_choice(shape, ptrs, ring):
+    """E's staging path is a function of the shape and the addresses alone,
+    decided before the launch: the asynchronous ring for W % 8 == 0 and
+    16-byte aligned tensors, the synchronous fill for anything else."""
+    assert bc.dw_async(shape, ptrs) is ring
+
+
 def test_plain_versions_hold_the_rounding_contract():
     """The plain D rounds the input transform twice and pads the
     TRANSFORMED input with zeros; the plain E's dY is the f32 composition

@@ -70,12 +70,7 @@ def _within_one_ulp(got, want):
     return bool(((got.float() - want.float()).abs() <= 2.0 ** -7 * want.float().abs() + 1e-4).all())
 
 
-@pytest.mark.parametrize("n,c,h,w", [(2, 8, 32, 40), (2, 16, 16, 24), (2, 48, 32, 70),
-                                     (1, 96, 64, 33), (1, 128, 32, 20)])
-def test_branch_conv_kernels_match_plain(dev, n, c, h, w):
-    """D (plain, pre, flipped dx conv) and E (fused dY with ds != 0, with and
-    without pre; unfused) against their plain versions, at widths that pad
-    to the MMA's 16 and at W not a multiple of the 32-pixel tile."""
+def _branch_inputs(dev, n, c, h, w):
     g = torch.Generator(device=dev).manual_seed(c)
     x = torch.randn(n, c, h, w, generator=g, device=dev).to(torch.bfloat16)
     wt = torch.randn(c, c, 3, 3, generator=g, device=dev) / (3.0 * c ** 0.5)
@@ -83,13 +78,31 @@ def test_branch_conv_kernels_match_plain(dev, n, c, h, w):
     add = torch.randn(c, generator=g, device=dev) * 0.1
     dy = (torch.randn(n, c, h, w, generator=g, device=dev) * 1e-2).to(torch.bfloat16)
     ds = torch.randn(2, c, generator=g, device=dev) * 1e-3
+    return x, wt, mul, add, dy, ds
+
+
+@pytest.mark.parametrize("n,c,h,w", [(2, 8, 32, 40), (2, 16, 16, 24), (2, 48, 32, 70),
+                                     (1, 96, 64, 33), (1, 128, 32, 20), (2, 48, 32, 40),
+                                     (1, 96, 32, 72)])
+def test_branch_conv_kernels_match_plain(dev, n, c, h, w):
+    """D (plain, pre, flipped dx conv) and E (fused dY with ds != 0, with and
+    without pre; unfused) against their plain versions, at widths that pad
+    to the MMA's 16 and at W not a multiple of the 32-pixel tile.  E takes
+    its asynchronous ring exactly when W % 8 == 0: W = 40 and 72 end in a
+    ragged column tile on the ring (dY beyond W must stay 0, not ds0), and
+    C = 96 at H = 32 with pre puts the input's zero halo (not relu(add)) at
+    both the top and the bottom of the image."""
+    x, wt, mul, add, dy, ds = _branch_inputs(dev, n, c, h, w)
+    ring = w % 8 == 0
     for pre in ((), (mul, add)):
         y, s = bc.conv3x3_fwd(x, wt, *pre)
         yp, sp = bc.conv3x3_fwd_plain(x, wt, *pre)
         torch.cuda.synchronize()
         assert _within_one_ulp(y, yp), (pre != (), (y.float() - yp.float()).abs().max().item())
         assert bool(((s - sp).abs() <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all())
+        before = bc.conv3x3_dw_cuda.launches_async
         dk, dY = bc.conv3x3_dw(x, dy, y, ds, *pre)
+        assert bc.conv3x3_dw_cuda.launches_async - before == int(ring)
         dkp, dYp = bc.conv3x3_dw_plain(x, dy, y, ds, *pre)
         assert torch.equal(dY, dYp)
         assert (dk - dkp).abs().max().item() <= 1e-3 * dkp.abs().max().item()
@@ -100,6 +113,48 @@ def test_branch_conv_kernels_match_plain(dev, n, c, h, w):
     assert dY is None
     dkp = bc.conv3x3_dw_plain(x, dy)[0]
     assert (dk - dkp).abs().max().item() <= 1e-3 * dkp.abs().max().item()
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose data starts 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape).copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+def test_branch_conv_dw_misaligned_input_takes_the_synchronous_fill(dev):
+    """W % 8 == 0, but x starts off a 16-byte boundary: E fills its tiles
+    synchronously (the ring's counter stays put), matches the plain
+    version, and gives the ring's bits."""
+    x, wt, mul, add, dy, ds = _branch_inputs(dev, 2, 48, 32, 64)
+    y = bc.conv3x3_fwd(x, wt, mul, add)[0]
+    xm = _misaligned(x)
+    before, before_async = bc.conv3x3_dw_cuda.launches, bc.conv3x3_dw_cuda.launches_async
+    dk, dY = bc.conv3x3_dw(xm, dy, y, ds, mul, add)
+    torch.cuda.synchronize()
+    assert bc.conv3x3_dw_cuda.launches == before + 1
+    assert bc.conv3x3_dw_cuda.launches_async == before_async
+    dkp, dYp = bc.conv3x3_dw_plain(x, dy, y, ds, mul, add)
+    assert torch.equal(dY, dYp)
+    assert (dk - dkp).abs().max().item() <= 1e-3 * dkp.abs().max().item()
+    # the ring on the aligned input walks the same tiles through the same
+    # products, so its staging must give the same bits of dk and dY
+    dk2, dY2 = bc.conv3x3_dw(x, dy, y, ds, mul, add)
+    assert bc.conv3x3_dw_cuda.launches_async == before_async + 1
+    assert torch.equal(dY2, dYp) and torch.equal(dk2, dk)
+
+
+@pytest.mark.parametrize("n,c,h,w", [(2, 48, 32, 64), (1, 96, 32, 72), (1, 96, 64, 33)])
+def test_branch_conv_dw_is_deterministic(dev, n, c, h, w):
+    """Two launches on the same inputs give the same bits of dk and dY (the
+    partials are summed in a fixed order; no atomics), on either path."""
+    x, wt, mul, add, dy, ds = _branch_inputs(dev, n, c, h, w)
+    y = bc.conv3x3_fwd(x, wt, mul, add)[0]
+    dk1, dY1 = bc.conv3x3_dw(x, dy, y, ds, mul, add)
+    dk2, dY2 = bc.conv3x3_dw(x, dy, y, ds, mul, add)
+    torch.cuda.synchronize()
+    assert torch.equal(dk1, dk2) and torch.equal(dY1, dY2)
 
 
 def test_branch_conv_autograd_on_the_card_matches_the_cpu(dev):
