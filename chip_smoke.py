@@ -8,18 +8,22 @@ Phases; any failure exits non-zero and prints no result:
                 source, started together) and print the seconds;
  2. kernels  -- each hand-written kernel against its plain PyTorch version
                 on the same inputs, at the shapes its path gives it (A, B, C
-                at config 3's; D and E at config 5's two eligible HRNet
-                branches, [8,48,256,256] and [8,96,128,128]), with its time,
-                the plain version's, the library call's where one exists,
-                and its bound on this card; E also twice on the same inputs
-                and through its synchronous fill (a misaligned input) beside
-                its asynchronous ring, all bit-equal, with its tile plan and
-                the registers ptxas gives it;
+                at config 3's; D, D's post mode and E at config 5's two
+                eligible HRNet branches, [8,48,256,256] and [8,96,128,128]),
+                with its time, the plain version's, the library call's where
+                one exists, and its bound on this card; D's post mode also
+                bit-equal to D's dx conv followed by ``pre_backward`` on the
+                card, twice on the same inputs, with the times of
+                ``pre_backward`` alone and of that unfused chain; E also twice
+                on the same inputs and through its synchronous fill (a
+                misaligned input) beside its asynchronous ring, all
+                bit-equal, with its tile plan and the registers ptxas gives it;
  3. reference -- at a small size, on the card (kernels) against the CPU
                 (plain versions), from the same weights and inputs: the stem
                 segment and one config-3 FixMatch step; an HRModule (branches
-                16/32) forward and backward; one config-5 FixMatch step (OHEM,
-                fused branch convs, remat 'stages:3') on a width-8 HRNet;
+                16/32) forward and backward (D's post mode in the
+                backward); one config-5 FixMatch step (OHEM, fused branch
+                convs, remat 'stages:3') on a width-8 HRNet;
  4. slice    -- the port's ``Trainer`` trains config 3 (synthetic data,
                 8 + 8 images at 512^2, ``model.stem_impl=pallas``,
                 ``data.cutmix_impl=pallas``) and then config 5 as shipped
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -250,18 +255,21 @@ def main() -> None:
     report["branch_kernels"] = {"D": d_rows, "E": e_rows, "E_plan": e_plans}
     # the record of the line: branch 0's shape, the modes the path runs most
     kernels["branch_conv_fwd"] = d_rows["N8_C48_256x256 pre+stats"]
+    kernels["branch_conv_dx_post"] = d_rows["N8_C48_256x256 post"]
     kernels["branch_conv_dw"] = e_rows["N8_C48_256x256 fuse+pre"]
 
     # -------------------------------------------- 3. reference, small size
     report["reference"] = reference_phase(torch, dev)
 
     # ------------------------------------------------------ 4. the slices
-    # name -> (wrapper, counter attribute); the last counts E's launches on
-    # its asynchronous ring
+    # name -> (wrapper, counter attribute); "branch_conv_dx_post" counts D's
+    # post-mode launches (also in D's "launches"), "branch_conv_dw_async"
+    # E's launches on its asynchronous ring
     counters = {"cutmix_normalize": (cmn.cutmix_normalize_triton, "launches"),
                 "stem_fwd": (stem.stem_fwd_cuda, "launches"),
                 "stem_dw": (stem.stem_dw_cuda, "launches"),
                 "branch_conv_fwd": (branch_conv.conv3x3_fwd_cuda, "launches"),
+                "branch_conv_dx_post": (branch_conv.conv3x3_fwd_cuda, "launches_post"),
                 "branch_conv_dw": (branch_conv.conv3x3_dw_cuda, "launches"),
                 "branch_conv_dw_async": (branch_conv.conv3x3_dw_cuda, "launches_async")}
     none = {k: 0 for k in counters}
@@ -271,13 +279,16 @@ def main() -> None:
         {**none, "cutmix_normalize": 1, "stem_fwd": 2, "stem_dw": 1}, steps=8)
     # D: 8 modules x 2 eligible branches (48 and 96 ch) x 4 blocks x 2 convs
     # = 128 per forward: teacher 128 + student 128 + stage 3's 4 modules
-    # re-run by the checkpoint (64) + the dx convs (128); E: 128.
+    # re-run by the checkpoint (64) + the dx convs (128), of which the 64 of
+    # the convs with the input transform (each block's second) run in D's
+    # post mode; E: 128.
     report["slice_config5"], launches5 = slice_phase(torch, "config 5", CONFIG5, {
         "data.synthetic_canvas": 1024, "data.synthetic_size": 8,
         "train.labeled_batch_size": 4, "train.unlabeled_batch_size": 4}, counters,
-        {**none, "branch_conv_fwd": 448, "branch_conv_dw": 128, "branch_conv_dw_async": 128},
-        steps=8)
+        {**none, "branch_conv_fwd": 448, "branch_conv_dx_post": 64, "branch_conv_dw": 128,
+         "branch_conv_dw_async": 128}, steps=8)
     launches = {**launches3, "branch_conv_fwd": launches5["branch_conv_fwd"],
+                "branch_conv_dx_post": launches5["branch_conv_dx_post"],
                 "branch_conv_dw": launches5["branch_conv_dw"]}
 
     meta = {
@@ -289,6 +300,8 @@ def main() -> None:
                     "semi_supervised_semantic_segmentation_tpu/ops/pallas_stem.py:235"),
         "branch_conv_fwd": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
                             "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:328"),
+        "branch_conv_dx_post": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
+                                "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:223"),
         "branch_conv_dw": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
                            "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:536"),
     }
@@ -348,7 +361,13 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
     within 1e-3 of each row's max, dk within 1e-3 of max|dk|, dY exact.
     E also: on its asynchronous ring (counted), bit-equal over two launches,
     and through its synchronous fill (x at a 2-byte offset), which must give
-    the ring's bits, with its own time."""
+    the ring's bits, with its own time.  D's post mode (dY = dy, the
+    forward conv's x, mul and add): dx bit-equal to D's dx conv followed by
+    ``pre_backward`` on the card and over two launches; against the plain
+    version dx within one bf16 ulp of dt carried through the scale plus
+    dx's own rounding (2^-6 relative: the plain dt may sit one ulp away,
+    from f32 sums taken in another order), (dmul, dadd) within 1e-3 of each
+    row's max."""
     F = torch.nn.functional
     bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(5)
@@ -395,6 +414,8 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
                   f"{row['library_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
                   flush=True)
             del y, yp
+        d_rows[f"{tag} post"] = dx_post_row(torch, bc, tag, x, w, mul, add, dy, time_ms, bound,
+                                            bf16_peak, lib_fwd, flops)
         y, _ = bc.conv3x3_fwd_cuda(x, w)
         dY_lib = bc.fold_stats_cotangent(dy, y, ds)
         lib_dw = time_ms(lambda: torch.nn.grad.conv2d_weight(x, w.shape, dY_lib, padding=1))
@@ -449,6 +470,58 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
             del dk, dY, dk2, dY2, dkp, dYp, dks, dYs
         del x, xm, dy, y, dY_lib
     return d_rows, e_rows, e_plans
+
+
+def dx_post_row(torch, bc, tag, x, w, mul, add, dY, time_ms, bound, bf16_peak, lib_fwd, flops):
+    """D's post mode at one shape: checks, times and bound (see
+    :func:`branch_kernels`)."""
+    c = x.shape[1]
+    post0 = bc.conv3x3_fwd_cuda.launches_post
+    dx, sums = bc.conv3x3_dx_post_cuda(dY, w, x, mul, add)
+    dx2, sums2 = bc.conv3x3_dx_post_cuda(dY, w, x, mul, add)
+    torch.cuda.synchronize()
+    check(bc.conv3x3_fwd_cuda.launches_post == post0 + 2, f"D {tag} post: launches not counted")
+    check(torch.equal(dx, dx2) and torch.equal(sums, sums2),
+          f"D {tag} post: two launches on the same inputs differ")
+    dt = bc.conv3x3_fwd_cuda(dY, w, stats=False, flip=True)[0]
+    dxu, dmul, dadd = bc.pre_backward(x, dt, mul, add)
+    check(torch.equal(dx, dxu), f"D {tag} post: dx is not bit-equal to D's dx conv + pre_backward "
+          f"on the card ({(dx.float() - dxu.float()).abs().max().item()})")
+    dxp, sp = bc.conv3x3_dx_post_plain(dY, w, x, mul, add)
+    err = (dx.float() - dxp.float()).abs()
+    check(bool((err <= 2.0 ** -6 * dxp.float().abs() + 1e-4).all()),
+          f"D {tag} post: dx differs from the plain version by {err.max().item()}")
+    err_s = (sums - sp).abs()
+    check(bool((err_s <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all()),
+          f"D {tag} post: (dmul, dadd) differ from the plain version by {err_s.max().item()}")
+    err_u = (sums - torch.stack([dmul, dadd])).abs()
+    check(bool((err_u <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all()),
+          f"D {tag} post: (dmul, dadd) differ from pre_backward's by {err_u.max().item()}")
+
+    def unfused():
+        return bc.pre_backward(x, bc.conv3x3_fwd_cuda(dY, w, stats=False, flip=True)[0], mul, add)
+
+    row = {
+        "ms": time_ms(lambda: bc.conv3x3_dx_post_cuda(dY, w, x, mul, add)),
+        "plain_ms": time_ms(lambda: bc.conv3x3_dx_post_plain(dY, w, x, mul, add)),
+        # the chain the post mode replaces, and its elementwise part alone
+        "unfused_ms": time_ms(unfused),
+        "pre_backward_ms": time_ms(lambda: bc.pre_backward(x, dt, mul, add)),
+        # the conv alone: no single torch call computes the function
+        "library_ms": lib_fwd,
+        "max_abs_err": err.max().item(),
+        "sums_err": err_s.max().item(),
+    }
+    # dY and x read, dx written; the weights, (mul, add) and (dmul, dadd)
+    nbytes = 3 * x.numel() * 2 + w.numel() * 4 + 2 * c * 4 + 2 * c * 4
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf16_peak)
+    print(f"[kernel D post branch_conv_dx_post] {tag}: dx bit-equal to D dx + pre_backward, two "
+          f"launches bit-equal, max|ddx| vs plain {row['max_abs_err']:.3g}, max|d(dmul, dadd)| "
+          f"{row['sums_err']:.3g}  kernel {row['ms']:.3f} ms  unfused D dx + pre_backward "
+          f"{row['unfused_ms']:.3f} ms  pre_backward alone {row['pre_backward_ms']:.3f} ms  plain "
+          f"{row['plain_ms']:.3f} ms  F.conv2d {row['library_ms']:.3f} ms  bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    return row
 
 
 def _to(obj, dev):
@@ -619,7 +692,14 @@ def reference_phase(torch, dev) -> dict:
         num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
         return math.sqrt(num / sum(float((b[k] ** 2).sum()) for k in b))
 
+    from semi_supervised_semantic_segmentation_tpu_torch.ops.branch_conv import conv3x3_fwd_cuda
+
+    post0 = conv3x3_fwd_cuda.launches_post
     (oc, sc, gc), (op, sp, gp) = hrmodule_run(dev), hrmodule_run("cpu")
+    # each block's second conv takes the input transform: its dx conv runs
+    # in D's post mode on the card
+    posts = conv3x3_fwd_cuda.launches_post - post0
+    check(posts > 0, "reference: HRModule launched D's post mode no time")
     for i, (a, b) in enumerate(zip(oc, op)):
         # one-ulp differences of y move the BN fold, the fma, the residual
         # and the fuse sum by a few bf16 ulps each: 2^-5 relative + 5e-2
@@ -647,8 +727,9 @@ def reference_phase(torch, dev) -> dict:
           f"outputs max|d| {max((a - b).abs().max().item() for a, b in zip(oc, op)):.3g}; "
           f"gradients as one vector {rel:.3g} relative (tolerance 0.25; the CPU against itself "
           f"under a 1e-6 weight perturbation: {self_rel:.3g}); worst single tensor {k_worst} "
-          f"{worst[k_worst]:.3g}", flush=True)
-    out["hrmodule"] = {"grad_vec_rel": rel, "cpu_self_rel": self_rel, "grad_rel": worst}
+          f"{worst[k_worst]:.3g}; D post-mode launches {posts}", flush=True)
+    out["hrmodule"] = {"grad_vec_rel": rel, "cpu_self_rel": self_rel, "grad_rel": worst,
+                       "post_launches": posts}
 
     # ---- (d) one config-5 FixMatch step on a width-8 HRNet
     crop = 256
@@ -678,6 +759,12 @@ def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: 
     from semi_supervised_semantic_segmentation_tpu_torch.engine.trainer import Trainer
 
     warm, profiled = 2, 2
+    # what an earlier phase left behind (a trainer in a reference cycle)
+    # would count in this run's peak memory: collect it, and report what
+    # stays allocated
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
     cfg = load_config(config_path, {
         "data.dataset": "synthetic", "data.num_workers": 8, "train.iters_per_epoch": steps,
         "train.epochs": 1, "train.log_interval": 1,
@@ -729,10 +816,12 @@ def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: 
           f"{cfg.data.crop_size}^2, {steps} steps: losses {[round(v, 4) for v in losses]}; "
           f"launches per step {per_step[-1]}; {ms:.1f} ms/step (median of steps "
           f"{warm + 1}-{steps - profiled}) = {imgs / ms * 1e3:.2f} img/s; peak memory "
-          f"{peak_gb:.2f} GB; step times s {[round(t, 3) for t in times]}", flush=True)
+          f"{peak_gb:.2f} GB ({held_gb:.2f} GB held before the run); step times s "
+          f"{[round(t, 3) for t in times]}", flush=True)
     breakdown = device_breakdown(torch, prof, (window[1] - window[0]) * 1e3, profiled)
     return ({"losses": losses, "step_s": times, "ms_per_step": ms,
-             "img_per_s": imgs / ms * 1e3, "peak_gb": peak_gb, "per_step_launches": per_step,
+             "img_per_s": imgs / ms * 1e3, "peak_gb": peak_gb, "held_gb": held_gb,
+             "per_step_launches": per_step,
              "profile": breakdown}, launches)
 
 
@@ -753,8 +842,9 @@ GROUPS = [
 
 
 def device_breakdown(torch, prof, wall_ms: float, nsteps: int) -> dict:
-    """Device time per step by kernel group and the top kernels, from the
-    profiled window; busy share = summed kernel time / window wall time."""
+    """Device time per step by kernel group, kernel launches per step and
+    the top kernels, from the profiled window; busy share = summed kernel
+    time / window wall time."""
     from torch.autograd import DeviceType
 
     evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -772,11 +862,13 @@ def device_breakdown(torch, prof, wall_ms: float, nsteps: int) -> dict:
     dev_ms = total_us / 1e3 / nsteps
     out = {"device_ms_per_step": dev_ms, "wall_ms_per_step": wall_ms / nsteps,
            "busy_share": total_us / 1e3 / wall_ms,
+           "kernels_per_step": sum(e.count for e in evs) / nsteps,
            "groups_ms_per_step": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
            "top": [{"kernel": e.key[:120], "ms_per_step": e.self_device_time_total / 1e3 / nsteps,
                     "calls_per_step": e.count / nsteps} for e in top]}
     print(f"[profile] {nsteps} profiled steps: device {dev_ms:.1f} ms/step of "
-          f"{wall_ms / nsteps:.1f} ms wall (busy {out['busy_share']:.3f}); by group ms/step "
+          f"{wall_ms / nsteps:.1f} ms wall (busy {out['busy_share']:.3f}), "
+          f"{out['kernels_per_step']:.0f} kernels per step; by group ms/step "
           f"{ {k: round(v, 2) for k, v in out['groups_ms_per_step'].items()} }", flush=True)
     for t in out["top"]:
         print(f"[profile]   {t['ms_per_step']:8.3f} ms/step  x{t['calls_per_step']:.0f}  "

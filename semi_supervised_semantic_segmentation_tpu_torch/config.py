@@ -7,16 +7,20 @@ defaults, flat reference aliases and validation rules, so the five
 The machine that runs the port has no PyYAML, so the YAML the configs use is
 read by :func:`parse_yaml`, a small reader of its own: nested mappings by
 indentation, scalars (int, float, bool, null, plain and quoted strings),
-``#`` comments and flow lists such as ``eval_scales: [0.5, 0.75]``.  Block
-lists, flow mappings, anchors and multi-line scalars are refused.  One
-deliberate difference from YAML 1.1: an unquoted digit string with
-underscores (``1_16``) stays a string, as the split names need.
+``#`` comments, flow lists such as ``eval_scales: [0.5, 0.75]`` and block
+lists of scalars (``- 0.5`` lines under their key, at its indent or deeper,
+as ``yaml.safe_dump`` writes them).  Flow mappings, nested lists, anchors
+and multi-line scalars are refused.  One deliberate difference from YAML
+1.1: an unquoted digit string with underscores (``1_16``) stays a string,
+as the split names need.  :func:`save_config` writes ``config.yaml`` in the
+layout of the reference's ``yaml.safe_dump``, which both this reader and
+PyYAML read back.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
+import math
 import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -314,27 +318,59 @@ def parse_yaml(text: str) -> Dict[str, Any]:
         body = line.lstrip(" ")
         if body.startswith("\t"):
             raise ValueError(f"tab indentation is not supported: {raw!r}")
-        if body.startswith("- ") or body == "-":
-            raise ValueError(f"block lists are not supported: {raw!r}")
         lines.append((len(line) - len(body), body))
     root: Dict[str, Any] = {}
-    stack: List[Tuple[int, Dict[str, Any]]] = [(-1, root)]
-    for i, (indent, content) in enumerate(lines):
+    # (the opening key's indent, the mapping, the indent of its keys)
+    stack: List[list] = [[-1, root, None]]
+    i = 0
+    while i < len(lines):
+        indent, content = lines[i]
+        if _is_item(content):
+            raise ValueError(f"a list item outside a key's block list: {content!r}")
         while stack[-1][0] >= indent:
             stack.pop()
+        if stack[-1][2] is None:
+            stack[-1][2] = indent
+        elif stack[-1][2] != indent:
+            raise ValueError(f"inconsistent indentation: {content!r}")
         parent = stack[-1][1]
         key, rest = _split_key(content)
         if key in parent:
             raise ValueError(f"duplicate key {key!r}")
+        i += 1
         if rest.strip():
             parent[key] = parse_value(rest)
-        elif i + 1 < len(lines) and lines[i + 1][0] > indent:
+        elif i < len(lines) and _is_item(lines[i][1]) and lines[i][0] >= indent:
+            # a block list: its items share one indent, the key's or deeper
+            items, item_indent = [], lines[i][0]
+            while i < len(lines) and lines[i][0] == item_indent and _is_item(lines[i][1]):
+                item = lines[i][1][1:].strip()
+                if item.startswith("- ") or item == "-":
+                    raise ValueError(f"nested block lists are not supported: {lines[i][1]!r}")
+                if _is_mapping(item):
+                    raise ValueError(f"lists of mappings are not supported: {lines[i][1]!r}")
+                items.append(parse_value(item))
+                i += 1
+            parent[key] = items
+        elif i < len(lines) and lines[i][0] > indent:
             child: Dict[str, Any] = {}
             parent[key] = child
-            stack.append((indent, child))
+            stack.append([indent, child, None])
         else:
             parent[key] = None
     return root
+
+
+def _is_item(content: str) -> bool:
+    return content.startswith("- ") or content == "-"
+
+
+def _is_mapping(content: str) -> bool:
+    try:
+        _split_key(content)
+    except ValueError:
+        return False
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -494,9 +530,49 @@ def validate(cfg: Config) -> None:
         )
 
 
+def _yaml_scalar(v: Any) -> str:
+    """One scalar as ``yaml.safe_dump`` would resolve it back: strings
+    single-quoted (so none reads as a number, bool or null), floats with a
+    '.' in the mantissa and a signed exponent (YAML 1.1's float pattern)."""
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        r = repr(v).lower()
+        return r.replace("e", ".0e", 1) if "." not in r and "e" in r else r
+    if isinstance(v, str):
+        return "'" + v.replace("'", "''") + "'"
+    raise TypeError(f"cannot write {type(v).__name__} {v!r} as a YAML scalar")
+
+
+def dump_yaml(d: Dict[str, Any], indent: int = 0) -> str:
+    """Nested dicts of scalars and lists of scalars as block YAML, in the
+    layout of ``yaml.safe_dump(d, sort_keys=False)``: two spaces per level,
+    list items at their key's indent."""
+    pad, out = " " * indent, []
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.append(f"{pad}{k}:\n" + dump_yaml(v, indent + 2))
+        elif isinstance(v, (list, tuple)):
+            out.append(f"{pad}{k}:\n" + "".join(f"{pad}- {_yaml_scalar(x)}\n" for x in v)
+                       if v else f"{pad}{k}: []\n")
+        else:
+            out.append(f"{pad}{k}: {_yaml_scalar(v)}\n")
+    return "".join(out)
+
+
 def save_config(cfg: Config, path: str) -> None:
-    """Write the resolved config as JSON (readable by ``config_from_dict``)."""
+    """Write the resolved config as YAML (the reference writes it to
+    ``<work_dir>/config.yaml``); :func:`load_config` and the reference's
+    ``yaml.safe_load`` both read it back to the same ``Config``."""
     d = cfg.to_dict()
     d["name"] = cfg.name
     with open(path, "w") as f:
-        json.dump(d, f, indent=1)
+        f.write(dump_yaml(d))

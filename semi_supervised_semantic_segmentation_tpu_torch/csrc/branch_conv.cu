@@ -5,7 +5,9 @@
 // with the statistics cotangent folded in (kernel E).
 //
 // Replaces semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:
-//   D: _conv3x3_nchw_impl -> _kernel_kstack (alternate _kernel)
+//   D: _conv3x3_nchw_impl -> _kernel_kstack (alternate _kernel); its post
+//      mode (_kernel_kstack(post=True), the reference's opt-in dx
+//      epilogue) is D's post epilogue below, which the port always runs
 //   E: _conv3x3_dw_impl   -> _dw_kernel_dyroll (alternate _dw_kernel)
 //
 // Contract (the TPU kernels'):
@@ -15,6 +17,11 @@
 //      f32 accumulation, one rounding of y to bf16.  With stats:
 //      sums[2,C] = (sum y, sum y^2) of the ROUNDED y over (N, H, W).  With
 //      flip the weights are w[ci,co,2-kh,2-kw] (the dx conv).
+//   D post (the dx conv of a conv whose input was t = relu(x*mul + add);
+//      flip, no pre, no stats): dt = bf16(acc) as y above, then per element
+//      t2 = bf16(bf16(x*mul_r) + add_r), dtm = t2 > 0 ? dt : 0 (strict),
+//      dx = bf16(dtm * mul) with the RAW f32 mul, and
+//      sums[2,C] = (sum dtm*x, sum dtm) = (dmul, dadd) in f32.
 //   E: dY = bf16((f32(dy) + ds[0,co]) + (2*f32(y))*ds[1,co]) (fuse; written
 //      out for the dx conv), else dY = dy; then
 //      dk[co,ci,kh,kw] = sum_{n,h,w} f32(dY[n,co,h,w]) * t[n,ci,h+kh-1,w+kw-1]
@@ -35,6 +42,18 @@
 //      persistent over tiles.  Statistics are per-block partials of the
 //      rounded y, reduced by a second kernel in a fixed order (no atomics:
 //      the same inputs give the same bits).
+//   D post: the epilogue reads x at each output element of the dx conv,
+//      applies the mask and the scale to the rounded dt in registers, writes
+//      dx in dt's place and sums (dmul, dadd) into the statistics' partials
+//      and reduction, so dt never reaches memory.  Every step is an explicit
+//      _rn operation, so no fma contraction rounds once where the plain
+//      chain rounds twice; dx is bit-equal to D's dx conv followed by the
+//      plain chain.  The staging, the product loop and the plan are D's;
+//      only the shared memory grows by one [Cp] f32 row (mul_r, add_r and
+//      the raw mul, against pre's two).  It is bound by bytes like D: dY
+//      and x read, dx written (3 activations, ~151 MB per [8,48,256,256]
+//      call, ~45 us), one activation more than the dx conv alone, against
+//      the ~13 activations of f32 traffic of the unfused chain it replaces.
 //   E: M = C_out, N = 9 * C_in, K = the tile's pixels (4 x 32 output
 //      pixels per tile).  A block owns a slice of dk's rows (C_out) and all
 //      9C columns, with the f32 partial in registers: C = 48 one block of
@@ -208,23 +227,35 @@ __device__ void fill_tile_batched(bf16* tile, const bf16* __restrict__ x, const 
 // ---------------------------------------------------------------------------
 
 // MT = m16 tiles of C_out per block (rows = 16*MT), nmt = blocks per tile.
+// post: xpost is the conv input x of the forward conv whose dx this is,
+// and (mul, add) are its raw f32 fold; pm holds three rows then.
 template <int MT>
 __global__ void __launch_bounds__(NT, 2)
 conv_fwd_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ mul, const float* __restrict__ add,
-                bf16* __restrict__ y, float* __restrict__ partial, Geo g, int pre, int stats,
-                int flip, int nmt) {
+                const bf16* __restrict__ xpost, bf16* __restrict__ y,
+                float* __restrict__ partial, Geo g, int pre, int stats, int flip, int post,
+                int nmt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int ROWS = 16 * MT;
   const int cp = g.Cp, cps = cp + 8, wst = 9 * cp + 8;
   bf16* wsm = reinterpret_cast<bf16*>(smem_raw);            // [ROWS][wst]
   bf16* tile = wsm + ROWS * wst;                             // [(TH+2)*HW2][cps]
   float* red = reinterpret_cast<float*>(tile + (TH + 2) * HW2 * cps);  // [8][2][ROWS]
-  float* pm = red + 8 * 2 * ROWS;                             // [2][Cp]
+  float* pm = red + 8 * 2 * ROWS;                             // [2][Cp], post [3][Cp]
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int mtile = blockIdx.x % nmt, slab = blockIdx.x / nmt, nslab = gridDim.x / nmt;
   const int co_base = mtile * ROWS;
-  stage_pre(pm, mul, add, pre != 0, g);
+  if (post) {
+    // pm[ci] = bf16(mul[ci]), pm[Cp + ci] = bf16(add[ci]), pm[2Cp + ci] = mul[ci]
+    for (int e = t; e < 3 * cp; e += NT) {
+      const int which = e / cp, ci = e - which * cp;
+      const float v = ci < g.C ? (which == 1 ? add : mul)[ci] : 0.f;
+      pm[e] = which == 2 ? v : bf16r(v);
+    }
+  } else {
+    stage_pre(pm, mul, add, pre != 0, g);
+  }
 
   // Weights: bf16(w) as A[co][tap*Cp + ci], zero padding.  Read in the
   // parameter's own order (coalesced), scattered into shared memory.
@@ -284,6 +315,7 @@ conv_fwd_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
     }
 
     // Epilogue: round, store y, accumulate the statistics of the rounded y.
+    // post: y is dt; store dx in its place and accumulate (dmul, dadd).
     const int oy = oy0 + warp;
 #pragma unroll
     for (int m = 0; m < MT; ++m)
@@ -291,7 +323,29 @@ conv_fwd_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
       for (int half = 0; half < 2; ++half) {
         const int co = co_base + m * 16 + half * 8 + (lane >> 2);
         if (co >= C) continue;
-        bf16* yrow = y + (((size_t)n * C + co) * g.H + oy) * g.W;
+        const size_t row = (((size_t)n * C + co) * g.H + oy) * g.W;
+        bf16* yrow = y + row;
+        if (post) {
+          const bf16* xrow = xpost + row;
+          const float mr = pm[co], ar = pm[cp + co], mw = pm[2 * cp + co];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int ox = ox0 + j * 8 + (lane & 3) * 2;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if (ox + e < g.W) {
+                const float dt = bf16r(acc[m][j][2 * half + e]);
+                const float xf = __bfloat162float(xrow[ox + e]);
+                const float t2 = bf16r(__fadd_rn(bf16r(__fmul_rn(xf, mr)), ar));
+                const float dtm = t2 > 0.f ? dt : 0.f;
+                yrow[ox + e] = __float2bfloat16(__fmul_rn(dtm, mw));
+                s1[m][half] = __fadd_rn(s1[m][half], __fmul_rn(dtm, xf));
+                s2[m][half] = __fadd_rn(s2[m][half], dtm);
+              }
+            }
+          }
+          continue;
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int ox = ox0 + j * 8 + (lane & 3) * 2;
@@ -308,7 +362,7 @@ conv_fwd_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
         }
       }
   }
-  if (!stats) return;
+  if (!stats && !post) return;
 
   // Block partial: sum the 4 lanes of a row, then the 8 warps in order.
 #pragma unroll
@@ -761,23 +815,27 @@ __global__ void reduce_dk_kernel(const float* __restrict__ part, int nparts, int
 
 static int fwd_mt(int cp) { return cp / 16 < 3 ? cp / 16 : 3; }
 
-static int fwd_smem(int cp) {
+// post stages a third [Cp] f32 row of the fold (the raw mul).
+static int fwd_smem(int cp, int post) {
   const int rows = 16 * fwd_mt(cp);
-  return (rows * (9 * cp + 8) + (TH + 2) * HW2 * (cp + 8)) * 2 + (8 * 2 * rows + 2 * cp) * 4;
+  return (rows * (9 * cp + 8) + (TH + 2) * HW2 * (cp + 8)) * 2 +
+         (8 * 2 * rows + (post ? 3 : 2) * cp) * 4;
 }
 
 // out[0] = D's shared bytes, out[1] = D's blocks per tile (C_out split),
 // out[2] = E's shared bytes, out[3] = E's blocks per slab (row split),
-// out[4] = D's tiles per image plane (for the grid).
+// out[4] = D's tiles per image plane (for the grid), out[5] = D's shared
+// bytes in post mode.
 extern "C" int branch_conv_plan(int C, int H, int W, int* out) {
   if (C < 1 || C > MAXC) return (int)cudaErrorInvalidValue;
   const Geo g = make_geo(1, C, H, W);
   const int mt = fwd_mt(g.Cp);
-  out[0] = fwd_smem(g.Cp);
+  out[0] = fwd_smem(g.Cp, 0);
   out[1] = (g.Cp + 16 * mt - 1) / (16 * mt);
   out[2] = dw_smem(g.Cp / 16);
   out[3] = g.Cp / 16 / dw_mt(g.Cp / 16);
   out[4] = g.ntiles;
+  out[5] = fwd_smem(g.Cp, 1);
   return 0;
 }
 
@@ -803,24 +861,22 @@ static bool geo_ok(int N, int C, int H, int W) {
 
 template <int MT>
 static cudaError_t launch_fwd(const void* x, const void* w, const void* mul, const void* add,
-                              void* y, void* partial, const Geo& g, int pre, int stats, int flip,
-                              int grid, int nmt, cudaStream_t s) {
-  const int smem = fwd_smem(g.Cp);
+                              const void* xpost, void* y, void* partial, const Geo& g, int pre,
+                              int stats, int flip, int post, int grid, int nmt, cudaStream_t s) {
+  const int smem = fwd_smem(g.Cp, post);
   cudaError_t err = cudaFuncSetAttribute(conv_fwd_kernel<MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   conv_fwd_kernel<MT><<<grid, NT, smem, s>>>(
-      (const bf16*)x, (const float*)w, (const float*)mul, (const float*)add, (bf16*)y,
-      (float*)partial, g, pre, stats, flip, nmt);
+      (const bf16*)x, (const float*)w, (const float*)mul, (const float*)add,
+      (const bf16*)xpost, (bf16*)y, (float*)partial, g, pre, stats, flip, post, nmt);
   return cudaGetLastError();
 }
 
-// Kernel D.  x [N,C,H,W] bf16; w [C,C,3,3] f32 (OIHW); mul, add [C] f32 (pre);
-// y [N,C,H,W] bf16; partial [nslab][2][C] f32; sums [2][C] f32 (stats).
-// The grid is nslab * (D's C_out split); nslab <= tiles.
-extern "C" int branch_conv_fwd(const void* x, const void* w, const void* mul, const void* add,
-                               void* y, void* partial, void* sums, int N, int C, int H, int W,
-                               int pre, int stats, int flip, int nslab, void* stream) {
+// D's launch and, with sums, the fixed-order reduction of its partials.
+static int run_fwd(const void* x, const void* w, const void* mul, const void* add,
+                   const void* xpost, void* y, void* partial, void* sums, int N, int C, int H,
+                   int W, int pre, int stats, int flip, int post, int nslab, void* stream) {
   if (!geo_ok(N, C, H, W) || nslab < 1) return (int)cudaErrorInvalidValue;
   const Geo g = make_geo(N, C, H, W);
   if (nslab > g.ntiles) return (int)cudaErrorInvalidValue;
@@ -829,15 +885,38 @@ extern "C" int branch_conv_fwd(const void* x, const void* w, const void* mul, co
   const int nmt = (g.Cp + 16 * mt - 1) / (16 * mt);
   const int grid = nslab * nmt;
   cudaError_t err;
+#define FWD_ARGS x, w, mul, add, xpost, y, partial, g, pre, stats, flip, post, grid, nmt, s
   switch (mt) {
-    case 1: err = launch_fwd<1>(x, w, mul, add, y, partial, g, pre, stats, flip, grid, nmt, s); break;
-    case 2: err = launch_fwd<2>(x, w, mul, add, y, partial, g, pre, stats, flip, grid, nmt, s); break;
-    default: err = launch_fwd<3>(x, w, mul, add, y, partial, g, pre, stats, flip, grid, nmt, s); break;
+    case 1: err = launch_fwd<1>(FWD_ARGS); break;
+    case 2: err = launch_fwd<2>(FWD_ARGS); break;
+    default: err = launch_fwd<3>(FWD_ARGS); break;
   }
-  if (err != cudaSuccess || !stats) return (int)err;
+#undef FWD_ARGS
+  if (err != cudaSuccess || !sums) return (int)err;
   reduce_rows_kernel<<<(2 * C + 255) / 256, 256, 0, s>>>((const float*)partial, nslab, 2 * C,
                                                         (float*)sums);
   return (int)cudaGetLastError();
+}
+
+// Kernel D.  x [N,C,H,W] bf16; w [C,C,3,3] f32 (OIHW); mul, add [C] f32 (pre);
+// y [N,C,H,W] bf16; partial [nslab][2][C] f32; sums [2][C] f32 (stats).
+// The grid is nslab * (D's C_out split); nslab <= tiles.
+extern "C" int branch_conv_fwd(const void* x, const void* w, const void* mul, const void* add,
+                               void* y, void* partial, void* sums, int N, int C, int H, int W,
+                               int pre, int stats, int flip, int nslab, void* stream) {
+  return run_fwd(x, w, mul, add, nullptr, y, partial, stats ? sums : nullptr, N, C, H, W, pre,
+                 stats, flip, 0, nslab, stream);
+}
+
+// Kernel D's post mode: the dx conv of dY [N,C,H,W] bf16 with the flipped
+// w [C,C,3,3] f32, its epilogue fused: x [N,C,H,W] bf16 and mul, add [C]
+// f32 (raw) of the forward conv's input transform; dx [N,C,H,W] bf16;
+// partial [nslab][2][C] f32; sums [2][C] f32 = (dmul, dadd).
+extern "C" int branch_conv_dx_post(const void* dY, const void* w, const void* x,
+                                   const void* mul, const void* add, void* dx, void* partial,
+                                   void* sums, int N, int C, int H, int W, int nslab,
+                                   void* stream) {
+  return run_fwd(dY, w, mul, add, x, dx, partial, sums, N, C, H, W, 0, 0, 1, 1, nslab, stream);
 }
 
 template <int K16>

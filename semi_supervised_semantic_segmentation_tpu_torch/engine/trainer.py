@@ -3,8 +3,12 @@
 Host loaders assemble uint8 canvases; a background thread copies the next
 batch to the device (pinned memory, on a side CUDA stream, so the copy
 overlaps the running step) while the main thread runs the method's step.
-Scalars are fetched from the device only at log intervals and written as
-one JSON line each (``<work_dir>/metrics.jsonl``) besides the log.
+The resolved config is written to ``<work_dir>/config.yaml``.  Scalars are
+fetched from the device only at log intervals and written besides the log
+as one JSON line each to ``<work_dir>/metrics.jsonl``, in the reference's
+record shape (``MetricLogger.log_scalars``): ``{"train": {"step", "time",
+...}}`` with step = i + epoch * iters_per_epoch, the 0-based index of the
+step just run, and time in seconds since the logger was made.
 
 Evaluation, checkpoints and resume are not ported yet (ROADMAP.md Queue 1
 items 1-3); ``fit`` says so in one log line and only trains.
@@ -35,19 +39,24 @@ log = logging.getLogger("sstpu_torch")
 class _Prefetcher:
     """Background thread: host batch pairs -> device tensors, ``depth``
     ahead.  On CUDA the copies run on a side stream; ``get`` makes the
-    current stream wait for them."""
+    current stream wait for them.  ``close`` ends the thread, which would
+    otherwise wait on the full queue forever and keep the trainer (its
+    model, optimizer state and batches) alive."""
 
     def __init__(self, pairs: Iterator, device: torch.device, depth: int = 2):
         self.device = device
         self.q: "queue.Queue" = queue.Queue(maxsize=depth)
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         self._sentinel = object()
+        self._stop = threading.Event()
         self._thread = threading.Thread(target=self._produce, args=(pairs,), daemon=True)
         self._thread.start()
 
     def _produce(self, pairs):
         try:
             for lab, unlab in pairs:
+                if self._stop.is_set():
+                    break
                 if self.stream is None:
                     self.q.put((common.to_device(lab, self.device),
                                 common.to_device(unlab, self.device), None))
@@ -77,6 +86,32 @@ class _Prefetcher:
                 t.record_stream(cur)
         return lab, unlab
 
+    def close(self) -> None:
+        """Stop the thread: drain the queue until it has put its last item."""
+        self._stop.set()
+        while self._thread.is_alive():
+            try:
+                self.q.get(timeout=0.1)
+            except queue.Empty:
+                pass
+
+
+class MetricLogger:
+    """The JSON-lines half of the reference's ``utils/logging.py``
+    ``MetricLogger`` (the card's machine has no tensorboardX)."""
+
+    def __init__(self, work_dir: str):
+        os.makedirs(work_dir, exist_ok=True)
+        self.path = os.path.join(work_dir, "metrics.jsonl")
+        self._t0 = time.time()
+
+    def log_scalars(self, step: int, scalars: Dict[str, float], prefix: str = "train") -> dict:
+        rec = {"step": step, "time": round(time.time() - self._t0, 3)}
+        rec.update({k: float(v) for k, v in scalars.items()})
+        with open(self.path, "a") as f:
+            f.write(json.dumps({prefix: rec}) + "\n")
+        return rec
+
 
 class Trainer:
     def __init__(self, cfg: Config, device=None):
@@ -99,8 +134,8 @@ class Trainer:
         self.train_step = self.method.make_train_step(cfg, self.total_steps)
         self._prefetch: Optional[_Prefetcher] = None
         os.makedirs(t.work_dir, exist_ok=True)
-        save_config(cfg, os.path.join(t.work_dir, "config.json"))
-        self._metrics_path = os.path.join(t.work_dir, "metrics.jsonl")
+        save_config(cfg, os.path.join(t.work_dir, "config.yaml"))
+        self.metrics = MetricLogger(t.work_dir)
         log.info("device=%s (%s) model=%s/%s stem_impl=%s branch_conv=%s remat=%s "
                  "cutmix_impl=%s sup_loss=%s steps=%d",
                  self.device, torch.cuda.get_device_name(self.device)
@@ -123,10 +158,6 @@ class Trainer:
         for _ in range(self.iters_per_epoch):
             yield self._prefetch.get()
 
-    def _log_scalars(self, step: int, scalars: Dict[str, float]) -> None:
-        with open(self._metrics_path, "a") as f:
-            f.write(json.dumps({"step": step, **scalars}) + "\n")
-
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         cfg = self.cfg
         t0, n_img, host = time.time(), 0, {}
@@ -137,10 +168,9 @@ class Trainer:
                 host = {k: float(v) for k, v in last.items()}  # syncs the device
                 host["images_per_sec"] = n_img / (time.time() - t0)
                 t0, n_img = time.time(), 0
-                step = self.state.step
-                self._log_scalars(step, host)
+                rec = self.metrics.log_scalars(i + epoch * self.iters_per_epoch, host, "train")
                 log.info("epoch %d iter %d/%d %s", epoch, i + 1, self.iters_per_epoch,
-                         json.dumps({"step": step, **host}))
+                         json.dumps(rec))
         return host
 
     def fit(self) -> Dict[str, float]:
@@ -155,5 +185,8 @@ class Trainer:
         return last
 
     def close(self) -> None:
+        if self._prefetch is not None:
+            self._prefetch.close()
+            self._prefetch = None
         self.labeled_loader.close()
         self.unlabeled_loader.close()

@@ -12,18 +12,32 @@ public as ``conv3x3_nchw`` and ``conv3x3_bn_nchw``).  Contract, with x NCHW
   rounding of y; the optional [2,C] f32 statistics are the per-channel
   (sum, sum of squares) of the ROUNDED y.  ``flip`` convolves with the
   tap-flipped, in/out-swapped weights (the dx conv).
+- D's post mode (``conv3x3_dx_post``, the reference's ``post``): the dx
+  conv dt = conv(dY, flipped w) of a conv whose input was t = relu(x*mul +
+  add), with :func:`pre_backward` fused after it: dtm = dt where
+  bf16(bf16(x * bf16(mul)) + bf16(add)) > 0, else 0; dx = bf16(dtm * mul)
+  with the raw f32 mul; (dmul, dadd) = (sum dtm * x, sum dtm) per channel,
+  as one [2,C] f32.  dt never reaches memory.
 - E (``conv3x3_dw``): with the statistics cotangent ds, the total output
   cotangent dY = bf16((dy + ds[0]) + (2*y)*ds[1]) composed in f32 (also
   returned, for the dx conv); dk = sum over pixels of dY (x) shifted t in
   f32, OIHW.
+
+The backward of the op with the input transform always takes D's post
+mode.  The reference takes it only under ``SSTPU_CBR_DX_FUSE=1`` and runs
+D's dx conv followed by :func:`pre_backward` otherwise; the two give the
+same dx bits and (dmul, dadd) that differ only in the order of f32 sums,
+so the port reads no such variable.
 
 On a CUDA tensor the wrappers launch the hand-written kernels of
 ``csrc/branch_conv.cu`` (bf16, C <= 128, H % 8 == 0; anything else raises).
 E stages its tiles through an asynchronous ring where the shape and the
 pointers allow it (:func:`dw_async`) and fills them synchronously
 otherwise, in the same kernel; ``conv3x3_dw_cuda.launches_async`` counts the
-ring's launches.  On a CPU tensor they run the plain versions below, which
-the kernels are tested against.
+ring's launches, and ``conv3x3_fwd_cuda.launches_post`` D's post-mode
+launches (each also counted in ``conv3x3_fwd_cuda.launches``).  On a CPU
+tensor they run the plain versions below, which the kernels are tested
+against.
 """
 
 from __future__ import annotations
@@ -100,6 +114,14 @@ def pre_backward(x, dt, mul, add):
     return dx, (dtm * x.float()).sum(dim=(0, 2, 3)), dtm.sum(dim=(0, 2, 3))
 
 
+def conv3x3_dx_post_plain(dY, w, x, mul, add):
+    """D's post mode: the dx conv of dY followed by :func:`pre_backward`.
+    -> (dx in x's dtype, [2,C] f32 (dmul, dadd))."""
+    dt = conv3x3_fwd_plain(dY, w, stats=False, flip=True)[0]
+    dx, dmul, dadd = pre_backward(x, dt, mul, add)
+    return dx, torch.stack([dmul, dadd])
+
+
 # ---------------------------------------------------------------------------
 # CUDA launch wrappers
 # ---------------------------------------------------------------------------
@@ -113,6 +135,8 @@ def _lib() -> ctypes.CDLL:
         lib.branch_conv_plan.restype = i
         lib.branch_conv_fwd.argtypes = [vp] * 7 + [i] * 8 + [vp]
         lib.branch_conv_fwd.restype = i
+        lib.branch_conv_dx_post.argtypes = [vp] * 8 + [i] * 5 + [vp]
+        lib.branch_conv_dx_post.restype = i
         lib.branch_conv_dw_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.branch_conv_dw_plan.restype = i
         lib.branch_conv_dw.argtypes = [vp] * 9 + [i] * 8 + [vp]
@@ -121,10 +145,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _plan(c: int, h: int, w: int) -> Tuple[int, int, int, int, int]:
+def _plan(c: int, h: int, w: int) -> Tuple[int, int, int, int, int, int]:
     """(D's shared bytes, D's C_out split, E's shared bytes, E's row
-    split, D's tiles per image) from the kernel source's own geometry."""
-    out = (ctypes.c_int * 5)()
+    split, D's tiles per image, D's shared bytes in post mode) from the
+    kernel source's own geometry."""
+    out = (ctypes.c_int * 6)()
     _raise_on(_lib().branch_conv_plan(c, h, w, out), "branch_conv_plan")
     return tuple(out)
 
@@ -187,6 +212,11 @@ def _slabs(device: torch.device, per_sm: int, split: int, tiles: int) -> int:
     return max(1, min(tiles, per_sm * sms // split))
 
 
+def _fwd_slabs(device: torch.device, smem: int, split: int, tiles: int) -> int:
+    # D: 2 blocks per SM where the shared memory allows (C <= 48)
+    return _slabs(device, 2 if 2 * smem <= 227 * 1024 else 1, split, tiles)
+
+
 def conv3x3_fwd_cuda(x: torch.Tensor, w: torch.Tensor, mul=None, add=None, stats: bool = True,
                      flip: bool = False):
     """Kernel D: x bf16 NCHW, w f32 OIHW -> (y bf16, [2,C] f32 or None)."""
@@ -194,9 +224,8 @@ def conv3x3_fwd_cuda(x: torch.Tensor, w: torch.Tensor, mul=None, add=None, stats
     if mul is not None:
         _check_vec("mul", mul, (c,), x.device)
         _check_vec("add", add, (c,), x.device)
-    smem, nmt, _, _, tiles = _plan(c, h, wd)
-    # D: 2 blocks per SM where the shared memory allows (C <= 48)
-    nslab = _slabs(x.device, 2 if 2 * smem <= 227 * 1024 else 1, nmt, n * tiles)
+    smem, nmt, _, _, tiles, _ = _plan(c, h, wd)
+    nslab = _fwd_slabs(x.device, smem, nmt, n * tiles)
     y = torch.empty_like(x)
     sums = partial = None
     if stats:
@@ -213,6 +242,30 @@ def conv3x3_fwd_cuda(x: torch.Tensor, w: torch.Tensor, mul=None, add=None, stats
 
 
 conv3x3_fwd_cuda.launches = 0
+conv3x3_fwd_cuda.launches_post = 0
+
+
+def conv3x3_dx_post_cuda(dY: torch.Tensor, w: torch.Tensor, x: torch.Tensor, mul: torch.Tensor,
+                         add: torch.Tensor):
+    """Kernel D's post mode: dY, x bf16 NCHW, w f32 OIHW (the forward conv's),
+    mul, add f32 [C] (raw) -> (dx bf16, [2,C] f32 (dmul, dadd))."""
+    n, c, h, wd = _geometry(dY, w)
+    _check_act("x", x, dY.shape)
+    _check_vec("mul", mul, (c,), dY.device)
+    _check_vec("add", add, (c,), dY.device)
+    _, nmt, _, _, tiles, smem = _plan(c, h, wd)
+    nslab = _fwd_slabs(dY.device, smem, nmt, n * tiles)
+    dx = torch.empty_like(dY)
+    sums = torch.empty((2, c), dtype=torch.float32, device=dY.device)
+    partial = torch.empty((nslab, 2, c), dtype=torch.float32, device=dY.device)
+    stream = torch.cuda.current_stream(dY.device).cuda_stream
+    err = _lib().branch_conv_dx_post(dY.data_ptr(), w.data_ptr(), x.data_ptr(), mul.data_ptr(),
+                                     add.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+                                     sums.data_ptr(), n, c, h, wd, nslab, stream)
+    _raise_on(err, "branch_conv_dx_post")
+    conv3x3_fwd_cuda.launches += 1
+    conv3x3_fwd_cuda.launches_post += 1
+    return dx, sums
 
 
 def conv3x3_dw_cuda(x: torch.Tensor, dy: torch.Tensor, y=None, ds=None, mul=None, add=None):
@@ -273,6 +326,13 @@ def conv3x3_fwd(x, w, mul=None, add=None, stats: bool = True, flip: bool = False
     return conv3x3_fwd_cuda(x.contiguous(), _f32(w), _f32(mul), _f32(add), stats, flip)
 
 
+def conv3x3_dx_post(dY, w, x, mul, add):
+    """Kernel D's post mode on CUDA tensors, the plain version on CPU tensors."""
+    if _on_cpu(dY):
+        return conv3x3_dx_post_plain(dY, w, x, mul, add)
+    return conv3x3_dx_post_cuda(dY.contiguous(), _f32(w), x.contiguous(), _f32(mul), _f32(add))
+
+
 def conv3x3_dw(x, dy, y=None, ds=None, mul=None, add=None):
     """Kernel E on CUDA tensors, the plain version on CPU tensors."""
     if _on_cpu(x):
@@ -328,7 +388,7 @@ class _ConvBN(torch.autograd.Function):
 class _ConvBNPre(torch.autograd.Function):
     """(x, w, mul, add) -> (y, s) with the input transform inside the
     kernels.  Backward: E with the stats cotangent and the transform gives
-    (dk, dY), D gives dt, then :func:`pre_backward` in plain torch."""
+    (dk, dY); then D's post mode gives dx and (dmul, dadd) in one launch."""
 
     @staticmethod
     def forward(ctx, x, w, mul, add):
@@ -341,9 +401,8 @@ class _ConvBNPre(torch.autograd.Function):
         x, w, mul, add, y = ctx.saved_tensors
         dy, ds = _cotangents(dy, ds, y)
         dk, dY = conv3x3_dw(x, dy, y, ds, mul, add)
-        dt = conv3x3_fwd(dY, w, stats=False, flip=True)[0]
-        dx, dmul, dadd = pre_backward(x, dt, mul, add)
-        return dx, dk, dmul, dadd
+        dx, dsum = conv3x3_dx_post(dY, w, x, mul, add)
+        return dx, dk, dsum[0], dsum[1]
 
 
 def conv3x3_nchw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -59,6 +59,23 @@ def test_conv3x3_bn_nchw_matches_pallas(with_pre):
     """y, the [2,C] statistics and every gradient (x, k and, with the input
     transform, mul and add) of the fused op, with a loss that reads both
     outputs so the statistics' cotangent reaches the weight gradient."""
+    _bn_op_matches_pallas(with_pre)
+
+
+def test_conv3x3_bn_nchw_matches_pallas_post(monkeypatch):
+    """The backward of the op with the input transform runs D's post mode
+    (here its plain version) always; against the reference with
+    SSTPU_CBR_DX_FUSE=1, which runs its ``post`` kernel in interpret mode:
+    the same four gradients."""
+    monkeypatch.setenv("SSTPU_CBR_DX_FUSE", "1")
+    pallas_conv._cbr_fn.cache_clear()
+    try:
+        _bn_op_matches_pallas(True)
+    finally:
+        pallas_conv._cbr_fn.cache_clear()
+
+
+def _bn_op_matches_pallas(with_pre):
     rng = np.random.RandomState(5)
     c = 48
     xj, xt = _bf16_pair(rng.randn(2, c, 64, 64).astype(np.float32))
@@ -148,3 +165,84 @@ def test_plain_versions_hold_the_rounding_contract():
     _, dY = bc.conv3x3_dw_plain(x, dy, y, ds)
     f = (dy.float() + ds[0][None, :, None, None]) + (2.0 * y.float()) * ds[1][None, :, None, None]
     assert torch.equal(dY, f.to(torch.bfloat16))
+
+
+def _pallas_dx(dYj, k, post=None):
+    """The reference's dx conv (``_cbr_fn``'s ``dx_conv``, or with post
+    ``dx_conv_post``) in interpret mode; k HWIO f32 of the forward conv."""
+    k_bwd = jnp.transpose(jnp.asarray(k)[::-1, ::-1], (0, 1, 3, 2))
+    return pallas_conv._conv3x3_nchw_impl(
+        dYj, pallas_conv._pack_kstack(k_bwd, dYj.dtype), interpret=True, sub=pallas_conv.FWD_SUB,
+        variant="kstack", post=post)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 64, 32), (1, 48, 32, 128)])
+def test_conv3x3_dx_post_plain_matches_pallas_post(shape):
+    """D's post mode against the reference's ``post`` kernel in interpret
+    mode: dx within the conv's one-ulp bound, its zeros (the ReLU mask)
+    where both sides' dt is non-zero, (dmul, dadd) within the bounds of the
+    op's other per-channel reductions."""
+    rng = np.random.RandomState(11)
+    c = shape[1]
+    xj, xt = _bf16_pair(rng.randn(*shape).astype(np.float32))
+    dYj, dYt = _bf16_pair(rng.randn(*shape).astype(np.float32))
+    k = (rng.randn(3, 3, c, c) * 0.05).astype(np.float32)
+    mul = (rng.rand(c) + 0.5).astype(np.float32)
+    add = (rng.randn(c) * 0.1).astype(np.float32)
+    mul_r = jnp.asarray(mul).astype(jnp.bfloat16).astype(jnp.float32)[:, None]
+    add_r = jnp.asarray(add).astype(jnp.bfloat16).astype(jnp.float32)[:, None]
+    dx_j, s_j = _pallas_dx(dYj, k, post=(xj, mul_r, add_r, jnp.asarray(mul)[:, None]))
+    dt_j = _pallas_dx(dYj, k)
+    wt = torch.from_numpy(conv_flax_to_torch(k))
+    dx_t, s_t = bc.conv3x3_dx_post_plain(dYt, wt, xt, torch.from_numpy(mul), torch.from_numpy(add))
+    dt_t = bc.conv3x3_fwd_plain(dYt, wt, stats=False, flip=True)[0]
+    assert dx_t.dtype == torch.bfloat16 and s_t.shape == (2, c) and s_t.dtype == torch.float32
+    np.testing.assert_allclose(_np(dx_t), _np(dx_j), rtol=2e-2, atol=2e-2)
+    both = (_np(dt_t) != 0) & (_np(dt_j) != 0)
+    assert both.mean() > 0.9
+    np.testing.assert_array_equal((_np(dx_t) == 0)[both], (_np(dx_j) == 0)[both])
+    for row, name in enumerate(("dmul", "dadd")):
+        want = _np(s_j)[row]
+        rel = np.max(np.abs(_np(s_t)[row] - want)) / (np.max(np.abs(want)) + 1e-6)
+        assert rel < 8e-2, f"{name}: max-rel {rel}"
+
+
+def test_backward_takes_the_post_mode_and_equals_the_unfused_chain_on_the_cpu(monkeypatch):
+    """The backward of the op with the input transform calls D's post mode
+    once per call, whatever SSTPU_CBR_DX_FUSE says.  On the CPU it is the
+    plain arithmetic of the chain it replaces (E, D's dx conv, then
+    ``pre_backward``), so the four gradients are bit-equal to that chain's."""
+    g = torch.Generator().manual_seed(2)
+    c = 16
+    x = torch.randn(2, c, 32, 24, generator=g).to(torch.bfloat16)
+    w = torch.randn(c, c, 3, 3, generator=g) * 0.1
+    mul, add = torch.rand(c, generator=g) + 0.5, torch.randn(c, generator=g) * 0.1
+    co, ws = torch.randn(2, c, 32, 24, generator=g), torch.randn(2, c, generator=g) * 0.1
+    calls = []
+    post = bc.conv3x3_dx_post
+    monkeypatch.setattr(bc, "conv3x3_dx_post", lambda *a: calls.append(1) or post(*a))
+
+    y, _ = bc.conv3x3_fwd_plain(x, w, mul, add)
+    dk, dY = bc.conv3x3_dw_plain(x, co.to(torch.bfloat16), y, ws, mul, add)
+    dt = bc.conv3x3_fwd_plain(dY, w, stats=False, flip=True)[0]
+    dx, dmul, dadd = bc.pre_backward(x, dt, mul, add)
+    want = [dx, dk, dmul, dadd]
+    for env in ("0", "1", None):
+        if env is None:
+            monkeypatch.delenv("SSTPU_CBR_DX_FUSE", raising=False)
+        else:
+            monkeypatch.setenv("SSTPU_CBR_DX_FUSE", env)
+        before = len(calls)
+        args = [t.clone().requires_grad_() for t in (x, w, mul, add)]
+        y, s = bc.conv3x3_bn_nchw(*args)
+        ((y.float() * co).sum() + (s * ws).sum()).backward()
+        assert len(calls) - before == 1
+        for got, exp in zip((a.grad for a in args), want):
+            assert torch.equal(got, exp)
+
+
+def test_dx_post_dispatch_refuses_other_devices():
+    t = torch.empty(1, 8, 32, 8, dtype=torch.bfloat16, device="meta")
+    v = torch.empty(8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        bc.conv3x3_dx_post(t, torch.empty(8, 8, 3, 3, device="meta"), t, v, v)

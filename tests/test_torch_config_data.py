@@ -52,7 +52,7 @@ def test_yaml_reader_scalars_comments_and_refusals():
         "h: off\n"
     )
     assert config.parse_yaml(text) == yaml.safe_load(text)
-    for bad in ("a:\n  - 1\n", "a: {b: 1}\n", "a: [[1]]\n", "a: 1\na: 2\n"):
+    for bad in ("a:\n  - - 1\n", "a: {b: 1}\n", "a: [[1]]\n", "a: 1\na: 2\n"):
         with pytest.raises(ValueError):
             config.parse_yaml(bad)
 

@@ -158,8 +158,9 @@ def test_branch_conv_dw_is_deterministic(dev, n, c, h, w):
 
 
 def test_branch_conv_autograd_on_the_card_matches_the_cpu(dev):
-    """The fused op's four gradients through kernels D and E against the
-    same op on the CPU's plain versions."""
+    """The fused op's four gradients through kernels D and E (the backward
+    in D's post mode, counted) against the same op on the CPU's plain
+    versions."""
     torch.manual_seed(0)
     c = 16
     x = torch.randn(2, c, 32, 24).to(torch.bfloat16)
@@ -167,13 +168,40 @@ def test_branch_conv_autograd_on_the_card_matches_the_cpu(dev):
     mul, add = torch.rand(c) + 0.5, torch.randn(c) * 0.1
     co, ws = torch.randn(2, c, 32, 24), torch.randn(2, c) * 0.1
     grads = []
+    before = bc.conv3x3_fwd_cuda.launches_post
     for where in (dev, "cpu"):
         args = [t.to(where).requires_grad_() for t in (x, wt, mul, add)]
         y, s = bc.conv3x3_bn_nchw(*args)
         ((y.float() * co.to(where)).sum() + (s * ws.to(where)).sum()).backward()
         grads.append([a.grad.float().cpu() for a in args])
+    assert bc.conv3x3_fwd_cuda.launches_post == before + 1
     for name, a, b in zip(("dx", "dk", "dmul", "dadd"), *grads):
         assert (a - b).abs().max().item() <= 2e-2 * b.abs().max().item(), name
+
+
+@pytest.mark.parametrize("n,c,h,w", [(2, 48, 32, 40), (1, 96, 32, 72), (2, 16, 32, 24),
+                                     (1, 96, 64, 33)])
+def test_branch_conv_dx_post_matches_plain(dev, n, c, h, w):
+    """D's post mode (the dx conv with the input transform's backward in its
+    epilogue) at a ragged last column tile (W = 40, 33), at C = 96 with
+    H = 32 and at a width that pads to 16: dx bit-equal to D's dx conv
+    followed by pre_backward on the card, and over two launches; against the
+    plain version dx within dt's one ulp carried through the scale plus
+    dx's own rounding, (dmul, dadd) within 1e-3 of each row's max.  Each
+    launch counts once in ``launches`` and once in ``launches_post``."""
+    x, wt, mul, add, dy, _ = _branch_inputs(dev, n, c, h, w)
+    before, before_post = bc.conv3x3_fwd_cuda.launches, bc.conv3x3_fwd_cuda.launches_post
+    dx, s = bc.conv3x3_dx_post(dy, wt, x, mul, add)
+    dx2, s2 = bc.conv3x3_dx_post(dy, wt, x, mul, add)
+    torch.cuda.synchronize()
+    assert bc.conv3x3_fwd_cuda.launches == before + 2
+    assert bc.conv3x3_fwd_cuda.launches_post == before_post + 2
+    assert torch.equal(dx, dx2) and torch.equal(s, s2)
+    dt = bc.conv3x3_fwd(dy, wt, stats=False, flip=True)[0]
+    assert torch.equal(dx, bc.pre_backward(x, dt, mul, add)[0])
+    dxp, sp = bc.conv3x3_dx_post_plain(dy, wt, x, mul, add)
+    assert bool(((dx.float() - dxp.float()).abs() <= 2.0 ** -6 * dxp.float().abs() + 1e-4).all())
+    assert bool(((s - sp).abs() <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all())
 
 
 def test_branch_conv_kernels_refuse_what_they_do_not_take(dev):
@@ -185,3 +213,9 @@ def test_branch_conv_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         bc.conv3x3_fwd_cuda(torch.zeros(1, 144, 32, 16, device=dev, dtype=torch.bfloat16),
                             torch.zeros(144, 144, 3, 3, device=dev))
+    dY = torch.zeros(1, 8, 32, 16, device=dev, dtype=torch.bfloat16)
+    v = torch.ones(8, device=dev)
+    with pytest.raises(ValueError):  # x of another shape than dY
+        bc.conv3x3_dx_post_cuda(dY, w, dY[:, :, :16], v, v)
+    with pytest.raises(ValueError):  # mul of another width
+        bc.conv3x3_dx_post_cuda(dY, w, dY, torch.ones(4, device=dev), v)

@@ -89,10 +89,15 @@ def test_train_entry_point_runs_on_an_explicit_cpu(tmp_path, capsys):
     ])
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     with open(tmp_path / "metrics.jsonl") as f:
-        lines = [json.loads(line) for line in f]
-    assert [r["step"] for r in lines] == [1, 2]
+        records = [json.loads(line) for line in f]
+    # the reference's records: {"train": {...}}, step = i + epoch * iters_per_epoch
+    assert all(list(r) == ["train"] for r in records)
+    lines = [r["train"] for r in records]
+    assert [r["step"] for r in lines] == [0, 1]
+    assert all(r["time"] >= 0 for r in lines)
     assert all(np.isfinite(r["loss"]) for r in lines)
     assert last["loss"] == lines[-1]["loss"]
+    assert (tmp_path / "config.yaml").exists() and not (tmp_path / "config.json").exists()
 
 
 def test_train_entry_point_builds_and_trains_config5_on_an_explicit_cpu(tmp_path, capsys):
