@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py        (from the repository root; needs one CUDA card)
+    python3 chip_smoke.py                 (from the repository root; needs one CUDA card)
+    python3 chip_smoke.py --kernels-only  (phases 1 and 2 for kernels D and E only:
+                                           their checks and times, no ok line)
 
 Phases; any failure exits non-zero and prints no result:
  1. build    -- compile ``csrc/*.cu`` with nvcc for sm_90a (one nvcc per
@@ -11,7 +13,10 @@ Phases; any failure exits non-zero and prints no result:
                 at config 3's; D, D's post mode and E at config 5's two
                 eligible HRNet branches, [8,48,256,256] and [8,96,128,128]),
                 with its time, the plain version's, the library call's where
-                one exists, and its bound on this card; D's post mode also
+                one exists, and its bound on this card; at C = 96, D96 (D's
+                kernel for that width) with its plan and registers, and
+                conv_fwd_kernel (a misaligned input) timed beside it, in
+                every mode; D's post mode also
                 bit-equal to D's dx conv followed by ``pre_backward`` on the
                 card, twice on the same inputs, with the times of
                 ``pre_backward`` alone and of that unfused chain; E also twice
@@ -31,7 +36,8 @@ Phases; any failure exits non-zero and prints no result:
                 head, ``branch_conv=pallas``, remat 'stages:3', OHEM) for a
                 few steps each: losses finite, each path's kernels launched
                 the derived number of times at every step (E on its
-                asynchronous ring every time), time per step,
+                asynchronous ring every time; config 5's C = 96 branch convs
+                on D96, post mode included), time per step,
                 peak memory and a profile.
 Then it prints the card's name and power limit, one JSON line of kernel
 records, and the ok line.  A longer report goes to
@@ -126,9 +132,10 @@ def main() -> None:
         for line in b["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {src} ptxas: {line.strip()}", flush=True)
-    report["ptxas_E"] = ptxas = ptxas_usage(built["branch_conv.cu"]["log"])
+    report["ptxas"] = ptxas = ptxas_usage(built["branch_conv.cu"]["log"])
 
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+    kernels_only = "--kernels-only" in sys.argv[1:]
 
     def time_ms(fn, reps: int = 10) -> float:
         """Median of ``reps`` single calls, each after an L2 flush."""
@@ -152,6 +159,15 @@ def main() -> None:
     kernels = {}
     g = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
+    if kernels_only:
+        rows = branch_kernels(torch, dev, branch_conv, time_ms, bound, bf16_peak, ptxas)
+        report["branch_kernels"] = dict(zip(("D", "E", "E_plan", "D96_plan"), rows))
+        report["failures"] = FAILURES
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        print(f"card: {smi_line}", flush=True)
+        sys.exit(1 if FAILURES else 0)
 
     # ------------------------------------------------- 2. kernels: B, C, A
     n, h, w_ = 16, 512, 512
@@ -250,12 +266,16 @@ def main() -> None:
     report["triton_first_launch_s"] = triton_s
 
     # ------------------------------------------ 2. kernels: D, E (config 5)
-    d_rows, e_rows, e_plans = branch_kernels(torch, dev, branch_conv, time_ms, bound, bf16_peak,
-                                             ptxas)
-    report["branch_kernels"] = {"D": d_rows, "E": e_rows, "E_plan": e_plans}
-    # the record of the line: branch 0's shape, the modes the path runs most
+    d_rows, e_rows, e_plans, d96_plans = branch_kernels(torch, dev, branch_conv, time_ms, bound,
+                                                        bf16_peak, ptxas)
+    report["branch_kernels"] = {"D": d_rows, "E": e_rows, "E_plan": e_plans,
+                                "D96_plan": d96_plans}
+    # the records of the line: the modes the path runs most, conv_fwd_kernel
+    # at branch 0's shape, D96 at branch 1's
     kernels["branch_conv_fwd"] = d_rows["N8_C48_256x256 pre+stats"]
     kernels["branch_conv_dx_post"] = d_rows["N8_C48_256x256 post"]
+    kernels["branch_conv_fwd_c96"] = d_rows["N8_C96_128x128 pre+stats"]
+    kernels["branch_conv_dx_post_c96"] = d_rows["N8_C96_128x128 post"]
     kernels["branch_conv_dw"] = e_rows["N8_C48_256x256 fuse+pre"]
 
     # -------------------------------------------- 3. reference, small size
@@ -263,13 +283,15 @@ def main() -> None:
 
     # ------------------------------------------------------ 4. the slices
     # name -> (wrapper, counter attribute); "branch_conv_dx_post" counts D's
-    # post-mode launches (also in D's "launches"), "branch_conv_dw_async"
-    # E's launches on its asynchronous ring
+    # post-mode launches (also in D's "launches"), "..._c96" those of them
+    # on D96, "branch_conv_dw_async" E's launches on its asynchronous ring
     counters = {"cutmix_normalize": (cmn.cutmix_normalize_triton, "launches"),
                 "stem_fwd": (stem.stem_fwd_cuda, "launches"),
                 "stem_dw": (stem.stem_dw_cuda, "launches"),
                 "branch_conv_fwd": (branch_conv.conv3x3_fwd_cuda, "launches"),
                 "branch_conv_dx_post": (branch_conv.conv3x3_fwd_cuda, "launches_post"),
+                "branch_conv_fwd_c96": (branch_conv.conv3x3_fwd_cuda, "launches_c96"),
+                "branch_conv_dx_post_c96": (branch_conv.conv3x3_fwd_cuda, "launches_c96_post"),
                 "branch_conv_dw": (branch_conv.conv3x3_dw_cuda, "launches"),
                 "branch_conv_dw_async": (branch_conv.conv3x3_dw_cuda, "launches_async")}
     none = {k: 0 for k in counters}
@@ -281,14 +303,20 @@ def main() -> None:
     # = 128 per forward: teacher 128 + student 128 + stage 3's 4 modules
     # re-run by the checkpoint (64) + the dx convs (128), of which the 64 of
     # the convs with the input transform (each block's second) run in D's
-    # post mode; E: 128.
+    # post mode; the half of each at C = 96 (branch 1, W = 128) on D96; E: 128.
     report["slice_config5"], launches5 = slice_phase(torch, "config 5", CONFIG5, {
         "data.synthetic_canvas": 1024, "data.synthetic_size": 8,
         "train.labeled_batch_size": 4, "train.unlabeled_batch_size": 4}, counters,
-        {**none, "branch_conv_fwd": 448, "branch_conv_dx_post": 64, "branch_conv_dw": 128,
-         "branch_conv_dw_async": 128}, steps=8)
-    launches = {**launches3, "branch_conv_fwd": launches5["branch_conv_fwd"],
-                "branch_conv_dx_post": launches5["branch_conv_dx_post"],
+        {**none, "branch_conv_fwd": 448, "branch_conv_dx_post": 64, "branch_conv_fwd_c96": 224,
+         "branch_conv_dx_post_c96": 32, "branch_conv_dw": 128, "branch_conv_dw_async": 128},
+        steps=8)
+    # each kernel's own launches: conv_fwd_kernel's are D's less D96's
+    launches = {**launches3,
+                "branch_conv_fwd": launches5["branch_conv_fwd"] - launches5["branch_conv_fwd_c96"],
+                "branch_conv_dx_post": (launches5["branch_conv_dx_post"]
+                                        - launches5["branch_conv_dx_post_c96"]),
+                "branch_conv_fwd_c96": launches5["branch_conv_fwd_c96"],
+                "branch_conv_dx_post_c96": launches5["branch_conv_dx_post_c96"],
                 "branch_conv_dw": launches5["branch_conv_dw"]}
 
     meta = {
@@ -302,6 +330,10 @@ def main() -> None:
                             "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:328"),
         "branch_conv_dx_post": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
                                 "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:223"),
+        "branch_conv_fwd_c96": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
+                                "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:328"),
+        "branch_conv_dx_post_c96": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
+                                    "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:223"),
         "branch_conv_dw": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
                            "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:536"),
     }
@@ -329,13 +361,20 @@ def main() -> None:
 
 
 def ptxas_usage(log: str) -> dict:
-    """Kernel E's template argument (Cp / 16) -> "N registers, S bytes
-    spilled", from the ``-Xptxas -v`` log of branch_conv.cu."""
+    """Kernel name (with its integer template argument, as
+    "conv_dw_kernel<6>") -> "N registers, S bytes spilled", from the
+    ``-Xptxas -v`` log of branch_conv.cu."""
     out, cur, spill = {}, None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"'_Z14conv_dw_kernelILi(\d+)E", line)
-            cur = int(m.group(1)) if m else None
+            m = re.search(r"'_Z(\d+)", line)
+            cur = None
+            if m:
+                rest = line[m.end():]
+                cur = rest[:int(m.group(1))]
+                t = re.match(r"ILi(\d+)E", rest[int(m.group(1)):])
+                if t:
+                    cur += f"<{t.group(1)}>"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = m.group(1)
@@ -347,7 +386,8 @@ def ptxas_usage(log: str) -> dict:
 
 def _misaligned(torch, t):
     """A contiguous copy of t whose data starts 2 bytes past a 16-byte
-    boundary: kernel E then takes its synchronous fill."""
+    boundary: kernel E then takes its synchronous fill, kernel D
+    conv_fwd_kernel at any width."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     return buf[1:].view(t.shape).copy_(t)
 
@@ -367,11 +407,14 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
     version dx within one bf16 ulp of dt carried through the scale plus
     dx's own rounding (2^-6 relative: the plain dt may sit one ulp away,
     from f32 sums taken in another order), (dmul, dadd) within 1e-3 of each
-    row's max."""
+    row's max.  At C = 96 every D mode runs on D96 (counted), and again on
+    conv_fwd_kernel through misaligned copies of its inputs (not counted as
+    D96), held to the same bounds and timed beside it; each row carries
+    D96's plan and registers."""
     F = torch.nn.functional
     bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(5)
-    d_rows, e_rows, e_plans = {}, {}, {}
+    d_rows, e_rows, e_plans, d96_plans = {}, {}, {}, {}
     for n, c, h in ((8, 48, 256), (8, 96, 128)):
         tag = f"N{n}_C{c}_{h}x{h}"
         x = torch.randn(n, c, h, h, generator=g, device=dev).to(bf16)
@@ -384,12 +427,26 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
         flops = 2.0 * n * h * h * c * 9 * c
         w_bf = w.to(bf16)
         lib_fwd = time_ms(lambda: F.conv2d(x, w_bf, padding=1))
+        d96 = bc.fwd_c96(x.shape, (x.data_ptr(),))
+        old = None  # conv_fwd_kernel's inputs at a D96 width: misaligned copies
+        if d96:
+            plan96 = bc.fwd96_plan(c, h, h)
+            plan96["ptxas"] = ptxas.get("conv_fwd96_kernel", "not in the log")
+            d96_plans[tag] = plan96
+            old = {"x": _misaligned(torch, x), "dy": _misaligned(torch, dy)}
+            print(f"[kernel D96 plan] {tag}: tiles of {plan96['tile_rows']}x32 pixels x 96 "
+                  f"C_out, {plan96['x_stages']} x stage, {plan96['w_stages']} weight stages, "
+                  f"{plan96['smem']} shared bytes, {plan96['wpack']} packed bf16 weights, "
+                  f"ptxas {plan96['ptxas']}", flush=True)
         for mode, pre, stats, flip in (("stats", (), True, False),
                                        ("pre+stats", (mul, add), True, False),
                                        ("dx", (), False, True)):
             src = dy if flip else x
+            n96 = bc.conv3x3_fwd_cuda.launches_c96
             y, s = bc.conv3x3_fwd_cuda(src, w, *pre, stats=stats, flip=flip)
             torch.cuda.synchronize()
+            check(bc.conv3x3_fwd_cuda.launches_c96 == n96 + int(d96),
+                  f"D {tag} {mode}: D96 {'not ' if d96 else ''}taken")
             yp, sp = bc.conv3x3_fwd_plain(src, w, *pre, stats=stats, flip=flip)
             err = (y.float() - yp.float()).abs()
             check(bool((err <= 2.0 ** -7 * yp.float().abs() + 1e-4).all()),
@@ -405,22 +462,50 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
                 # the conv alone: no transform, no statistics
                 "library_ms": lib_fwd,
                 "max_abs_err": err.max().item(),
+                "kernel": "conv_fwd96_kernel" if d96 else "conv_fwd_kernel",
             }
+            if d96:
+                srcm = old["dy" if flip else "x"]
+                n96 = bc.conv3x3_fwd_cuda.launches_c96
+                yo, so = bc.conv3x3_fwd_cuda(srcm, w, *pre, stats=stats, flip=flip)
+                torch.cuda.synchronize()
+                check(bc.conv3x3_fwd_cuda.launches_c96 == n96,
+                      f"D {tag} {mode}: a misaligned input took D96")
+                err_o = (yo.float() - yp.float()).abs()
+                check(bool((err_o <= 2.0 ** -7 * yp.float().abs() + 1e-4).all()),
+                      f"D {tag} {mode}: conv_fwd_kernel's y differs by {err_o.max().item()}")
+                if stats:
+                    err_so = (so - sp).abs()
+                    check(bool((err_so <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all()),
+                          f"D {tag} {mode}: conv_fwd_kernel's stats differ by "
+                          f"{err_so.max().item()}")
+                row.update({
+                    "old_kernel_ms": time_ms(lambda: bc.conv3x3_fwd_cuda(srcm, w, *pre, stats=stats,
+                                                                         flip=flip)),
+                    "y_bit_equal_old": bool(torch.equal(y, yo)),
+                    "plan": {k: plan96[k] for k in ("smem", "x_stages", "w_stages")},
+                    "ptxas": plan96["ptxas"],
+                })
+                del yo
             nbytes = 2 * act + w.numel() * 4 + (2 * c * 4 if pre else 0) + (2 * c * 4 if stats else 0)
             row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf16_peak)
             d_rows[f"{tag} {mode}"] = row
-            print(f"[kernel D branch_conv_fwd] {tag} {mode}: max|dy|={row['max_abs_err']:.3g}  "
-                  f"kernel {row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms  F.conv2d "
-                  f"{row['library_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
-                  flush=True)
+            old_txt = (f"  conv_fwd_kernel {row['old_kernel_ms']:.3f} ms (y bit-equal "
+                       f"{row['y_bit_equal_old']})" if d96 else "")
+            print(f"[kernel D branch_conv_fwd] {tag} {mode}: {row['kernel']} max|dy|="
+                  f"{row['max_abs_err']:.3g}  kernel {row['ms']:.3f} ms{old_txt}  plain "
+                  f"{row['plain_ms']:.3f} ms  F.conv2d {row['library_ms']:.3f} ms  bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
             del y, yp
         d_rows[f"{tag} post"] = dx_post_row(torch, bc, tag, x, w, mul, add, dy, time_ms, bound,
-                                            bf16_peak, lib_fwd, flops)
+                                            bf16_peak, lib_fwd, flops, old)
+        if d96:
+            d_rows[f"{tag} post"].update({k: d_rows[f"{tag} dx"][k] for k in ("plan", "ptxas")})
         y, _ = bc.conv3x3_fwd_cuda(x, w)
         dY_lib = bc.fold_stats_cotangent(dy, y, ds)
         lib_dw = time_ms(lambda: torch.nn.grad.conv2d_weight(x, w.shape, dY_lib, padding=1))
         plan = bc.dw_plan(c, h, h)
-        plan["ptxas"] = ptxas.get((c + 15) // 16, "not in the log")
+        plan["ptxas"] = ptxas.get(f"conv_dw_kernel<{(c + 15) // 16}>", "not in the log")
         e_plans[tag] = plan
         print(f"[kernel E plan] {tag}: {plan['rows']} dk rows per block, {plan['row_blocks']} "
               f"block(s) per slab, tiles of {plan['tile_rows']}x32 pixels, "
@@ -468,19 +553,24 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
                   f"{row['plain_ms']:.3f} ms  conv2d_weight {row['library_ms']:.3f} ms  bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
             del dk, dY, dk2, dY2, dkp, dYp, dks, dYs
-        del x, xm, dy, y, dY_lib
-    return d_rows, e_rows, e_plans
+        del x, xm, dy, y, dY_lib, old
+    return d_rows, e_rows, e_plans, d96_plans
 
 
-def dx_post_row(torch, bc, tag, x, w, mul, add, dY, time_ms, bound, bf16_peak, lib_fwd, flops):
+def dx_post_row(torch, bc, tag, x, w, mul, add, dY, time_ms, bound, bf16_peak, lib_fwd, flops,
+                old=None):
     """D's post mode at one shape: checks, times and bound (see
-    :func:`branch_kernels`)."""
+    :func:`branch_kernels`); ``old``: misaligned copies of x and dY, to
+    time conv_fwd_kernel beside D96."""
     c = x.shape[1]
-    post0 = bc.conv3x3_fwd_cuda.launches_post
+    f = bc.conv3x3_fwd_cuda
+    post0, post96 = f.launches_post, f.launches_c96_post
     dx, sums = bc.conv3x3_dx_post_cuda(dY, w, x, mul, add)
     dx2, sums2 = bc.conv3x3_dx_post_cuda(dY, w, x, mul, add)
     torch.cuda.synchronize()
-    check(bc.conv3x3_fwd_cuda.launches_post == post0 + 2, f"D {tag} post: launches not counted")
+    check(f.launches_post == post0 + 2, f"D {tag} post: launches not counted")
+    check(f.launches_c96_post == post96 + 2 * int(old is not None),
+          f"D {tag} post: D96 {'not ' if old is not None else ''}taken")
     check(torch.equal(dx, dx2) and torch.equal(sums, sums2),
           f"D {tag} post: two launches on the same inputs differ")
     dt = bc.conv3x3_fwd_cuda(dY, w, stats=False, flip=True)[0]
@@ -511,13 +601,29 @@ def dx_post_row(torch, bc, tag, x, w, mul, add, dY, time_ms, bound, bf16_peak, l
         "library_ms": lib_fwd,
         "max_abs_err": err.max().item(),
         "sums_err": err_s.max().item(),
+        "kernel": "conv_fwd96_kernel" if old is not None else "conv_fwd_kernel",
     }
+    if old is not None:
+        xm, dYm = old["x"], old["dy"]
+        n96 = f.launches_c96
+        dxo, sumso = bc.conv3x3_dx_post_cuda(dYm, w, xm, mul, add)
+        torch.cuda.synchronize()
+        check(f.launches_c96 == n96, f"D {tag} post: a misaligned input took D96")
+        err_o = (dxo.float() - dxp.float()).abs()
+        check(bool((err_o <= 2.0 ** -6 * dxp.float().abs() + 1e-4).all()),
+              f"D {tag} post: conv_fwd_kernel's dx differs from the plain version by "
+              f"{err_o.max().item()}")
+        row["old_kernel_ms"] = time_ms(lambda: bc.conv3x3_dx_post_cuda(dYm, w, xm, mul, add))
+        row["dx_bit_equal_old"] = bool(torch.equal(dx, dxo))
     # dY and x read, dx written; the weights, (mul, add) and (dmul, dadd)
     nbytes = 3 * x.numel() * 2 + w.numel() * 4 + 2 * c * 4 + 2 * c * 4
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf16_peak)
-    print(f"[kernel D post branch_conv_dx_post] {tag}: dx bit-equal to D dx + pre_backward, two "
-          f"launches bit-equal, max|ddx| vs plain {row['max_abs_err']:.3g}, max|d(dmul, dadd)| "
-          f"{row['sums_err']:.3g}  kernel {row['ms']:.3f} ms  unfused D dx + pre_backward "
+    old_txt = (f"  conv_fwd_kernel {row['old_kernel_ms']:.3f} ms (dx bit-equal "
+               f"{row['dx_bit_equal_old']})" if old is not None else "")
+    print(f"[kernel D post branch_conv_dx_post] {tag}: {row['kernel']} dx bit-equal to D dx + "
+          f"pre_backward, two launches bit-equal, max|ddx| vs plain {row['max_abs_err']:.3g}, "
+          f"max|d(dmul, dadd)| {row['sums_err']:.3g}  kernel {row['ms']:.3f} ms{old_txt}  "
+          f"unfused D dx + pre_backward "
           f"{row['unfused_ms']:.3f} ms  pre_backward alone {row['pre_backward_ms']:.3f} ms  plain "
           f"{row['plain_ms']:.3f} ms  F.conv2d {row['library_ms']:.3f} ms  bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
@@ -827,9 +933,10 @@ def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: 
 
 # lower-cased kernel-name fragments -> group, first match wins
 GROUPS = [
+    ("D at C = 96 (D96 and its weight pack)", ("conv_fwd96_kernel", "pack_w96_kernel")),
     ("stem kernels (B, C)", ("stem_fwd_kernel", "stem_dw_kernel", "reduce_partials_kernel")),
-    ("branch conv kernels (D, E)", ("conv_fwd_kernel", "conv_dw_kernel", "reduce_rows_kernel",
-                                    "reduce_dk_kernel")),
+    ("branch conv kernels (D's conv_fwd_kernel, E; both D's reduction)",
+     ("conv_fwd_kernel", "conv_dw_kernel", "reduce_rows_kernel", "reduce_dk_kernel")),
     ("cutmix kernel (A)", ("_cutmix_normalize_kernel",)),
     ("cuDNN layout transforms", ("nchwtonhwc", "nhwctonchw")),
     ("conv / GEMM (cuDNN, cuBLAS)", ("cudnn", "conv", "xmma", "gemm", "cutlass", "sm90",

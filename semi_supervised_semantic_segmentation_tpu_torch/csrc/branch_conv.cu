@@ -42,6 +42,30 @@
 //      persistent over tiles.  Statistics are per-block partials of the
 //      rounded y, reduced by a second kernel in a fixed order (no atomics:
 //      the same inputs give the same bits).
+//   D96 (conv_fwd96_kernel, D at Cp = 96 with W % 8 == 0 and 16-byte
+//      aligned activations; the wrapper picks it, conv_fwd_kernel serves
+//      every other shape): one persistent block per SM, tiles of 4 x 32
+//      pixels x all 96 C_out, so x is staged once per tile (not once per
+//      48-row C_out block).  Warp = (C_out half, tile row) with D's MT = 3
+//      accumulators and product loop.  x goes through E's pieces: raw rows
+//      by cp.async 16-byte copies (dw_issue's x loop), then dw_transform
+//      (position masks, packed-bf16 pre arithmetic) into the operand tile.
+//      A small kernel packs the weights once per call, flip applied, into
+//      a bf16 scratch [9][96][104] (tap-major, rows C_out); each tap's
+//      19,968-byte slab streams from L2 into a 3-stage ring, two taps
+//      ahead, as one cp.async.bulk completing on the stage's mbarrier.  So
+//      a tap waits for its slab alone: the next tile's x copies (issued
+//      into the one raw stage as soon as the transform has emptied it) are
+//      a separate cp.async group, waited only at that tile.  The epilogue
+//      rounds y (post: dt) into per-warp staging rows and writes 16-byte
+//      chunks (post reads x in the same chunks); the per-element post chain,
+//      the statistics of the rounded y and their fixed-order partials (4
+//      warps of a C_out half in row order) are conv_fwd_kernel's, so y and
+//      post's dx are bit-equal to it.  192,984 shared bytes.  Per
+//      [8,96,128,128] call: 21.7 GFLOP (~22 us, the bound: operations),
+//      ~51 MB of x and y (~15 us); the staging reads x 2.25 x (halo and the
+//      48-column raw row, ~57 MB) and the weight slabs ~184 MB from L2 (9
+//      slabs per tile, 1,024 tiles).
 //   D post: the epilogue reads x at each output element of the dx conv,
 //      applies the mask and the scale to the rounded dt in registers, writes
 //      dx in dt's place and sums (dmul, dadd) into the statistics' partials
@@ -782,6 +806,288 @@ conv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
 }
 
 // ---------------------------------------------------------------------------
+// D96: kernel D at Cp = 96 (every mode), one block per SM
+// ---------------------------------------------------------------------------
+
+#define CP96 96
+#define CPS96 (CP96 + 8)                 // operand and weight row stride (elements)
+#define SLAB96 (CP96 * CPS96)            // one tap's packed weights [C_out][CPS96]
+#define WST96 3                          // weight ring stages
+#define XRAW96 (CP96 * (ETH + 2) * XRW)  // the raw x stage: dw_issue's layout
+#define XOP96 ((ETH + 2) * HW2 * CPS96)  // the transformed operand tile
+#define YST96 (TW + 8)                   // a warp's y staging row (elements)
+#define D96_SMEM                                                                  \
+  ((XRAW96 + XOP96 + WST96 * SLAB96 + 8 * 48 * YST96) * 2 + (8 * 2 * 48 + 3 * CP96) * 4 + \
+   2 * CP96 * 2 + WST96 * 8)
+
+// The weights of one call, packed once: wp[tap][co][ci] = bf16(w[co][ci][tap]),
+// with flip bf16(w[ci][co][8 - tap]); 0 for co or ci >= C and in the skew.
+__global__ void pack_w96_kernel(const float* __restrict__ w, bf16* __restrict__ wp, int C,
+                                int flip) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= 9 * SLAB96) return;
+  const int tap = e / SLAB96, rem = e - tap * SLAB96;
+  const int co = rem / CPS96, ci = rem - co * CPS96;
+  float v = 0.f;
+  if (co < C && ci < C)
+    v = flip ? w[((size_t)ci * C + co) * 9 + 8 - tap] : w[((size_t)co * C + ci) * 9 + tap];
+  wp[e] = __float2bfloat16(v);
+}
+
+// A ring stage's barrier: one arrival (the issuing thread's, with the
+// slab's byte count) per use; the bulk copy completes the bytes.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_addr(bar)) : "memory");
+}
+
+// One tap's packed weights (a contiguous slab) -> a weight ring stage, as
+// one bulk copy by the calling thread, completing on the stage's barrier.
+__device__ __forceinline__ void d96_issue_w(bf16* st, const bf16* __restrict__ wp, int tap,
+                                            uint64_t* bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after the stage's last reads
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(SLAB96 * 2) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(st)), "l"(wp + (size_t)tap * SLAB96), "r"(SLAB96 * 2), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Wait for the phase of the stage's barrier with this parity to complete.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra.uni DONE;\nbra.uni LAB_WAIT;\nDONE:\n}\n"
+      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// A tile's raw x copies: dw_issue's x loop (rows oy0-1..oy0+ETH of every
+// channel < C, columns ox0-8..ox0+39, zero-filled outside the image) into
+// the raw stage, x only.
+__device__ __forceinline__ void d96_issue_x(bf16* st, const bf16* __restrict__ x, const Geo& g,
+                                            int n, int oy0, int ox0) {
+  constexpr int XR = ETH + 2, CH = XRW / 8;
+  const uint32_t xs = smem_addr(st);
+  for (int e = threadIdx.x; e < g.C * XR * CH; e += NT) {
+    const int ch = e % CH, rr = e / CH;
+    const int r = rr % XR, ci = rr / XR;
+    const int iy = oy0 - 1 + r, ix = ox0 - 8 + 8 * ch;
+    const bool ok = iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
+    const bf16* src = x + (((size_t)n * g.C + ci) * g.H + iy) * g.W + ix;
+    cp_async16(xs + ((ci * XR + r) * XRW + 8 * ch) * 2, ok ? src : x, ok);
+  }
+}
+
+// The blocks walk the tiles slab, slab + nslab, ... (E's 4 x 32-pixel
+// tiles, all 96 C_out).  Warp = (C_out half hh, tile row wr): 48 rows x 32
+// pixels, D's MT = 3 accumulators and product loop.  Each step s = 9 * tile
+// + tap waits for its weight slab (on the stage's barrier), then thread 0
+// issues the slab of step s + 2 into the stage step s - 1 read.  A tile's
+// first step waits for its raw x (cp.async, this tile's only copy group),
+// transforms it (dw_transform: the halo, columns >= W and channels >= C
+// are 0 by position) and issues the next tile's x into the emptied stage,
+// so those copies have the whole tile's products to land.
+__global__ void __launch_bounds__(NT, 1)
+conv_fwd96_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
+                  const float* __restrict__ mul, const float* __restrict__ add,
+                  const bf16* __restrict__ xpost, bf16* __restrict__ y,
+                  float* __restrict__ partial, Geo g, int pre, int stats, int post) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* raw = reinterpret_cast<bf16*>(smem_raw);                   // [Cp][ETH+2][XRW]
+  bf16* xop = raw + XRAW96;                                         // [(ETH+2)*HW2][CPS96]
+  bf16* wring = xop + XOP96;                                        // [WST96][Cp][CPS96]
+  bf16* ystage = wring + WST96 * SLAB96;                            // [8][48][YST96]
+  float* red = reinterpret_cast<float*>(ystage + 8 * 48 * YST96);   // [8][2][48]
+  float* pm = red + 8 * 2 * 48;                                     // post: [3][Cp]
+  bf16* pmb = reinterpret_cast<bf16*>(pm + 3 * CP96);               // pre: [2][Cp]
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(pmb + 2 * CP96);     // [WST96]
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int hh = warp >> 2, wr = warp & 3;
+  const int slab = blockIdx.x, nslab = gridDim.x, C = g.C;
+  if (post) {
+    // pm[ci] = bf16(mul[ci]), pm[Cp + ci] = bf16(add[ci]), pm[2Cp + ci] = mul[ci]
+    for (int e = t; e < 3 * CP96; e += NT) {
+      const int which = e / CP96, ci = e - which * CP96;
+      const float v = ci < C ? (which == 1 ? add : mul)[ci] : 0.f;
+      pm[e] = which == 2 ? v : bf16r(v);
+    }
+  }
+  for (int e = t; e < 2 * CP96; e += NT) {
+    const int which = e / CP96, ci = e - which * CP96;
+    pmb[e] = __float2bfloat16((pre && ci < C) ? (which ? add : mul)[ci] : 0.f);
+  }
+  if (t == 0) {
+    for (int k = 0; k < WST96; ++k) mbar_init(&wbar[k]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
+  const int b_n = (lane & 7) + (lane >> 4) * 8, b_k = ((lane >> 3) & 1) * 8;
+  const uint32_t a_off = ((hh * 48 + a_row) * CPS96 + a_col) * 2;
+  const uint32_t wring_s = smem_addr(wring), xop_s = smem_addr(xop);
+  float s1[3][2], s2[3][2];
+#pragma unroll
+  for (int m = 0; m < 3; ++m) s1[m][0] = s1[m][1] = s2[m][0] = s2[m][1] = 0.f;
+
+  // Stage s % WST96 holds step s's slab; its (s / WST96)-th barrier phase
+  // completes when the slab has landed.
+  const int ntl = (g.ntiles - slab + nslab - 1) / nslab;  // this block's tiles
+  const int nsteps = 9 * ntl;
+  {
+    int n0, oy, ox;
+    dw_tile_coords(g, slab, n0, oy, ox);
+    d96_issue_x(raw, x, g, n0, oy, ox);
+    cp_async_commit();
+  }
+  if (t == 0)
+    for (int k = 0; k < WST96 - 1 && k < nsteps; ++k)
+      d96_issue_w(wring + k * SLAB96, wp, k % 9, &wbar[k]);
+
+  for (int i = 0; i < ntl; ++i) {
+    int n, oy0, ox0;
+    dw_tile_coords(g, slab + i * nslab, n, oy0, ox0);
+    int n1 = 0, oy1 = 0, ox1 = 0;
+    if (i + 1 < ntl) dw_tile_coords(g, slab + (i + 1) * nslab, n1, oy1, ox1);
+    float acc[3][4][4];
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
+
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const int s = 9 * i + tap;
+      if (tap == 0) cp_async_wait<0>();  // this thread's copies of tile i's x landed
+      mbar_wait(&wbar[s % WST96], (s / WST96) & 1);  // slab s landed
+      __syncthreads();  // every thread's x copies landed; step s-1's products are done
+      if (tap == 0) {
+        dw_transform<CP96 / 16>(xop, raw, pmb, pre != 0, g, oy0, ox0);
+        __syncthreads();  // the operand tile is ready; the raw stage is free
+        if (i + 1 < ntl) d96_issue_x(raw, x, g, n1, oy1, ox1);
+        cp_async_commit();
+      }
+      if (t == 0 && s + WST96 - 1 < nsteps)  // into the stage step s-1 read
+        d96_issue_w(wring + ((s + WST96 - 1) % WST96) * SLAB96, wp, (s + WST96 - 1) % 9,
+                    &wbar[(s + WST96 - 1) % WST96]);
+
+      const int kh = tap / 3, kw = tap - kh * 3;
+      const uint32_t arow = wring_s + (s % WST96) * SLAB96 * 2 + a_off;
+      const uint32_t brow = xop_s + (((wr + kh) * HW2 + b_n + kw) * CPS96 + b_k) * 2;
+#pragma unroll
+      for (int cc = 0; cc < CP96; cc += 16) {
+        uint32_t af[3][4], bfr[4][2];
+#pragma unroll
+        for (int m = 0; m < 3; ++m) ldsm_x4(af[m], arow + (m * 16 * CPS96 + cc) * 2);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t r[4];
+          ldsm_x4(r, brow + (np * 16 * CPS96 + cc) * 2);
+          bfr[2 * np][0] = r[0]; bfr[2 * np][1] = r[1];
+          bfr[2 * np + 1][0] = r[2]; bfr[2 * np + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int m = 0; m < 3; ++m)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(acc[m][j], af[m], bfr[j]);
+      }
+    }
+
+    // Epilogue: the rounded y (post: dt) of the warp's 48 rows x 32
+    // pixels into its own staging rows, with the statistics of the rounded
+    // y as conv_fwd_kernel takes them; then 16-byte chunks of a row out
+    // (W % 8 == 0: a chunk is all inside or all outside).  post reads x in
+    // the same chunks and applies conv_fwd_kernel's per-element chain, so
+    // dx is bit-equal to it; (dmul, dadd) sum in the chunks' order.
+    bf16* ysm = ystage + warp * 48 * YST96;
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m * 16 + half * 8 + (lane >> 2);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = j * 8 + (lane & 3) * 2;
+          const float v0 = acc[m][j][2 * half], v1 = acc[m][j][2 * half + 1];
+          *reinterpret_cast<uint32_t*>(&ysm[r * YST96 + c]) = pack_bf16(v0, v1);
+          if (!post) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if (ox0 + c + e < g.W) {
+                const float f = bf16r(e ? v1 : v0);
+                s1[m][half] += f;
+                s2[m][half] += f * f;
+              }
+            }
+          }
+        }
+      }
+    __syncwarp();
+    const int oy = oy0 + wr, q = lane & 3, ox = ox0 + 8 * q;
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m * 16 + half * 8 + (lane >> 2), co = hh * 48 + r;
+        if (co >= C || ox >= g.W) continue;
+        const size_t at = (((size_t)n * C + co) * g.H + oy) * g.W + ox;
+        uint4 v = *reinterpret_cast<const uint4*>(&ysm[r * YST96 + 8 * q]);
+        if (post) {
+          const float mr = pm[co], ar = pm[CP96 + co], mw = pm[2 * CP96 + co];
+          const uint4 xv = *reinterpret_cast<const uint4*>(&xpost[at]);
+          uint32_t* vw = reinterpret_cast<uint32_t*>(&v);
+          const uint32_t* xw = reinterpret_cast<const uint32_t*>(&xv);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            float o[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float dt = __uint_as_float(e ? vw[k] & 0xffff0000u : vw[k] << 16);
+              const float xf = __uint_as_float(e ? xw[k] & 0xffff0000u : xw[k] << 16);
+              const float t2 = bf16r(__fadd_rn(bf16r(__fmul_rn(xf, mr)), ar));
+              const float dtm = t2 > 0.f ? dt : 0.f;
+              o[e] = __fmul_rn(dtm, mw);
+              s1[m][half] = __fadd_rn(s1[m][half], __fmul_rn(dtm, xf));
+              s2[m][half] = __fadd_rn(s2[m][half], dtm);
+            }
+            vw[k] = pack_bf16(o[0], o[1]);
+          }
+        }
+        *reinterpret_cast<uint4*>(&y[at]) = v;
+      }
+  }
+  if (!stats && !post) return;
+
+  // Block partial: sum the 4 lanes of a row, then the 4 warps of a C_out
+  // half in row order.
+#pragma unroll
+  for (int m = 0; m < 3; ++m)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float a = s1[m][half], b = s2[m][half];
+      a += __shfl_xor_sync(0xffffffffu, a, 1);
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
+      b += __shfl_xor_sync(0xffffffffu, b, 1);
+      b += __shfl_xor_sync(0xffffffffu, b, 2);
+      if ((lane & 3) == 0) {
+        const int r = m * 16 + half * 8 + (lane >> 2);
+        red[(warp * 2 + 0) * 48 + r] = a;
+        red[(warp * 2 + 1) * 48 + r] = b;
+      }
+    }
+  __syncthreads();
+  for (int e = t; e < 2 * CP96; e += NT) {
+    const int which = e / CP96, co = e - which * CP96;
+    if (co >= C) continue;
+    const int h2 = co / 48, r = co - h2 * 48;
+    float sum = 0.f;
+    for (int w4 = 0; w4 < 4; ++w4) sum += red[((h2 * 4 + w4) * 2 + which) * 48 + r];
+    partial[((size_t)slab * 2 + which) * C + co] = sum;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fixed-order reductions of the per-block partials
 // ---------------------------------------------------------------------------
 
@@ -898,12 +1204,64 @@ static int run_fwd(const void* x, const void* w, const void* mul, const void* ad
   return (int)cudaGetLastError();
 }
 
+static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// D96's plan: out[0] = shared bytes, out[1] = x stages, out[2] = weight
+// stages, out[3] = tile rows, out[4] = tiles per image plane (for the
+// grid), out[5] = packed weight elements (the wpack buffer).
+extern "C" int branch_conv_fwd96_plan(int C, int H, int W, int* out) {
+  const Geo g = make_dw_geo(1, C, H, W);
+  if (C < 1 || g.Cp != CP96) return (int)cudaErrorInvalidValue;
+  out[0] = D96_SMEM;
+  out[1] = 1;
+  out[2] = WST96;
+  out[3] = ETH;
+  out[4] = g.ntiles;
+  out[5] = 9 * SLAB96;
+  return 0;
+}
+
+// D96: the weights packed into wpack, then one block per SM (grid nslab
+// <= tiles), then with sums the fixed-order reduction.  Needs Cp = 96,
+// W % 8 == 0 and the activations and wpack 16-byte aligned.
+static int run_fwd96(const void* x, const void* w, const void* mul, const void* add,
+                     const void* xpost, void* y, void* partial, void* sums, void* wpack, int N,
+                     int C, int H, int W, int pre, int stats, int flip, int post, int nslab,
+                     void* stream) {
+  if (!geo_ok(N, C, H, W) || nslab < 1) return (int)cudaErrorInvalidValue;
+  const Geo g = make_dw_geo(N, C, H, W);
+  if (g.Cp != CP96 || W % 8 != 0 || nslab > g.ntiles || !aligned16(x) || !aligned16(y) ||
+      !aligned16(wpack) || (xpost && !aligned16(xpost)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  pack_w96_kernel<<<(9 * SLAB96 + 255) / 256, 256, 0, s>>>((const float*)w, (bf16*)wpack, C, flip);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(conv_fwd96_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             D96_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  conv_fwd96_kernel<<<nslab, NT, D96_SMEM, s>>>(
+      (const bf16*)x, (const bf16*)wpack, (const float*)mul, (const float*)add,
+      (const bf16*)xpost, (bf16*)y, (float*)partial, g, pre, stats, post);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !sums) return (int)err;
+  reduce_rows_kernel<<<(2 * C + 255) / 256, 256, 0, s>>>((const float*)partial, nslab, 2 * C,
+                                                        (float*)sums);
+  return (int)cudaGetLastError();
+}
+
 // Kernel D.  x [N,C,H,W] bf16; w [C,C,3,3] f32 (OIHW); mul, add [C] f32 (pre);
 // y [N,C,H,W] bf16; partial [nslab][2][C] f32; sums [2][C] f32 (stats).
-// The grid is nslab * (D's C_out split); nslab <= tiles.
+// c96 = 1 takes D96 (wpack: bf16 scratch of its plan's size; the grid is
+// nslab), 0 conv_fwd_kernel (the grid is nslab * D's C_out split); nslab
+// <= tiles of the kernel taken.
 extern "C" int branch_conv_fwd(const void* x, const void* w, const void* mul, const void* add,
-                               void* y, void* partial, void* sums, int N, int C, int H, int W,
-                               int pre, int stats, int flip, int nslab, void* stream) {
+                               void* y, void* partial, void* sums, void* wpack, int N, int C,
+                               int H, int W, int pre, int stats, int flip, int nslab, int c96,
+                               void* stream) {
+  if (c96)
+    return run_fwd96(x, w, mul, add, nullptr, y, partial, stats ? sums : nullptr, wpack, N, C,
+                     H, W, pre, stats, flip, 0, nslab, stream);
   return run_fwd(x, w, mul, add, nullptr, y, partial, stats ? sums : nullptr, N, C, H, W, pre,
                  stats, flip, 0, nslab, stream);
 }
@@ -911,12 +1269,24 @@ extern "C" int branch_conv_fwd(const void* x, const void* w, const void* mul, co
 // Kernel D's post mode: the dx conv of dY [N,C,H,W] bf16 with the flipped
 // w [C,C,3,3] f32, its epilogue fused: x [N,C,H,W] bf16 and mul, add [C]
 // f32 (raw) of the forward conv's input transform; dx [N,C,H,W] bf16;
-// partial [nslab][2][C] f32; sums [2][C] f32 = (dmul, dadd).
+// partial [nslab][2][C] f32; sums [2][C] f32 = (dmul, dadd).  wpack and
+// c96 as in branch_conv_fwd.
 extern "C" int branch_conv_dx_post(const void* dY, const void* w, const void* x,
                                    const void* mul, const void* add, void* dx, void* partial,
-                                   void* sums, int N, int C, int H, int W, int nslab,
-                                   void* stream) {
+                                   void* sums, void* wpack, int N, int C, int H, int W,
+                                   int nslab, int c96, void* stream) {
+  if (c96)
+    return run_fwd96(dY, w, mul, add, x, dx, partial, sums, wpack, N, C, H, W, 0, 0, 1, 1, nslab,
+                     stream);
   return run_fwd(dY, w, mul, add, x, dx, partial, sums, N, C, H, W, 0, 0, 1, 1, nslab, stream);
+}
+
+// D96's weight pack alone: wpack [9][96][104] bf16 from w [C,C,3,3] f32.
+extern "C" int branch_conv_pack96(const void* w, void* wpack, int C, int flip, void* stream) {
+  if (C < 1 || (C + 15) / 16 * 16 != CP96) return (int)cudaErrorInvalidValue;
+  pack_w96_kernel<<<(9 * SLAB96 + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)w, (bf16*)wpack, C, flip);
+  return (int)cudaGetLastError();
 }
 
 template <int K16>
@@ -933,8 +1303,6 @@ static cudaError_t launch_dw(const void* x, const void* dy, const void* y, const
       (const float*)add, (bf16*)dY, (float*)partial, g, pre, fuse, async_copy);
   return cudaGetLastError();
 }
-
-static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 // Kernel E.  x, dy [N,C,H,W] bf16; y [N,C,H,W] bf16 and ds [2][C] f32 (fuse);
 // mul, add [C] f32 (pre); dY [N,C,H,W] bf16 (fuse); partial [nslab][Cp][9*Cp]

@@ -33,11 +33,18 @@ On a CUDA tensor the wrappers launch the hand-written kernels of
 ``csrc/branch_conv.cu`` (bf16, C <= 128, H % 8 == 0; anything else raises).
 E stages its tiles through an asynchronous ring where the shape and the
 pointers allow it (:func:`dw_async`) and fills them synchronously
-otherwise, in the same kernel; ``conv3x3_dw_cuda.launches_async`` counts the
-ring's launches, and ``conv3x3_fwd_cuda.launches_post`` D's post-mode
-launches (each also counted in ``conv3x3_fwd_cuda.launches``).  On a CPU
-tensor they run the plain versions below, which the kernels are tested
-against.
+otherwise, in the same kernel.  D has two kernels, picked before the launch
+by :func:`fwd_c96`: at channels padded to 96 (C = 81..96) with W % 8 == 0
+and 16-byte aligned activations, D96 (``conv_fwd96_kernel``: one block per
+SM, 4 x 32-pixel tiles of all 96 output channels, x staged once per tile
+through E's ``cp.async`` copies and transform, the weights packed once per
+call into a bf16 scratch and streamed per tap), else ``conv_fwd_kernel``.
+Counters: ``conv3x3_dw_cuda.launches_async`` (E's ring launches),
+``conv3x3_fwd_cuda.launches_post`` (D's post-mode launches),
+``launches_c96`` (D96's launches, every mode) and ``launches_c96_post``
+(D96's post-mode launches); each D launch is also counted in
+``conv3x3_fwd_cuda.launches``.  On a CPU tensor they run the plain versions
+below, which the kernels are tested against.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from semi_supervised_semantic_segmentation_tpu_torch.ops.stem import fold_stats_
 
 SOURCE = "branch_conv.cu"
 MAX_C = 128
+C96 = 96  # the padded channel width D96 serves
 BH = 32  # the reference's row window: eligibility needs H % BH == 0
 
 
@@ -114,6 +122,17 @@ def pre_backward(x, dt, mul, add):
     return dx, (dtm * x.float()).sum(dim=(0, 2, 3)), dtm.sum(dim=(0, 2, 3))
 
 
+def pack_weights96_plain(w: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """D96's packed weights: [9, 96, 104] bf16, tap-major, rows C_out, with
+    wp[kh*3 + kw, co, ci] = bf16(w'[co, ci, kh, kw]) for w' = w or
+    :func:`flip_weight` (w); 0 for co or ci >= C and in the 8-column skew."""
+    c = w.shape[0]
+    wf = (flip_weight(w) if flip else w).to(torch.bfloat16)
+    out = torch.zeros((9, C96, C96 + 8), dtype=torch.bfloat16, device=w.device)
+    out[:, :c, :c] = wf.permute(2, 3, 0, 1).reshape(9, c, c)
+    return out
+
+
 def conv3x3_dx_post_plain(dY, w, x, mul, add):
     """D's post mode: the dx conv of dY followed by :func:`pre_backward`.
     -> (dx in x's dtype, [2,C] f32 (dmul, dadd))."""
@@ -133,10 +152,14 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.branch_conv_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.branch_conv_plan.restype = i
-        lib.branch_conv_fwd.argtypes = [vp] * 7 + [i] * 8 + [vp]
+        lib.branch_conv_fwd.argtypes = [vp] * 8 + [i] * 9 + [vp]
         lib.branch_conv_fwd.restype = i
-        lib.branch_conv_dx_post.argtypes = [vp] * 8 + [i] * 5 + [vp]
+        lib.branch_conv_dx_post.argtypes = [vp] * 9 + [i] * 6 + [vp]
         lib.branch_conv_dx_post.restype = i
+        lib.branch_conv_fwd96_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
+        lib.branch_conv_fwd96_plan.restype = i
+        lib.branch_conv_pack96.argtypes = [vp, vp, i, i, vp]
+        lib.branch_conv_pack96.restype = i
         lib.branch_conv_dw_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.branch_conv_dw_plan.restype = i
         lib.branch_conv_dw.argtypes = [vp] * 9 + [i] * 8 + [vp]
@@ -172,6 +195,27 @@ def dw_async(shape, ptrs) -> bool:
     16-byte chunks of rows, so it needs W % 8 == 0 and every pointer 16-byte
     aligned; anything else takes the synchronous fill."""
     return shape[3] % 8 == 0 and all(p % 16 == 0 for p in ptrs)
+
+
+FWD96_PLAN_KEYS = ("smem", "x_stages", "w_stages", "tile_rows", "tiles", "wpack")
+
+
+def fwd96_plan(c: int, h: int, w: int) -> dict:
+    """D96's plan for C channels (padded to 96) at H x W, from the kernel
+    source: shared bytes, x stages, weight stages, tile rows, tiles per
+    image, packed weight elements."""
+    out = (ctypes.c_int * len(FWD96_PLAN_KEYS))()
+    _raise_on(_lib().branch_conv_fwd96_plan(c, h, w, out), "branch_conv_fwd96_plan")
+    return dict(zip(FWD96_PLAN_KEYS, out))
+
+
+def fwd_c96(shape, ptrs) -> bool:
+    """D's kernel, decided before the launch from x's shape [N,C,H,W] and
+    the activations' addresses alone: D96 for channels that pad to 96, W %
+    8 == 0 and every pointer 16-byte aligned (its copies take whole 16-byte
+    chunks of rows); ``conv_fwd_kernel`` for anything else."""
+    return ((shape[1] + 15) // 16 * 16 == C96 and shape[3] % 8 == 0
+            and all(p % 16 == 0 for p in ptrs))
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -224,9 +268,9 @@ def conv3x3_fwd_cuda(x: torch.Tensor, w: torch.Tensor, mul=None, add=None, stats
     if mul is not None:
         _check_vec("mul", mul, (c,), x.device)
         _check_vec("add", add, (c,), x.device)
-    smem, nmt, _, _, tiles, _ = _plan(c, h, wd)
-    nslab = _fwd_slabs(x.device, smem, nmt, n * tiles)
     y = torch.empty_like(x)
+    c96 = fwd_c96(x.shape, (x.data_ptr(), y.data_ptr()))
+    nslab, wpack = _fwd_launch_plan(x.device, n, c, h, wd, c96)
     sums = partial = None
     if stats:
         sums = torch.empty((2, c), dtype=torch.float32, device=x.device)
@@ -234,15 +278,43 @@ def conv3x3_fwd_cuda(x: torch.Tensor, w: torch.Tensor, mul=None, add=None, stats
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().branch_conv_fwd(x.data_ptr(), w.data_ptr(), ptr(mul), ptr(add), y.data_ptr(),
-                                 ptr(partial), ptr(sums), n, c, h, wd, int(mul is not None),
-                                 int(stats), int(flip), nslab, stream)
+                                 ptr(partial), ptr(sums), ptr(wpack), n, c, h, wd,
+                                 int(mul is not None), int(stats), int(flip), nslab, int(c96),
+                                 stream)
     _raise_on(err, "branch_conv_fwd")
     conv3x3_fwd_cuda.launches += 1
+    conv3x3_fwd_cuda.launches_c96 += int(c96)
     return y, sums
 
 
 conv3x3_fwd_cuda.launches = 0
 conv3x3_fwd_cuda.launches_post = 0
+conv3x3_fwd_cuda.launches_c96 = 0
+conv3x3_fwd_cuda.launches_c96_post = 0
+
+
+def _fwd_launch_plan(device, n: int, c: int, h: int, wd: int, c96: bool, post: bool = False):
+    """(persistent blocks, D96's packed-weight scratch or None) for D's
+    kernel at [n, c, h, wd]."""
+    if c96:
+        plan = fwd96_plan(c, h, wd)
+        wpack = torch.empty(plan["wpack"], dtype=torch.bfloat16, device=device)
+        return _slabs(device, 1, 1, n * plan["tiles"]), wpack
+    smem, nmt, _, _, tiles, smem_post = _plan(c, h, wd)
+    return _fwd_slabs(device, smem_post if post else smem, nmt, n * tiles), None
+
+
+def pack_weights96_cuda(w: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """D96's weight pack alone (the kernel each D96 launch runs first):
+    w f32 OIHW on the card -> [9, 96, 104] bf16 (:func:`pack_weights96_plain`)."""
+    c = w.shape[0]
+    _check_vec("w", w, (c, c, 3, 3), w.device)
+    _check(w.is_cuda and (c + 15) // 16 * 16 == C96, f"needs a CUDA w with C padding to {C96}")
+    out = torch.empty((9, C96, C96 + 8), dtype=torch.bfloat16, device=w.device)
+    err = _lib().branch_conv_pack96(w.data_ptr(), out.data_ptr(), c, int(flip),
+                                    torch.cuda.current_stream(w.device).cuda_stream)
+    _raise_on(err, "branch_conv_pack96")
+    return out
 
 
 def conv3x3_dx_post_cuda(dY: torch.Tensor, w: torch.Tensor, x: torch.Tensor, mul: torch.Tensor,
@@ -253,18 +325,21 @@ def conv3x3_dx_post_cuda(dY: torch.Tensor, w: torch.Tensor, x: torch.Tensor, mul
     _check_act("x", x, dY.shape)
     _check_vec("mul", mul, (c,), dY.device)
     _check_vec("add", add, (c,), dY.device)
-    _, nmt, _, _, tiles, smem = _plan(c, h, wd)
-    nslab = _fwd_slabs(dY.device, smem, nmt, n * tiles)
     dx = torch.empty_like(dY)
+    c96 = fwd_c96(dY.shape, (dY.data_ptr(), dx.data_ptr(), x.data_ptr()))
+    nslab, wpack = _fwd_launch_plan(dY.device, n, c, h, wd, c96, post=True)
     sums = torch.empty((2, c), dtype=torch.float32, device=dY.device)
     partial = torch.empty((nslab, 2, c), dtype=torch.float32, device=dY.device)
     stream = torch.cuda.current_stream(dY.device).cuda_stream
     err = _lib().branch_conv_dx_post(dY.data_ptr(), w.data_ptr(), x.data_ptr(), mul.data_ptr(),
                                      add.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-                                     sums.data_ptr(), n, c, h, wd, nslab, stream)
+                                     sums.data_ptr(), None if wpack is None else wpack.data_ptr(),
+                                     n, c, h, wd, nslab, int(c96), stream)
     _raise_on(err, "branch_conv_dx_post")
     conv3x3_fwd_cuda.launches += 1
     conv3x3_fwd_cuda.launches_post += 1
+    conv3x3_fwd_cuda.launches_c96 += int(c96)
+    conv3x3_fwd_cuda.launches_c96_post += int(c96)
     return dx, sums
 
 

@@ -142,6 +142,46 @@ def test_dw_path_choice(shape, ptrs, ring):
     assert bc.dw_async(shape, ptrs) is ring
 
 
+@pytest.mark.parametrize("shape,ptrs,c96", [
+    ((8, 96, 128, 128), (0x7f0000000000, 0x7f0000400000), True),  # config 5's branch 1
+    ((8, 48, 256, 256), (0x7f0000000000, 0x7f0000400000), False),  # branch 0: conv_fwd_kernel
+    ((1, 88, 32, 64), (256, 512), True),        # pads to 96
+    ((1, 80, 32, 64), (256, 512), False),       # pads to 80
+    ((1, 128, 32, 64), (256, 512), False),
+    ((1, 96, 32, 72), (256, 512, 768), True),   # ragged last column tile, whole chunks
+    ((1, 96, 64, 33), (256, 512), False),       # W % 8 != 0
+    ((1, 96, 32, 64), (258, 512), False),       # x 2 bytes past a 16-byte boundary
+    ((1, 96, 32, 64), (256, 512, 520), False),  # post's x 8 bytes past it
+])
+def test_fwd_kernel_choice(shape, ptrs, c96):
+    """D's kernel is a function of the shape and the addresses alone,
+    decided before the launch: D96 for channels that pad to 96, W % 8 == 0
+    and 16-byte aligned activations, conv_fwd_kernel for anything else."""
+    assert bc.fwd_c96(shape, ptrs) is c96
+
+
+@pytest.mark.parametrize("c,flip", [(96, False), (88, True)])
+def test_packed_weights96_are_the_conv_as_tap_gemms(c, flip):
+    """D96's packed weights [9, 96, 104] as nine per-tap GEMMs over shifted
+    inputs give the plain D (flipped: the dx conv) bit for bit in f32, and
+    are 0 beyond C and in the skew."""
+    g = torch.Generator().manual_seed(c)
+    x = torch.randn(1, c, 8, 16, generator=g).to(torch.bfloat16)
+    w = torch.randn(c, c, 3, 3, generator=g) * 0.1
+    wp = bc.pack_weights96_plain(w, flip)
+    assert wp.shape == (9, 96, 104) and wp.dtype == torch.bfloat16
+    assert not wp[:, c:].any() and not wp[:, :, c:].any()
+    xp = torch.nn.functional.pad(x.double(), (1, 1, 1, 1))
+    acc = torch.zeros(c, 8, 16, dtype=torch.float64)
+    for tap in range(9):
+        kh, kw = divmod(tap, 3)
+        acc += torch.einsum("oi,ihw->ohw", wp[tap, :c, :c].double(),
+                            xp[0, :, kh:kh + 8, kw:kw + 16])
+    want = torch.nn.functional.conv2d(x.double(), (bc.flip_weight(w) if flip else w)
+                                      .to(torch.bfloat16).double(), padding=1)[0]
+    torch.testing.assert_close(acc, want, rtol=1e-12, atol=1e-12)
+
+
 def test_plain_versions_hold_the_rounding_contract():
     """The plain D rounds the input transform twice and pads the
     TRANSFORMED input with zeros; the plain E's dY is the f32 composition

@@ -204,6 +204,70 @@ def test_branch_conv_dx_post_matches_plain(dev, n, c, h, w):
     assert bool(((s - sp).abs() <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all())
 
 
+@pytest.mark.parametrize("n,c,h,w", [(2, 96, 32, 64), (1, 96, 64, 72), (1, 88, 32, 64)])
+def test_d96_matches_plain_in_every_mode(dev, n, c, h, w):
+    """D96 (C padding to 96, W % 8 == 0, aligned) in every mode against the
+    plain versions: y within one bf16 ulp, the statistics within 1e-3 of
+    each row's max; post bit-equal to D96's own dx conv followed by
+    pre_backward, and over two launches.  Every launch is counted in
+    ``launches_c96`` (post ones also in ``launches_c96_post``).  W = 72 ends
+    in a ragged column tile; C = 88 pads to 96 (rows and channels >= C by
+    position); H = 32 puts the zero halo at the top and bottom."""
+    x, wt, mul, add, dy, _ = _branch_inputs(dev, n, c, h, w)
+    f = bc.conv3x3_fwd_cuda
+    for pre in ((), (mul, add)):
+        before = f.launches_c96
+        y, s = bc.conv3x3_fwd(x, wt, *pre)
+        assert f.launches_c96 == before + 1
+        yp, sp = bc.conv3x3_fwd_plain(x, wt, *pre)
+        torch.cuda.synchronize()
+        assert _within_one_ulp(y, yp), (pre != (), (y.float() - yp.float()).abs().max().item())
+        assert bool(((s - sp).abs() <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all())
+    before = f.launches_c96
+    dt, none = bc.conv3x3_fwd(dy, wt, stats=False, flip=True)
+    assert none is None and f.launches_c96 == before + 1
+    assert _within_one_ulp(dt, bc.conv3x3_fwd_plain(dy, wt, stats=False, flip=True)[0])
+    before, before_post = f.launches_c96, f.launches_c96_post
+    dx, s = bc.conv3x3_dx_post(dy, wt, x, mul, add)
+    dx2, s2 = bc.conv3x3_dx_post(dy, wt, x, mul, add)
+    torch.cuda.synchronize()
+    assert f.launches_c96 == before + 2 and f.launches_c96_post == before_post + 2
+    assert torch.equal(dx, dx2) and torch.equal(s, s2)
+    assert torch.equal(dx, bc.pre_backward(x, dt, mul, add)[0])
+    dxp, sp = bc.conv3x3_dx_post_plain(dy, wt, x, mul, add)
+    assert bool(((dx.float() - dxp.float()).abs() <= 2.0 ** -6 * dxp.float().abs() + 1e-4).all())
+    assert bool(((s - sp).abs() <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all())
+
+
+@pytest.mark.parametrize("n,c,h,w,shift", [(1, 96, 32, 64, True), (1, 96, 32, 33, False)])
+def test_d_outside_d96_takes_conv_fwd_kernel(dev, n, c, h, w, shift):
+    """A misaligned copy of x, or W = 33, takes conv_fwd_kernel (the D96
+    counters stay put) in every mode and matches the plain version."""
+    x, wt, mul, add, dy, _ = _branch_inputs(dev, n, c, h, w)
+    if shift:
+        x, dy = _misaligned(x), _misaligned(dy)
+    f = bc.conv3x3_fwd_cuda
+    before, before96 = f.launches, f.launches_c96
+    y, s = bc.conv3x3_fwd(x, wt, mul, add)
+    dt = bc.conv3x3_fwd(dy, wt, stats=False, flip=True)[0]
+    dx, sd = bc.conv3x3_dx_post(dy, wt, x, mul, add)
+    torch.cuda.synchronize()
+    assert f.launches == before + 3 and f.launches_c96 == before96
+    yp, sp = bc.conv3x3_fwd_plain(x, wt, mul, add)
+    assert _within_one_ulp(y, yp)
+    assert bool(((s - sp).abs() <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all())
+    assert _within_one_ulp(dt, bc.conv3x3_fwd_plain(dy, wt, stats=False, flip=True)[0])
+    assert torch.equal(dx, bc.pre_backward(x, dt, mul, add)[0])
+
+
+@pytest.mark.parametrize("c,flip", [(96, False), (96, True), (88, True)])
+def test_d96_packed_weights_equal_the_plain_pack(dev, c, flip):
+    """D96's pack kernel writes flip_weight(w).to(bf16) (or w) tap-major,
+    rows C_out, zero beyond C and in the skew: the plain pack, bit for bit."""
+    wt = _branch_inputs(dev, 1, c, 8, 8)[1]
+    assert torch.equal(bc.pack_weights96_cuda(wt, flip), bc.pack_weights96_plain(wt, flip))
+
+
 def test_branch_conv_kernels_refuse_what_they_do_not_take(dev):
     w = torch.zeros(8, 8, 3, 3, device=dev)
     with pytest.raises(ValueError):
