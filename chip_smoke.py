@@ -2,15 +2,17 @@
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py                 (from the repository root; needs one CUDA card)
-    python3 chip_smoke.py --kernels-only  (phases 1 and 2 for kernels D and E only:
-                                           their checks and times, no ok line)
+    python3 chip_smoke.py --kernels-only  (phases 1 and 2 for kernels B, C, D and E
+                                           only: their checks and times, no ok line)
 
 Phases; any failure exits non-zero and prints no result:
  1. build    -- compile ``csrc/*.cu`` with nvcc for sm_90a (one nvcc per
                 source, started together) and print the seconds;
  2. kernels  -- each hand-written kernel against its plain PyTorch version
                 on the same inputs, at the shapes its path gives it (A, B, C
-                at config 3's; D, D's post mode and E at config 5's two
+                at config 3's, B at both of its batches, B and C also twice
+                on the same inputs, bit-equal, with their tile plan and
+                registers; D, D's post mode and E at config 5's two
                 eligible HRNet branches, [8,48,256,256] and [8,96,128,128]),
                 with its time, the plain version's, the library call's where
                 one exists, and its bound on this card; at C = 96, D96 (D's
@@ -132,7 +134,8 @@ def main() -> None:
         for line in b["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {src} ptxas: {line.strip()}", flush=True)
-    report["ptxas"] = ptxas = ptxas_usage(built["branch_conv.cu"]["log"])
+    report["ptxas"] = ptxas = {**ptxas_usage(built["stem.cu"]["log"]),
+                               **ptxas_usage(built["branch_conv.cu"]["log"])}
 
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     kernels_only = "--kernels-only" in sys.argv[1:]
@@ -160,6 +163,7 @@ def main() -> None:
     g = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
     if kernels_only:
+        report["stem_kernels"] = stem_kernels(torch, dev, stem, time_ms, bound, bf16_peak, ptxas)
         rows = branch_kernels(torch, dev, branch_conv, time_ms, bound, bf16_peak, ptxas)
         report["branch_kernels"] = dict(zip(("D", "E", "E_plan", "D96_plan"), rows))
         report["failures"] = FAILURES
@@ -170,65 +174,11 @@ def main() -> None:
         sys.exit(1 if FAILURES else 0)
 
     # ------------------------------------------------- 2. kernels: B, C, A
-    n, h, w_ = 16, 512, 512
-    h2, w2 = h // 2, w_ // 2
-    x = (torch.rand(n, h, w_, 3, generator=g, device=dev) * 4.0 - 2.0).to(bf16)
-    wt = torch.randn(64, 3, 7, 7, generator=g, device=dev) * 0.05
-    w_hwio = wt.permute(2, 3, 1, 0).contiguous()
-    yk, sk = stem.stem_fwd_cuda(x, w_hwio)
-    torch.cuda.synchronize()
-    yp, sp = stem.stem_fwd_plain(x, wt)
-    err_y = (yk.float() - yp.float()).abs()
-    # about one bf16 ulp (2^-8 relative, rounding either way) plus f32
-    # summation-order noise near zero
-    check(bool((err_y <= 2.0 ** -7 * yp.float().abs() + 1e-4).all()),
-          f"B: y differs from the plain version by {err_y.max().item()}")
-    err_s = (sk - sp).abs()
-    check(bool((err_s <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all()),
-          f"B: stats differ by {err_s.max().item()} (rtol 1e-3 of each row's max)")
-    x_nchw = x.permute(0, 3, 1, 2)
-    w_bf = wt.to(bf16)
-    k_b = {
-        "ms": time_ms(lambda: stem.stem_fwd_cuda(x, w_hwio)),
-        "plain_ms": time_ms(lambda: stem.stem_fwd_plain(x, wt)),
-        # the conv alone: F.conv2d does not compute the BN statistics
-        "library_ms": time_ms(lambda: torch.nn.functional.conv2d(x_nchw, w_bf, stride=2, padding=3)),
-    }
-    nbytes = x.numel() * 2 + wt.numel() * 4 + yk.numel() * 2 + sk.numel() * 4
-    flops = 2.0 * n * h2 * w2 * 147 * 64
-    k_b["bound_ms"], k_b["bound_by"] = bound(nbytes, flops, bf16_peak)
-    k_b["max_abs_err"] = err_y.max().item()
-    kernels["stem_fwd"] = k_b
-    print(f"[kernel B stem_fwd] N={n} {h}x{w_}: max|dy|={k_b['max_abs_err']:.3g} "
-          f"max|dstats|={err_s.max().item():.3g}  kernel {k_b['ms']:.3f} ms  plain "
-          f"{k_b['plain_ms']:.3f} ms  F.conv2d {k_b['library_ms']:.3f} ms  bound "
-          f"{k_b['bound_ms']:.4f} ms ({k_b['bound_by']})", flush=True)
-
-    dy = (torch.randn(n, 64, h2, w2, generator=g, device=dev) * 1e-2).to(bf16)
-    ds = torch.randn(2, 64, generator=g, device=dev) * 1e-3
-    dwk = stem.stem_dw_cuda(x, dy, yk, ds, 7)
-    torch.cuda.synchronize()
-    dwp = stem.stem_dw_plain(x, dy, yk, ds, 7).permute(2, 3, 1, 0)
-    err_w = (dwk - dwp).abs().max().item()
-    check(err_w <= 1e-3 * dwp.abs().max().item(),
-          f"C: dW differs by {err_w} (tolerance 1e-3 of max|dW|={dwp.abs().max().item()})")
-    dY_bf = stem.fold_stats_cotangent(dy, yk, ds)
-    k_c = {
-        "ms": time_ms(lambda: stem.stem_dw_cuda(x, dy, yk, ds, 7)),
-        "plain_ms": time_ms(lambda: stem.stem_dw_plain(x, dy, yk, ds, 7)),
-        # the weight gradient alone: the stats fold is not part of the call
-        "library_ms": time_ms(lambda: torch.nn.grad.conv2d_weight(
-            x_nchw, (64, 3, 7, 7), dY_bf, stride=2, padding=3)),
-    }
-    nbytes = x.numel() * 2 + dy.numel() * 2 + yk.numel() * 2 + ds.numel() * 4 + dwk.numel() * 4
-    k_c["bound_ms"], k_c["bound_by"] = bound(nbytes, flops, bf16_peak)
-    k_c["max_abs_err"] = err_w
-    kernels["stem_dw"] = k_c
-    print(f"[kernel C stem_dw] max|ddW|={err_w:.3g} (max|dW| {dwp.abs().max().item():.3g})  "
-          f"kernel {k_c['ms']:.3f} ms  plain {k_c['plain_ms']:.3f} ms  conv2d_weight "
-          f"{k_c['library_ms']:.3f} ms  bound {k_c['bound_ms']:.4f} ms ({k_c['bound_by']})",
-          flush=True)
-    del x, yk, yp, dy, dwk, dwp, dY_bf, x_nchw
+    h, w_ = 512, 512
+    report["stem_kernels"] = stem_rows = stem_kernels(torch, dev, stem, time_ms, bound,
+                                                      bf16_peak, ptxas)
+    kernels["stem_fwd"] = stem_rows["B N16"]
+    kernels["stem_dw"] = stem_rows["C N16"]
 
     b = 8
     mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
@@ -362,8 +312,9 @@ def main() -> None:
 
 def ptxas_usage(log: str) -> dict:
     """Kernel name (with its integer template argument, as
-    "conv_dw_kernel<6>") -> "N registers, S bytes spilled", from the
-    ``-Xptxas -v`` log of branch_conv.cu."""
+    "conv_dw_kernel<6>") -> "N registers, M static shared bytes, S bytes
+    spilled", from the ``-Xptxas -v`` log of one source (dynamic shared
+    memory is the kernels' plans')."""
     out, cur, spill = {}, None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -380,8 +331,100 @@ def ptxas_usage(log: str) -> dict:
             spill = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and cur is not None:
-            out[cur] = f"{m.group(1)} registers, {spill} bytes spilled"
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[cur] = (f"{m.group(1)} registers, {sm.group(1) if sm else 0} static shared bytes, "
+                        f"{spill} bytes spilled")
     return out
+
+
+def stem_kernels(torch, dev, stem, time_ms, bound, bf16_peak, ptxas) -> dict:
+    """Kernels B and C at config 3's shapes (k = 7, 512^2): B at N = 8 (the
+    teacher's batch) and N = 16 (the student's), C at N = 16.  Each against
+    its plain version on the same inputs (y within one bf16 ulp, the
+    statistics within 1e-3 of each row's max, dW within 1e-3 of max|dW|),
+    twice on the same inputs (bit-equal), with its time, the plain
+    version's, the library call's and its bound; the tile plan and the
+    registers ptxas gives each kernel."""
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    plan = stem.stem_plan(7)
+    plan["ptxas"] = {kn: ptxas.get(f"{kn}<7>", "not in the log")
+                     for kn in ("stem_fwd_kernel", "stem_dw_kernel")}
+    print(f"[stem plan k=7] {plan['threads']} threads, {plan['stages']} ring stages; B tiles "
+          f"{plan['fwd_tile_rows']} x {plan['tile_pixels']} pixels, {plan['fwd_smem']} shared "
+          f"bytes, {plan['fwd_blocks_per_sm']} blocks/SM, K {plan['fwd_k_width']}, ptxas "
+          f"{plan['ptxas']['stem_fwd_kernel']}; C tiles {plan['dw_tile_rows']} x "
+          f"{plan['tile_pixels']} pixels, {plan['dw_smem']} shared bytes, "
+          f"{plan['dw_blocks_per_sm']} blocks/SM, {plan['dw_n_width']} N columns, ptxas "
+          f"{plan['ptxas']['stem_dw_kernel']}", flush=True)
+    rows = {"plan": plan}
+    h = w_ = 512
+    h2, w2 = h // 2, w_ // 2
+    wt = torch.randn(64, 3, 7, 7, generator=g, device=dev) * 0.05
+    w_hwio = wt.permute(2, 3, 1, 0).contiguous()
+    w_bf = wt.to(bf16)
+    flops_px = 2.0 * 147 * 64
+    for n in (8, 16):
+        x = (torch.rand(n, h, w_, 3, generator=g, device=dev) * 4.0 - 2.0).to(bf16)
+        yk, sk = stem.stem_fwd_cuda(x, w_hwio)
+        yk2, sk2 = stem.stem_fwd_cuda(x, w_hwio)
+        torch.cuda.synchronize()
+        check(torch.equal(yk, yk2) and torch.equal(sk, sk2),
+              f"B N={n}: two launches on the same inputs differ")
+        yp, sp = stem.stem_fwd_plain(x, wt)
+        err_y = (yk.float() - yp.float()).abs()
+        # about one bf16 ulp (2^-8 relative, rounding either way) plus f32
+        # summation-order noise near zero
+        check(bool((err_y <= 2.0 ** -7 * yp.float().abs() + 1e-4).all()),
+              f"B N={n}: y differs from the plain version by {err_y.max().item()}")
+        err_s = (sk - sp).abs()
+        check(bool((err_s <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all()),
+              f"B N={n}: stats differ by {err_s.max().item()} (rtol 1e-3 of each row's max)")
+        x_nchw = x.permute(0, 3, 1, 2)
+        k_b = {
+            "ms": time_ms(lambda: stem.stem_fwd_cuda(x, w_hwio)),
+            "plain_ms": time_ms(lambda: stem.stem_fwd_plain(x, wt)),
+            # the conv alone: F.conv2d does not compute the BN statistics
+            "library_ms": time_ms(lambda: F.conv2d(x_nchw, w_bf, stride=2, padding=3)),
+        }
+        nbytes = x.numel() * 2 + wt.numel() * 4 + yk.numel() * 2 + sk.numel() * 4
+        k_b["bound_ms"], k_b["bound_by"] = bound(nbytes, flops_px * n * h2 * w2, bf16_peak)
+        k_b["max_abs_err"] = err_y.max().item()
+        rows[f"B N{n}"] = k_b
+        print(f"[kernel B stem_fwd] N={n} {h}x{w_}: max|dy|={k_b['max_abs_err']:.3g} "
+              f"max|dstats|={err_s.max().item():.3g}, two launches bit-equal  kernel "
+              f"{k_b['ms']:.4f} ms  plain {k_b['plain_ms']:.3f} ms  F.conv2d "
+              f"{k_b['library_ms']:.4f} ms  bound {k_b['bound_ms']:.4f} ms ({k_b['bound_by']})",
+              flush=True)
+        del yk2, sk2, yp, sp, err_y
+    dy = (torch.randn(n, 64, h2, w2, generator=g, device=dev) * 1e-2).to(bf16)
+    ds = torch.randn(2, 64, generator=g, device=dev) * 1e-3
+    dwk = stem.stem_dw_cuda(x, dy, yk, ds, 7)
+    dwk2 = stem.stem_dw_cuda(x, dy, yk, ds, 7)
+    torch.cuda.synchronize()
+    check(torch.equal(dwk, dwk2), "C: two launches on the same inputs differ")
+    dwp = stem.stem_dw_plain(x, dy, yk, ds, 7).permute(2, 3, 1, 0)
+    err_w = (dwk - dwp).abs().max().item()
+    check(err_w <= 1e-3 * dwp.abs().max().item(),
+          f"C: dW differs by {err_w} (tolerance 1e-3 of max|dW|={dwp.abs().max().item()})")
+    dY_bf = stem.fold_stats_cotangent(dy, yk, ds)
+    k_c = {
+        "ms": time_ms(lambda: stem.stem_dw_cuda(x, dy, yk, ds, 7)),
+        "plain_ms": time_ms(lambda: stem.stem_dw_plain(x, dy, yk, ds, 7)),
+        # the weight gradient alone: the stats fold is not part of the call
+        "library_ms": time_ms(lambda: torch.nn.grad.conv2d_weight(
+            x_nchw, (64, 3, 7, 7), dY_bf, stride=2, padding=3)),
+    }
+    nbytes = x.numel() * 2 + dy.numel() * 2 + yk.numel() * 2 + ds.numel() * 4 + dwk.numel() * 4
+    k_c["bound_ms"], k_c["bound_by"] = bound(nbytes, flops_px * n * h2 * w2, bf16_peak)
+    k_c["max_abs_err"] = err_w
+    rows["C N16"] = k_c
+    print(f"[kernel C stem_dw] N={n} {h}x{w_}: max|ddW|={err_w:.3g} (max|dW| "
+          f"{dwp.abs().max().item():.3g}), two launches bit-equal  kernel {k_c['ms']:.4f} ms  "
+          f"plain {k_c['plain_ms']:.3f} ms  conv2d_weight {k_c['library_ms']:.4f} ms  bound "
+          f"{k_c['bound_ms']:.4f} ms ({k_c['bound_by']})", flush=True)
+    return rows
 
 
 def _misaligned(torch, t):

@@ -26,30 +26,83 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,h,w", [(2, 64, 96), (3, 30, 142)])
-def test_stem_kernels_match_plain(dev, n, h, w):
-    g = torch.Generator(device=dev).manual_seed(0)
+def _stem_inputs(dev, n, h, w, k):
+    g = torch.Generator(device=dev).manual_seed(k)
     x = (torch.rand(n, h, w, 3, generator=g, device=dev) * 4 - 2).to(torch.bfloat16)
-    wt = torch.randn(64, 3, 7, 7, generator=g, device=dev) * 0.05
+    wt = torch.randn(64, 3, k, k, generator=g, device=dev) * (0.35 / k)
+    dy = (torch.randn(n, 64, h // 2, w // 2, generator=g, device=dev) * 1e-2).to(torch.bfloat16)
+    ds = torch.randn(2, 64, generator=g, device=dev) * 1e-3
+    return x, wt, dy, ds
+
+
+# config 3's two calls (teacher N = 8, student N = 16 at 512^2), the two
+# small shapes (W = 142: the synchronous fill and scalar stores, a ragged
+# column tile, an odd number of output rows), and every odd k the kernels take
+@pytest.mark.parametrize("n,h,w,k", [(2, 64, 96, 7), (3, 30, 142, 7), (8, 512, 512, 7),
+                                     (16, 512, 512, 7), (2, 64, 96, 1), (2, 64, 96, 3),
+                                     (2, 64, 96, 5), (2, 64, 96, 9), (2, 64, 96, 11),
+                                     (3, 30, 142, 3), (3, 30, 142, 11)])
+def test_stem_kernels_match_plain(dev, n, h, w, k):
+    x, wt, dy, ds = _stem_inputs(dev, n, h, w, k)
+    vec = stem.stem_vec(x.shape, (x.data_ptr(), dy.data_ptr()))
+    before = (stem.stem_fwd_cuda.launches_vec, stem.stem_dw_cuda.launches_vec)
     y, s = stem.stem_fwd(x, wt)
     yp, sp = stem.stem_fwd_plain(x, wt)
     torch.cuda.synchronize()
     # one bf16 rounding of f32 sums taken in another order: one ulp
-    assert bool(((y.float() - yp.float()).abs() <= 2.0 ** -7 * yp.float().abs() + 1e-4).all())
-    torch.testing.assert_close(s, sp, rtol=1e-3, atol=1e-3 * sp.abs().max().item())
-    dy = (torch.randn(y.shape, generator=g, device=dev) * 1e-2).to(torch.bfloat16)
-    ds = torch.randn(2, 64, generator=g, device=dev) * 1e-3
-    dw = stem.stem_dw(x, dy, y, ds, 7)
-    dwp = stem.stem_dw_plain(x, dy, y, ds, 7)
+    assert _within_one_ulp(y, yp), (y.float() - yp.float()).abs().max().item()
+    # each row within 1e-3 of its largest magnitude: sums over up to 4M
+    # values in another order, a few y one ulp away
+    assert bool(((s - sp).abs() <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all())
+    dw = stem.stem_dw(x, dy, y, ds, k)
+    dwp = stem.stem_dw_plain(x, dy, y, ds, k)
+    # f32 sums over up to 1M pixels in another order
     assert (dw - dwp).abs().max().item() <= 1e-3 * dwp.abs().max().item()
+    assert (stem.stem_fwd_cuda.launches_vec - before[0],
+            stem.stem_dw_cuda.launches_vec - before[1]) == (int(vec), int(vec))
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 64, 96), (3, 30, 142)])
+def test_stem_kernels_are_deterministic(dev, n, h, w):
+    """Fixed-order partials, no atomics: the same inputs give the same bits."""
+    x, wt, dy, ds = _stem_inputs(dev, n, h, w, 7)
+    y1, s1 = stem.stem_fwd(x, wt)
+    y2, s2 = stem.stem_fwd(x, wt)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+    assert torch.equal(stem.stem_dw(x, dy, y1, ds, 7), stem.stem_dw(x, dy, y1, ds, 7))
+
+
+def test_stem_copy_paths_agree(dev):
+    """A misaligned x takes the synchronous fill: the same bits as the copies."""
+    x, wt, dy, ds = _stem_inputs(dev, 2, 64, 96, 7)
+    xm = _misaligned(x)
+    assert stem.stem_vec(x.shape, (x.data_ptr(),)) and not stem.stem_vec(xm.shape, (xm.data_ptr(),))
+    y, s = stem.stem_fwd(x, wt)
+    ym, sm = stem.stem_fwd(xm, wt)
+    assert torch.equal(y, ym) and torch.equal(s, sm)
+    assert torch.equal(stem.stem_dw(x, dy, y, ds, 7), stem.stem_dw(xm, dy, y, ds, 7))
 
 
 def test_stem_kernel_refuses_what_it_does_not_take(dev):
     w = torch.zeros(7, 7, 3, 64, device=dev)
+    bf = torch.bfloat16
     with pytest.raises(ValueError):
         stem.stem_fwd_cuda(torch.zeros(1, 16, 16, 3, device=dev), w)  # f32 input
     with pytest.raises(ValueError):
-        stem.stem_fwd_cuda(torch.zeros(1, 15, 16, 3, device=dev, dtype=torch.bfloat16), w)
+        stem.stem_fwd_cuda(torch.zeros(1, 15, 16, 3, device=dev, dtype=bf), w)
+    with pytest.raises(ValueError):  # k = 13
+        stem.stem_fwd_cuda(torch.zeros(1, 16, 16, 3, device=dev, dtype=bf),
+                           torch.zeros(13, 13, 3, 64, device=dev))
+    with pytest.raises(ValueError):  # even k
+        stem.stem_fwd_cuda(torch.zeros(1, 16, 16, 3, device=dev, dtype=bf),
+                           torch.zeros(4, 4, 3, 64, device=dev))
+    x = torch.zeros(1, 16, 16, 3, device=dev, dtype=bf)
+    y = torch.zeros(1, 64, 8, 8, device=dev, dtype=bf)
+    with pytest.raises(ValueError):  # dy of the wrong shape
+        stem.stem_dw_cuda(x, torch.zeros(1, 64, 8, 7, device=dev, dtype=bf), y,
+                          torch.zeros(2, 64, device=dev), 7)
+    with pytest.raises(ValueError):  # ds in bf16
+        stem.stem_dw_cuda(x, y, y, torch.zeros(2, 64, device=dev, dtype=bf), 7)
 
 
 @pytest.mark.parametrize("b,h,w", [(4, 64, 64), (3, 37, 100)])

@@ -5,6 +5,7 @@ against ``PallasStemSegment``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from semi_supervised_semantic_segmentation_tpu.models.layers import PallasStemSegment
@@ -146,3 +147,105 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         assert "CUDA" in str(e)
     else:
         raise AssertionError("stem_fwd_cuda accepted a CPU tensor")
+
+
+# ---------------------------------------------------------------------------
+# The kernels' operand layout (csrc/stem.cu) in plain torch
+# ---------------------------------------------------------------------------
+
+
+def _one_ulp(got, want):
+    """One bf16 rounding of f32 sums taken in another order: one ulp apart."""
+    return bool(((got.float() - want.float()).abs() <= 2.0 ** -7 * want.float().abs() + 1e-4).all())
+
+
+def test_windowed_plain_matches_plain_and_pallas():
+    """Through pack_stem_weights and the one-element-shifted 24-wide windows,
+    at the file's SHAPE: against the specification and against the Pallas
+    kernel in interpret mode (forward and its VJP)."""
+    xj, wj, xt, wt = _inputs(8)
+    yw, sw = stem.stem_fwd_windowed(xt, wt)
+    yp, sp = stem.stem_fwd_plain(xt, wt)
+    assert _one_ulp(yw, yp)
+    _assert_stats_close(sw.numpy(), sp.numpy())
+    (yj, sj), vjp = jax.vjp(lambda w_: pallas_stem.stem_conv_bn_s2(xj, w_, True), wj)
+    # bf16 accumulation-order spread only (the JAX suite's own bound)
+    np.testing.assert_allclose(yw.float().numpy(), np.asarray(yj, np.float32), atol=8e-3)
+    _assert_stats_close(sw.numpy(), np.asarray(sj))
+
+    rng = np.random.RandomState(9)
+    dy = (rng.randn(*yp.shape) * 1e-2).astype(np.float32)
+    ds = (rng.randn(2, 64) * 1e-3).astype(np.float32)
+    dyj = jnp.asarray(dy).astype(jnp.bfloat16)
+    (gj,) = vjp((dyj, jnp.asarray(ds)))
+    # the same y (JAX's) on both sides, so dY folds from the same values
+    y_ref = torch.from_numpy(np.asarray(yj, np.float32)).to(torch.bfloat16)
+    dyt = torch.from_numpy(dy).to(torch.bfloat16)
+    dst = torch.from_numpy(ds)
+    dww = stem.stem_dw_windowed(xt, dyt, y_ref, dst, 7)
+    dwp = stem.stem_dw_plain(xt, dyt, y_ref, dst, 7)
+    # the same bf16 dY and patches: f32 sums over 4096 pixels in another order
+    torch.testing.assert_close(dww, dwp, rtol=0, atol=1e-5 * float(dwp.abs().max()))
+    gj = np.asarray(gj)
+    # f32 order, and the reference may round a few dY to the neighbouring bf16
+    np.testing.assert_allclose(dww.permute(2, 3, 1, 0).numpy(), gj, rtol=0,
+                               atol=1e-3 * np.abs(gj).max())
+
+
+@pytest.mark.parametrize("k", [3, 5, 7])
+@pytest.mark.parametrize("n,h,w", [(2, 32, 96), (3, 30, 142)])
+def test_windowed_plain_matches_plain(k, n, h, w):
+    """Every window geometry the kernels use at small k, at an image whose
+    width leaves a ragged tile (142) and an odd number of output rows (30)."""
+    rng = np.random.RandomState(k + n)
+    x = torch.from_numpy(rng.rand(n, h, w, 3).astype(np.float32) * 4 - 2).to(torch.bfloat16)
+    wt = torch.from_numpy((rng.randn(64, 3, k, k) * 0.35 / k).astype(np.float32))
+    yw, sw = stem.stem_fwd_windowed(x, wt)
+    yp, sp = stem.stem_fwd_plain(x, wt)
+    assert tuple(yw.shape) == (n, 64, h // 2, w // 2) and _one_ulp(yw, yp)
+    _assert_stats_close(sw.numpy(), sp.numpy())
+    dy = torch.from_numpy((rng.randn(*yp.shape) * 1e-2).astype(np.float32)).to(torch.bfloat16)
+    ds = torch.from_numpy((rng.randn(2, 64) * 1e-3).astype(np.float32))
+    dww = stem.stem_dw_windowed(x, dy, yp, ds, k)
+    dwp = stem.stem_dw_plain(x, dy, yp, ds, k)
+    # the same bf16 dY and patches: f32 sums in another order
+    torch.testing.assert_close(dww, dwp, rtol=0, atol=1e-5 * float(dwp.abs().max()))
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 7, 9, 11])
+def test_packed_weights_hold_the_taps_and_zero_pads(k):
+    w = torch.from_numpy(np.random.RandomState(k).randn(k, k, 3, 64).astype(np.float32)) + 3.0
+    packed = stem.pack_stem_weights(w)
+    kwid, s, _ = stem.window_geometry(k)
+    assert packed.dtype == torch.bfloat16 and tuple(packed.shape) == (64, k * kwid)
+    cols = packed.float().reshape(64, k, kwid)
+    pads = torch.ones(kwid, dtype=torch.bool)
+    pads[s:s + 3 * k] = False
+    assert bool((cols[:, :, pads] == 0).all())  # exactly 0 (w is never 0 here)
+    want = w.to(torch.bfloat16).float().reshape(k, 3 * k, 64).permute(2, 0, 1)
+    assert torch.equal(cols[:, :, s:s + 3 * k], want)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 7, 9, 11])
+def test_window_indexing_is_aligned_and_consistent(k):
+    """Every window starts at an even element (the kernels' 32-bit operand
+    loads), its position s + 3*kw + c is tap (kw, c) of the pixel (staged
+    column 2j - p + kw + LEFT, channel c), and the window stays inside the
+    staged row of a 128-pixel tile (6 * 128 + 48 bf16)."""
+    kwid, s, _ = stem.window_geometry(k)
+    p = (k - 1) // 2
+    assert kwid % 8 == 0 and kwid >= 3 * k + s
+    for j in range(stem.TW):
+        start = stem.window_start(j, k)
+        assert start % 2 == 0 and start >= 0 and start + kwid <= 6 * stem.TW + 48
+        for kw in range(k):
+            for c in range(3):
+                assert start + s + 3 * kw + c == 3 * (2 * j - p + kw + stem.LEFT) + c
+
+
+def test_copy_path_choice():
+    """The 16-byte copies need W % 16 == 0 and every pointer 16-byte aligned."""
+    assert stem.stem_vec((8, 512, 512, 3), (0, 4096, 1 << 20))
+    assert not stem.stem_vec((3, 30, 142, 3), (0, 16))
+    assert not stem.stem_vec((2, 64, 72, 3), (0,))  # W % 16 == 8
+    assert not stem.stem_vec((2, 64, 96, 3), (0, 2))
