@@ -15,10 +15,12 @@ Phases; any failure exits non-zero and prints no result:
                 registers; D, D's post mode and E at config 5's two
                 eligible HRNet branches, [8,48,256,256] and [8,96,128,128]),
                 with its time, the plain version's, the library call's where
-                one exists, and its bound on this card; at C = 96, D96 (D's
-                kernel for that width) with its plan and registers, and
-                conv_fwd_kernel (a misaligned input) timed beside it, in
-                every mode; D's post mode also
+                one exists, and its bound on this card; at C = 96 D96 and
+                at C = 48 D48 (D's kernels for those widths), each with its
+                plan and registers, bit-equal over two launches and to
+                conv_fwd_kernel (a misaligned input; [2,C] sums within f32
+                reordering), which is timed beside it, in every mode; D's
+                post mode also
                 bit-equal to D's dx conv followed by ``pre_backward`` on the
                 card, twice on the same inputs, with the times of
                 ``pre_backward`` alone and of that unfused chain; E also twice
@@ -39,7 +41,8 @@ Phases; any failure exits non-zero and prints no result:
                 few steps each: losses finite, each path's kernels launched
                 the derived number of times at every step (E on its
                 asynchronous ring every time; config 5's C = 96 branch convs
-                on D96, post mode included), time per step,
+                on D96 and its C = 48 ones on D48, post mode included, and
+                none on conv_fwd_kernel), time per step,
                 peak memory and a profile.
 Then it prints the card's name and power limit, one JSON line of kernel
 records, and the ok line.  A longer report goes to
@@ -165,7 +168,7 @@ def main() -> None:
     if kernels_only:
         report["stem_kernels"] = stem_kernels(torch, dev, stem, time_ms, bound, bf16_peak, ptxas)
         rows = branch_kernels(torch, dev, branch_conv, time_ms, bound, bf16_peak, ptxas)
-        report["branch_kernels"] = dict(zip(("D", "E", "E_plan", "D96_plan"), rows))
+        report["branch_kernels"] = dict(zip(("D", "E", "E_plan", "D_plan"), rows))
         report["failures"] = FAILURES
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
@@ -216,14 +219,14 @@ def main() -> None:
     report["triton_first_launch_s"] = triton_s
 
     # ------------------------------------------ 2. kernels: D, E (config 5)
-    d_rows, e_rows, e_plans, d96_plans = branch_kernels(torch, dev, branch_conv, time_ms, bound,
-                                                        bf16_peak, ptxas)
-    report["branch_kernels"] = {"D": d_rows, "E": e_rows, "E_plan": e_plans,
-                                "D96_plan": d96_plans}
-    # the records of the line: the modes the path runs most, conv_fwd_kernel
-    # at branch 0's shape, D96 at branch 1's
-    kernels["branch_conv_fwd"] = d_rows["N8_C48_256x256 pre+stats"]
-    kernels["branch_conv_dx_post"] = d_rows["N8_C48_256x256 post"]
+    d_rows, e_rows, e_plans, d_plans = branch_kernels(torch, dev, branch_conv, time_ms, bound,
+                                                      bf16_peak, ptxas)
+    report["branch_kernels"] = {"D": d_rows, "E": e_rows, "E_plan": e_plans, "D_plan": d_plans}
+    # the records of the line: the modes the path runs most, D48 at branch
+    # 0's shape, D96 at branch 1's (conv_fwd_kernel, which the path no
+    # longer launches, is timed in their rows as "old_kernel_ms")
+    kernels["branch_conv_fwd_c48"] = d_rows["N8_C48_256x256 pre+stats"]
+    kernels["branch_conv_dx_post_c48"] = d_rows["N8_C48_256x256 post"]
     kernels["branch_conv_fwd_c96"] = d_rows["N8_C96_128x128 pre+stats"]
     kernels["branch_conv_dx_post_c96"] = d_rows["N8_C96_128x128 post"]
     kernels["branch_conv_dw"] = e_rows["N8_C48_256x256 fuse+pre"]
@@ -233,8 +236,9 @@ def main() -> None:
 
     # ------------------------------------------------------ 4. the slices
     # name -> (wrapper, counter attribute); "branch_conv_dx_post" counts D's
-    # post-mode launches (also in D's "launches"), "..._c96" those of them
-    # on D96, "branch_conv_dw_async" E's launches on its asynchronous ring
+    # post-mode launches (also in D's "launches"), "..._c96" / "..._c48"
+    # those of them on D96 / D48, "branch_conv_dw_async" E's launches on its
+    # asynchronous ring
     counters = {"cutmix_normalize": (cmn.cutmix_normalize_triton, "launches"),
                 "stem_fwd": (stem.stem_fwd_cuda, "launches"),
                 "stem_dw": (stem.stem_dw_cuda, "launches"),
@@ -242,6 +246,8 @@ def main() -> None:
                 "branch_conv_dx_post": (branch_conv.conv3x3_fwd_cuda, "launches_post"),
                 "branch_conv_fwd_c96": (branch_conv.conv3x3_fwd_cuda, "launches_c96"),
                 "branch_conv_dx_post_c96": (branch_conv.conv3x3_fwd_cuda, "launches_c96_post"),
+                "branch_conv_fwd_c48": (branch_conv.conv3x3_fwd_cuda, "launches_c48"),
+                "branch_conv_dx_post_c48": (branch_conv.conv3x3_fwd_cuda, "launches_c48_post"),
                 "branch_conv_dw": (branch_conv.conv3x3_dw_cuda, "launches"),
                 "branch_conv_dw_async": (branch_conv.conv3x3_dw_cuda, "launches_async")}
     none = {k: 0 for k in counters}
@@ -253,21 +259,22 @@ def main() -> None:
     # = 128 per forward: teacher 128 + student 128 + stage 3's 4 modules
     # re-run by the checkpoint (64) + the dx convs (128), of which the 64 of
     # the convs with the input transform (each block's second) run in D's
-    # post mode; the half of each at C = 96 (branch 1, W = 128) on D96; E: 128.
+    # post mode; the half of each at C = 96 (branch 1, W = 128) on D96, the
+    # other half at C = 48 (branch 0, W = 256) on D48; E: 128.
     report["slice_config5"], launches5 = slice_phase(torch, "config 5", CONFIG5, {
         "data.synthetic_canvas": 1024, "data.synthetic_size": 8,
         "train.labeled_batch_size": 4, "train.unlabeled_batch_size": 4}, counters,
         {**none, "branch_conv_fwd": 448, "branch_conv_dx_post": 64, "branch_conv_fwd_c96": 224,
-         "branch_conv_dx_post_c96": 32, "branch_conv_dw": 128, "branch_conv_dw_async": 128},
+         "branch_conv_dx_post_c96": 32, "branch_conv_fwd_c48": 224, "branch_conv_dx_post_c48": 32,
+         "branch_conv_dw": 128, "branch_conv_dw_async": 128},
         steps=8)
-    # each kernel's own launches: conv_fwd_kernel's are D's less D96's
-    launches = {**launches3,
-                "branch_conv_fwd": launches5["branch_conv_fwd"] - launches5["branch_conv_fwd_c96"],
-                "branch_conv_dx_post": (launches5["branch_conv_dx_post"]
-                                        - launches5["branch_conv_dx_post_c96"]),
-                "branch_conv_fwd_c96": launches5["branch_conv_fwd_c96"],
-                "branch_conv_dx_post_c96": launches5["branch_conv_dx_post_c96"],
-                "branch_conv_dw": launches5["branch_conv_dw"]}
+    # conv_fwd_kernel's launches are D's less D96's and D48's: none
+    old = launches5["branch_conv_fwd"] - launches5["branch_conv_fwd_c96"] \
+        - launches5["branch_conv_fwd_c48"]
+    check(old == 0, f"config 5: conv_fwd_kernel launched {old} times, expected none")
+    launches = {**launches3, **{k: launches5[k] for k in (
+        "branch_conv_fwd_c48", "branch_conv_dx_post_c48", "branch_conv_fwd_c96",
+        "branch_conv_dx_post_c96", "branch_conv_dw")}}
 
     meta = {
         "cutmix_normalize": ("triton", "semi_supervised_semantic_segmentation_tpu_torch/ops/cutmix_normalize.py",
@@ -276,10 +283,10 @@ def main() -> None:
                      "semi_supervised_semantic_segmentation_tpu/ops/pallas_stem.py:206"),
         "stem_dw": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/stem.cu",
                     "semi_supervised_semantic_segmentation_tpu/ops/pallas_stem.py:235"),
-        "branch_conv_fwd": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
-                            "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:328"),
-        "branch_conv_dx_post": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
-                                "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:223"),
+        "branch_conv_fwd_c48": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
+                                "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:328"),
+        "branch_conv_dx_post_c48": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
+                                    "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:223"),
         "branch_conv_fwd_c96": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
                                 "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:328"),
         "branch_conv_dx_post_c96": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
@@ -450,14 +457,23 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
     version dx within one bf16 ulp of dt carried through the scale plus
     dx's own rounding (2^-6 relative: the plain dt may sit one ulp away,
     from f32 sums taken in another order), (dmul, dadd) within 1e-3 of each
-    row's max.  At C = 96 every D mode runs on D96 (counted), and again on
+    row's max.  Every D mode runs on D's kernel for the width (D96 at C =
+    96, D48 at C = 48; counted), bit-equal over two launches, and again on
     conv_fwd_kernel through misaligned copies of its inputs (not counted as
-    D96), held to the same bounds and timed beside it; each row carries
-    D96's plan and registers."""
+    D96 or D48), held to the same bounds, bit-equal in y, dx and post's dx,
+    and timed beside it; each row carries the kernel's plan and registers."""
     F = torch.nn.functional
     bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(5)
-    d_rows, e_rows, e_plans, d96_plans = {}, {}, {}, {}
+    d_rows, e_rows, e_plans, d_plans = {}, {}, {}, {}
+    f = bc.conv3x3_fwd_cuda
+    names = {bc.C96: "conv_fwd96_kernel", bc.C48: "conv_fwd48_kernel", 0: "conv_fwd_kernel"}
+
+    def taken(before, kern, times=1):
+        """Did the last ``times`` launches go to ``kern``'s counters alone?"""
+        return (f.launches_c96 - before[0], f.launches_c48 - before[1]) == (
+            times * int(kern == bc.C96), times * int(kern == bc.C48))
+
     for n, c, h in ((8, 48, 256), (8, 96, 128)):
         tag = f"N{n}_C{c}_{h}x{h}"
         x = torch.randn(n, c, h, h, generator=g, device=dev).to(bf16)
@@ -470,26 +486,25 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
         flops = 2.0 * n * h * h * c * 9 * c
         w_bf = w.to(bf16)
         lib_fwd = time_ms(lambda: F.conv2d(x, w_bf, padding=1))
-        d96 = bc.fwd_c96(x.shape, (x.data_ptr(),))
-        old = None  # conv_fwd_kernel's inputs at a D96 width: misaligned copies
-        if d96:
-            plan96 = bc.fwd96_plan(c, h, h)
-            plan96["ptxas"] = ptxas.get("conv_fwd96_kernel", "not in the log")
-            d96_plans[tag] = plan96
-            old = {"x": _misaligned(torch, x), "dy": _misaligned(torch, dy)}
-            print(f"[kernel D96 plan] {tag}: tiles of {plan96['tile_rows']}x32 pixels x 96 "
-                  f"C_out, {plan96['x_stages']} x stage, {plan96['w_stages']} weight stages, "
-                  f"{plan96['smem']} shared bytes, {plan96['wpack']} packed bf16 weights, "
-                  f"ptxas {plan96['ptxas']}", flush=True)
+        kern = bc.fwd_kernel(x.shape, (x.data_ptr(),))
+        check(kern == c, f"D {tag}: fwd_kernel chose {names[kern]}")
+        plan = (bc.fwd96_plan if kern == bc.C96 else bc.fwd48_plan)(c, h, h)
+        plan["ptxas"] = ptxas.get(names[kern], "not in the log")
+        d_plans[tag] = plan
+        # conv_fwd_kernel's inputs at this width: misaligned copies
+        old = {"x": _misaligned(torch, x), "dy": _misaligned(torch, dy)}
+        print(f"[kernel {names[kern]} plan] {tag}: {plan}", flush=True)
         for mode, pre, stats, flip in (("stats", (), True, False),
                                        ("pre+stats", (mul, add), True, False),
                                        ("dx", (), False, True)):
             src = dy if flip else x
-            n96 = bc.conv3x3_fwd_cuda.launches_c96
+            before = (f.launches_c96, f.launches_c48)
             y, s = bc.conv3x3_fwd_cuda(src, w, *pre, stats=stats, flip=flip)
+            y2, s2 = bc.conv3x3_fwd_cuda(src, w, *pre, stats=stats, flip=flip)
             torch.cuda.synchronize()
-            check(bc.conv3x3_fwd_cuda.launches_c96 == n96 + int(d96),
-                  f"D {tag} {mode}: D96 {'not ' if d96 else ''}taken")
+            check(taken(before, kern, 2), f"D {tag} {mode}: {names[kern]} not taken")
+            check(torch.equal(y, y2) and (s is None or torch.equal(s, s2)),
+                  f"D {tag} {mode}: two launches on the same inputs differ")
             yp, sp = bc.conv3x3_fwd_plain(src, w, *pre, stats=stats, flip=flip)
             err = (y.float() - yp.float()).abs()
             check(bool((err <= 2.0 ** -7 * yp.float().abs() + 1e-4).all()),
@@ -505,45 +520,47 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
                 # the conv alone: no transform, no statistics
                 "library_ms": lib_fwd,
                 "max_abs_err": err.max().item(),
-                "kernel": "conv_fwd96_kernel" if d96 else "conv_fwd_kernel",
+                "kernel": names[kern],
             }
-            if d96:
-                srcm = old["dy" if flip else "x"]
-                n96 = bc.conv3x3_fwd_cuda.launches_c96
-                yo, so = bc.conv3x3_fwd_cuda(srcm, w, *pre, stats=stats, flip=flip)
-                torch.cuda.synchronize()
-                check(bc.conv3x3_fwd_cuda.launches_c96 == n96,
-                      f"D {tag} {mode}: a misaligned input took D96")
-                err_o = (yo.float() - yp.float()).abs()
-                check(bool((err_o <= 2.0 ** -7 * yp.float().abs() + 1e-4).all()),
-                      f"D {tag} {mode}: conv_fwd_kernel's y differs by {err_o.max().item()}")
-                if stats:
-                    err_so = (so - sp).abs()
-                    check(bool((err_so <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all()),
-                          f"D {tag} {mode}: conv_fwd_kernel's stats differ by "
-                          f"{err_so.max().item()}")
-                row.update({
-                    "old_kernel_ms": time_ms(lambda: bc.conv3x3_fwd_cuda(srcm, w, *pre, stats=stats,
-                                                                         flip=flip)),
-                    "y_bit_equal_old": bool(torch.equal(y, yo)),
-                    "plan": {k: plan96[k] for k in ("smem", "x_stages", "w_stages")},
-                    "ptxas": plan96["ptxas"],
-                })
-                del yo
+            srcm = old["dy" if flip else "x"]
+            before = (f.launches_c96, f.launches_c48)
+            yo, so = bc.conv3x3_fwd_cuda(srcm, w, *pre, stats=stats, flip=flip)
+            torch.cuda.synchronize()
+            check(taken(before, 0), f"D {tag} {mode}: a misaligned input took {names[kern]}")
+            err_o = (yo.float() - yp.float()).abs()
+            check(bool((err_o <= 2.0 ** -7 * yp.float().abs() + 1e-4).all()),
+                  f"D {tag} {mode}: conv_fwd_kernel's y differs by {err_o.max().item()}")
+            check(torch.equal(y, yo), f"D {tag} {mode}: y is not bit-equal to conv_fwd_kernel's "
+                  f"({(y.float() - yo.float()).abs().max().item()})")
+            if stats:
+                err_so = (so - sp).abs()
+                check(bool((err_so <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all()),
+                      f"D {tag} {mode}: conv_fwd_kernel's stats differ by {err_so.max().item()}")
+                err_ko = (s - so).abs()
+                check(bool((err_ko <= 1e-3 * so.abs().amax(dim=1, keepdim=True)).all()),
+                      f"D {tag} {mode}: stats differ from conv_fwd_kernel's by "
+                      f"{err_ko.max().item()}")
+            row.update({
+                "old_kernel_ms": time_ms(lambda: bc.conv3x3_fwd_cuda(srcm, w, *pre, stats=stats,
+                                                                     flip=flip)),
+                "y_bit_equal_old": bool(torch.equal(y, yo)),
+                "plan": {k: v for k, v in plan.items() if k != "ptxas"},
+                "ptxas": plan["ptxas"],
+            })
+            del yo, y2
             nbytes = 2 * act + w.numel() * 4 + (2 * c * 4 if pre else 0) + (2 * c * 4 if stats else 0)
             row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf16_peak)
             d_rows[f"{tag} {mode}"] = row
-            old_txt = (f"  conv_fwd_kernel {row['old_kernel_ms']:.3f} ms (y bit-equal "
-                       f"{row['y_bit_equal_old']})" if d96 else "")
             print(f"[kernel D branch_conv_fwd] {tag} {mode}: {row['kernel']} max|dy|="
-                  f"{row['max_abs_err']:.3g}  kernel {row['ms']:.3f} ms{old_txt}  plain "
-                  f"{row['plain_ms']:.3f} ms  F.conv2d {row['library_ms']:.3f} ms  bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+                  f"{row['max_abs_err']:.3g}, two launches bit-equal  kernel {row['ms']:.3f} ms  "
+                  f"conv_fwd_kernel {row['old_kernel_ms']:.3f} ms (y bit-equal "
+                  f"{row['y_bit_equal_old']})  plain {row['plain_ms']:.3f} ms  F.conv2d "
+                  f"{row['library_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+                  flush=True)
             del y, yp
         d_rows[f"{tag} post"] = dx_post_row(torch, bc, tag, x, w, mul, add, dy, time_ms, bound,
-                                            bf16_peak, lib_fwd, flops, old)
-        if d96:
-            d_rows[f"{tag} post"].update({k: d_rows[f"{tag} dx"][k] for k in ("plan", "ptxas")})
+                                            bf16_peak, lib_fwd, flops, old, kern, names[kern])
+        d_rows[f"{tag} post"].update({k: d_rows[f"{tag} dx"][k] for k in ("plan", "ptxas")})
         y, _ = bc.conv3x3_fwd_cuda(x, w)
         dY_lib = bc.fold_stats_cotangent(dy, y, ds)
         lib_dw = time_ms(lambda: torch.nn.grad.conv2d_weight(x, w.shape, dY_lib, padding=1))
@@ -597,23 +614,23 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
             del dk, dY, dk2, dY2, dkp, dYp, dks, dYs
         del x, xm, dy, y, dY_lib, old
-    return d_rows, e_rows, e_plans, d96_plans
+    return d_rows, e_rows, e_plans, d_plans
 
 
 def dx_post_row(torch, bc, tag, x, w, mul, add, dY, time_ms, bound, bf16_peak, lib_fwd, flops,
-                old=None):
-    """D's post mode at one shape: checks, times and bound (see
-    :func:`branch_kernels`); ``old``: misaligned copies of x and dY, to
-    time conv_fwd_kernel beside D96."""
+                old, kern, kname):
+    """D's post mode at one shape on D's kernel ``kern`` (named ``kname``):
+    checks, times and bound (see :func:`branch_kernels`); ``old``:
+    misaligned copies of x and dY, to run conv_fwd_kernel beside it."""
     c = x.shape[1]
     f = bc.conv3x3_fwd_cuda
-    post0, post96 = f.launches_post, f.launches_c96_post
+    post0, post96, post48 = f.launches_post, f.launches_c96_post, f.launches_c48_post
     dx, sums = bc.conv3x3_dx_post_cuda(dY, w, x, mul, add)
     dx2, sums2 = bc.conv3x3_dx_post_cuda(dY, w, x, mul, add)
     torch.cuda.synchronize()
     check(f.launches_post == post0 + 2, f"D {tag} post: launches not counted")
-    check(f.launches_c96_post == post96 + 2 * int(old is not None),
-          f"D {tag} post: D96 {'not ' if old is not None else ''}taken")
+    check((f.launches_c96_post - post96, f.launches_c48_post - post48)
+          == (2 * int(kern == bc.C96), 2 * int(kern == bc.C48)), f"D {tag} post: {kname} not taken")
     check(torch.equal(dx, dx2) and torch.equal(sums, sums2),
           f"D {tag} post: two launches on the same inputs differ")
     dt = bc.conv3x3_fwd_cuda(dY, w, stats=False, flip=True)[0]
@@ -644,25 +661,30 @@ def dx_post_row(torch, bc, tag, x, w, mul, add, dY, time_ms, bound, bf16_peak, l
         "library_ms": lib_fwd,
         "max_abs_err": err.max().item(),
         "sums_err": err_s.max().item(),
-        "kernel": "conv_fwd96_kernel" if old is not None else "conv_fwd_kernel",
+        "kernel": kname,
     }
-    if old is not None:
-        xm, dYm = old["x"], old["dy"]
-        n96 = f.launches_c96
-        dxo, sumso = bc.conv3x3_dx_post_cuda(dYm, w, xm, mul, add)
-        torch.cuda.synchronize()
-        check(f.launches_c96 == n96, f"D {tag} post: a misaligned input took D96")
-        err_o = (dxo.float() - dxp.float()).abs()
-        check(bool((err_o <= 2.0 ** -6 * dxp.float().abs() + 1e-4).all()),
-              f"D {tag} post: conv_fwd_kernel's dx differs from the plain version by "
-              f"{err_o.max().item()}")
-        row["old_kernel_ms"] = time_ms(lambda: bc.conv3x3_dx_post_cuda(dYm, w, xm, mul, add))
-        row["dx_bit_equal_old"] = bool(torch.equal(dx, dxo))
+    xm, dYm = old["x"], old["dy"]
+    n96, n48 = f.launches_c96, f.launches_c48
+    dxo, sumso = bc.conv3x3_dx_post_cuda(dYm, w, xm, mul, add)
+    torch.cuda.synchronize()
+    check((f.launches_c96, f.launches_c48) == (n96, n48),
+          f"D {tag} post: a misaligned input took {kname}")
+    err_o = (dxo.float() - dxp.float()).abs()
+    check(bool((err_o <= 2.0 ** -6 * dxp.float().abs() + 1e-4).all()),
+          f"D {tag} post: conv_fwd_kernel's dx differs from the plain version by "
+          f"{err_o.max().item()}")
+    check(torch.equal(dx, dxo), f"D {tag} post: dx is not bit-equal to conv_fwd_kernel's "
+          f"({(dx.float() - dxo.float()).abs().max().item()})")
+    err_so = (sums - sumso).abs()
+    check(bool((err_so <= 1e-3 * sumso.abs().amax(dim=1, keepdim=True)).all()),
+          f"D {tag} post: (dmul, dadd) differ from conv_fwd_kernel's by {err_so.max().item()}")
+    row["old_kernel_ms"] = time_ms(lambda: bc.conv3x3_dx_post_cuda(dYm, w, xm, mul, add))
+    row["dx_bit_equal_old"] = bool(torch.equal(dx, dxo))
     # dY and x read, dx written; the weights, (mul, add) and (dmul, dadd)
     nbytes = 3 * x.numel() * 2 + w.numel() * 4 + 2 * c * 4 + 2 * c * 4
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf16_peak)
     old_txt = (f"  conv_fwd_kernel {row['old_kernel_ms']:.3f} ms (dx bit-equal "
-               f"{row['dx_bit_equal_old']})" if old is not None else "")
+               f"{row['dx_bit_equal_old']})")
     print(f"[kernel D post branch_conv_dx_post] {tag}: {row['kernel']} dx bit-equal to D dx + "
           f"pre_backward, two launches bit-equal, max|ddx| vs plain {row['max_abs_err']:.3g}, "
           f"max|d(dmul, dadd)| {row['sums_err']:.3g}  kernel {row['ms']:.3f} ms{old_txt}  "
@@ -976,7 +998,8 @@ def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: 
 
 # lower-cased kernel-name fragments -> group, first match wins
 GROUPS = [
-    ("D at C = 96 (D96 and its weight pack)", ("conv_fwd96_kernel", "pack_w96_kernel")),
+    ("D at C = 96 (D96 and its weight pack)", ("conv_fwd96_kernel", "pack_w_kernel<96>")),
+    ("D at C = 48 (D48 and its weight pack)", ("conv_fwd48_kernel", "pack_w_kernel<48>")),
     ("stem kernels (B, C)", ("stem_fwd_kernel", "stem_dw_kernel", "reduce_partials_kernel")),
     ("branch conv kernels (D's conv_fwd_kernel, E; both D's reduction)",
      ("conv_fwd_kernel", "conv_dw_kernel", "reduce_rows_kernel", "reduce_dk_kernel")),

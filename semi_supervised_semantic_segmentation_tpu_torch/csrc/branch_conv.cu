@@ -43,13 +43,14 @@
 //      rounded y, reduced by a second kernel in a fixed order (no atomics:
 //      the same inputs give the same bits).
 //   D96 (conv_fwd96_kernel, D at Cp = 96 with W % 8 == 0 and 16-byte
-//      aligned activations; the wrapper picks it, conv_fwd_kernel serves
-//      every other shape): one persistent block per SM, tiles of 4 x 32
-//      pixels x all 96 C_out, so x is staged once per tile (not once per
-//      48-row C_out block).  Warp = (C_out half, tile row) with D's MT = 3
-//      accumulators and product loop.  x goes through E's pieces: raw rows
-//      by cp.async 16-byte copies (dw_issue's x loop), then dw_transform
-//      (position masks, packed-bf16 pre arithmetic) into the operand tile.
+//      aligned activations; the wrapper picks it, or D48 below, and
+//      conv_fwd_kernel serves every other shape): one persistent block per
+//      SM, tiles of 4 x 32 pixels x all 96 C_out, so x is staged once per
+//      tile (not once per 48-row C_out block).  Warp = (C_out half, tile
+//      row) with D's MT = 3 accumulators and product loop.  x goes through
+//      E's pieces: raw rows by cp.async 16-byte copies (dw_issue's x loop,
+//      issue_x_rows), then dw_transform (position masks, packed-bf16 pre
+//      arithmetic) into the operand tile.
 //      A small kernel packs the weights once per call, flip applied, into
 //      a bf16 scratch [9][96][104] (tap-major, rows C_out); each tap's
 //      19,968-byte slab streams from L2 into a 3-stage ring, two taps
@@ -66,6 +67,11 @@
 //      ~51 MB of x and y (~15 us); the staging reads x 2.25 x (halo and the
 //      48-column raw row, ~57 MB) and the weight slabs ~184 MB from L2 (9
 //      slabs per tile, 1,024 tiles).
+//   D48 (conv_fwd48_kernel, D at Cp = 48 under D96's conditions; the note
+//      above it): D96's parts at one width where all nine weight slabs fit
+//      in shared memory, so they are bulk-copied once per block and stay
+//      resident; D's 8 x 32-pixel tiles (warp = tile row) with x staged
+//      two tiles ahead, and D96's 16-byte epilogue.
 //   D post: the epilogue reads x at each output element of the dx conv,
 //      applies the mask and the scale to the rounded dt in registers, writes
 //      dx in dt's place and sums (dmul, dadd) into the statistics' partials
@@ -562,11 +568,12 @@ __device__ __forceinline__ void dw_issue(bf16* st, const bf16* __restrict__ x,
 // shared; a thread takes 8 channels of a pixel, two pixels at a time so
 // that their 16 loads are in flight together.  By position, never by
 // value: the halo, columns >= W and channels >= C are 0 (the zero-filled
-// raw would give relu(add)).
-template <int K16>
+// raw would give relu(add)).  TR: the tile's output rows (the raw stage
+// holds TR + 2 rows of each channel).
+template <int K16, int TR = ETH>
 __device__ __forceinline__ void dw_transform(bf16* xop, const bf16* raw, const bf16* pmb,
                                              bool pre, const Geo& g, int oy0, int ox0) {
-  constexpr int CP = 16 * K16, CPS = CP + 8, XR = ETH + 2, NPX = XR * HW2;
+  constexpr int CP = 16 * K16, CPS = CP + 8, XR = TR + 2, NPX = XR * HW2;
   constexpr int ITEMS = NPX * (CP / 8);
   const uint16_t* rw = reinterpret_cast<const uint16_t*>(raw);
   for (int e0 = threadIdx.x; e0 < ITEMS; e0 += 2 * NT) {
@@ -820,14 +827,17 @@ conv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   ((XRAW96 + XOP96 + WST96 * SLAB96 + 8 * 48 * YST96) * 2 + (8 * 2 * 48 + 3 * CP96) * 4 + \
    2 * CP96 * 2 + WST96 * 8)
 
-// The weights of one call, packed once: wp[tap][co][ci] = bf16(w[co][ci][tap]),
-// with flip bf16(w[ci][co][8 - tap]); 0 for co or ci >= C and in the skew.
-__global__ void pack_w96_kernel(const float* __restrict__ w, bf16* __restrict__ wp, int C,
-                                int flip) {
+// The weights of one call at padded width CP (D96: 96, D48: 48), packed
+// once: wp[tap][co][ci] = bf16(w[co][ci][tap]), with flip
+// bf16(w[ci][co][8 - tap]); 0 for co or ci >= C and in the 8-column skew.
+template <int CP>
+__global__ void pack_w_kernel(const float* __restrict__ w, bf16* __restrict__ wp, int C,
+                              int flip) {
+  constexpr int CPS = CP + 8, SLAB = CP * CPS;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= 9 * SLAB96) return;
-  const int tap = e / SLAB96, rem = e - tap * SLAB96;
-  const int co = rem / CPS96, ci = rem - co * CPS96;
+  if (e >= 9 * SLAB) return;
+  const int tap = e / SLAB, rem = e - tap * SLAB;
+  const int co = rem / CPS, ci = rem - co * CPS;
   float v = 0.f;
   if (co < C && ci < C)
     v = flip ? w[((size_t)ci * C + co) * 9 + 8 - tap] : w[((size_t)co * C + ci) * 9 + tap];
@@ -862,12 +872,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       :: "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
-// A tile's raw x copies: dw_issue's x loop (rows oy0-1..oy0+ETH of every
+// A tile's raw x copies: dw_issue's x loop (rows oy0-1..oy0+TR of every
 // channel < C, columns ox0-8..ox0+39, zero-filled outside the image) into
-// the raw stage, x only.
-__device__ __forceinline__ void d96_issue_x(bf16* st, const bf16* __restrict__ x, const Geo& g,
-                                            int n, int oy0, int ox0) {
-  constexpr int XR = ETH + 2, CH = XRW / 8;
+// the raw stage, x only; TR: the tile's output rows.
+template <int TR>
+__device__ __forceinline__ void issue_x_rows(bf16* st, const bf16* __restrict__ x, const Geo& g,
+                                             int n, int oy0, int ox0) {
+  constexpr int XR = TR + 2, CH = XRW / 8;
   const uint32_t xs = smem_addr(st);
   for (int e = threadIdx.x; e < g.C * XR * CH; e += NT) {
     const int ch = e % CH, rr = e / CH;
@@ -938,7 +949,7 @@ conv_fwd96_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
   {
     int n0, oy, ox;
     dw_tile_coords(g, slab, n0, oy, ox);
-    d96_issue_x(raw, x, g, n0, oy, ox);
+    issue_x_rows<ETH>(raw, x, g, n0, oy, ox);
     cp_async_commit();
   }
   if (t == 0)
@@ -965,7 +976,7 @@ conv_fwd96_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
       if (tap == 0) {
         dw_transform<CP96 / 16>(xop, raw, pmb, pre != 0, g, oy0, ox0);
         __syncthreads();  // the operand tile is ready; the raw stage is free
-        if (i + 1 < ntl) d96_issue_x(raw, x, g, n1, oy1, ox1);
+        if (i + 1 < ntl) issue_x_rows<ETH>(raw, x, g, n1, oy1, ox1);
         cp_async_commit();
       }
       if (t == 0 && s + WST96 - 1 < nsteps)  // into the stage step s-1 read
@@ -1083,6 +1094,267 @@ conv_fwd96_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
     const int h2 = co / 48, r = co - h2 * 48;
     float sum = 0.f;
     for (int w4 = 0; w4 < 4; ++w4) sum += red[((h2 * 4 + w4) * 2 + which) * 48 + r];
+    partial[((size_t)slab * 2 + which) * C + co] = sum;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// D48: kernel D at Cp = 48 (every mode), one block per SM
+// ---------------------------------------------------------------------------
+//
+// Replaces, at channels that pad to 48 (HRNet-W48's branch 0), the TPU
+// kernels D replaces: pallas_conv.py:328 _conv3x3_nchw_impl (-> _kernel_kstack)
+// and its post mode, pallas_conv.py:223 _kernel_kstack(post=True).
+// Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16): [8,48,256,256] moves
+// 100.7 MB (x read once, y written once) in 30.1 us, post 151 MB (dY and x
+// read, dx written) in 45.1 us; its 21.7 GFLOP take 22.0 us: bytes.
+// Design: one persistent block per SM walks tiles of 8 x 32 output pixels x
+// all 48 C_out; warp = tile row (48 rows x 32 pixels, D's MT = 3
+// accumulators and product loop).  The weights are packed once per call
+// (pack_w_kernel<48>, flip applied) into a bf16 scratch [9][48][56] and
+// copied into shared memory once per block by one cp.async.bulk on an
+// mbarrier: all nine tap slabs (48,384 bytes) stay resident, with no
+// per-tile reload and no per-block f32 scatter.  x goes through XS48 raw
+// stages: a tile's raw rows (issue_x_rows, 16-byte cp.async zero-filled
+// outside the image) are issued XS48 tiles ahead, into the stage the
+// transform (dw_transform: position masks, packed bf16 pre arithmetic) has
+// just emptied, so they land while the tiles between run their products.
+// Two block barriers per tile.  The epilogue is D96's: the rounded y (post:
+// dt) through per-warp staging rows and out in 16-byte chunks; post's x in
+// the same chunks, loaded before the tile's products.  The k order
+// (tap-major, then 16-channel steps) and the mma.sync m16n8k16 shape are
+// conv_fwd_kernel's, so y, the dx conv and post's dx are bit-equal to it;
+// the [2,C] sums are fixed-order partials (lanes, the 8 warps in row order,
+// the blocks in order).  What still holds it above the bound, largest
+// first: the products (mma.sync, every fragment from shared memory by
+// ldmatrix, three of a k-step's five loads being weights that are the same
+// for every tile); the transform and the copies, between the two block
+// barriers of a tile; the staging reads x 1.875 x (a 48-column raw row for
+// 32 outputs, 10 rows for 8: ~94 MB); ~15.5 tiles per block, a tail of one.
+
+#define CP48 48
+#define CPS48 (CP48 + 8)                 // operand and weight row stride (elements)
+#define SLAB48 (CP48 * CPS48)            // one tap's packed weights [C_out][CPS48]
+#define XS48 2                           // raw x stages
+#define XRAW48 (CP48 * (TH + 2) * XRW)   // one raw x stage: dw_issue's layout, TH rows
+#define XOP48 ((TH + 2) * HW2 * CPS48)   // the transformed operand tile
+#define YST48 (TW + 8)                   // a warp's y staging row (elements)
+#define D48_SMEM                                                                  \
+  ((XS48 * XRAW48 + XOP48 + 9 * SLAB48 + 8 * CP48 * YST48) * 2 +                  \
+   (8 * 2 * CP48 + 3 * CP48) * 4 + 2 * CP48 * 2 + 8)
+
+// bytes of global memory -> shared memory as one bulk copy by the calling
+// thread, completing on bar (16-byte aligned, a multiple of 16 bytes).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+// The blocks walk D's 8 x 32-pixel tiles slab, slab + nslab, ...  Tile i's
+// raw x is copy group i (the prologue issues tiles 0..XS48-1); it is waited,
+// transformed into the operand tile, and its stage refilled with tile i +
+// XS48, before tile i's products.
+__global__ void __launch_bounds__(NT, 1)
+conv_fwd48_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
+                  const float* __restrict__ mul, const float* __restrict__ add,
+                  const bf16* __restrict__ xpost, bf16* __restrict__ y,
+                  float* __restrict__ partial, Geo g, int pre, int stats, int post) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* raw = reinterpret_cast<bf16*>(smem_raw);                    // [XS48][Cp][TH+2][XRW]
+  bf16* xop = raw + XS48 * XRAW48;                                   // [(TH+2)*HW2][CPS48]
+  bf16* wsm = xop + XOP48;                                           // [9][Cp][CPS48]
+  bf16* ystage = wsm + 9 * SLAB48;                                   // [8][Cp][YST48]
+  float* red = reinterpret_cast<float*>(ystage + 8 * CP48 * YST48);  // [8][2][Cp]
+  float* pm = red + 8 * 2 * CP48;                                    // post: [3][Cp]
+  bf16* pmb = reinterpret_cast<bf16*>(pm + 3 * CP48);                // pre: [2][Cp]
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(pmb + 2 * CP48);
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int slab = blockIdx.x, nslab = gridDim.x, C = g.C;
+  if (post) {
+    // pm[ci] = bf16(mul[ci]), pm[Cp + ci] = bf16(add[ci]), pm[2Cp + ci] = mul[ci]
+    for (int e = t; e < 3 * CP48; e += NT) {
+      const int which = e / CP48, ci = e - which * CP48;
+      const float v = ci < C ? (which == 1 ? add : mul)[ci] : 0.f;
+      pm[e] = which == 2 ? v : bf16r(v);
+    }
+  }
+  for (int e = t; e < 2 * CP48; e += NT) {
+    const int which = e / CP48, ci = e - which * CP48;
+    pmb[e] = __float2bfloat16((pre && ci < C) ? (which ? add : mul)[ci] : 0.f);
+  }
+  if (t == 0) {
+    mbar_init(wbar);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (t == 0) bulk_load(wsm, wp, 9 * SLAB48 * 2, wbar);  // the host gives every block a tile
+
+  const int ntl = (g.ntiles - slab + nslab - 1) / nslab;  // this block's tiles
+  for (int k = 0; k < XS48; ++k) {
+    if (k < ntl) {
+      int n0, oy, ox;
+      tile_coords(g, slab + k * nslab, n0, oy, ox);
+      issue_x_rows<TH>(raw + k * XRAW48, x, g, n0, oy, ox);
+    }
+    cp_async_commit();
+  }
+
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
+  const int b_n = (lane & 7) + (lane >> 4) * 8, b_k = ((lane >> 3) & 1) * 8;
+  const uint32_t a_off = (a_row * CPS48 + a_col) * 2;
+  const uint32_t wsm_s = smem_addr(wsm), xop_s = smem_addr(xop);
+  const int q = lane & 3;
+  float s1[3][2], s2[3][2];
+#pragma unroll
+  for (int m = 0; m < 3; ++m) s1[m][0] = s1[m][1] = s2[m][0] = s2[m][1] = 0.f;
+
+  for (int i = 0; i < ntl; ++i) {
+    int n, oy0, ox0;
+    tile_coords(g, slab + i * nslab, n, oy0, ox0);
+    const int oy = oy0 + warp, ox = ox0 + 8 * q;
+    // post: this lane's 16-byte chunks of x for the epilogue, in flight
+    // through the staging and the products
+    uint4 xv[3][2];
+    if (post) {
+#pragma unroll
+      for (int m = 0; m < 3; ++m)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int co = m * 16 + half * 8 + (lane >> 2);
+          xv[m][half] = make_uint4(0, 0, 0, 0);
+          if (co < C && ox < g.W)
+            xv[m][half] = *reinterpret_cast<const uint4*>(
+                &xpost[(((size_t)n * C + co) * g.H + oy) * g.W + ox]);
+        }
+    }
+    cp_async_wait<XS48 - 1>();  // this thread's copies of tile i have landed
+    __syncthreads();            // ... and every thread's; tile i-1's products are done
+    bf16* st = raw + (i % XS48) * XRAW48;
+    dw_transform<CP48 / 16, TH>(xop, st, pmb, pre != 0, g, oy0, ox0);
+    __syncthreads();  // the operand tile is ready; the raw stage is free
+    if (i + XS48 < ntl) {
+      int n2, oy2, ox2;
+      tile_coords(g, slab + (i + XS48) * nslab, n2, oy2, ox2);
+      issue_x_rows<TH>(st, x, g, n2, oy2, ox2);
+    }
+    cp_async_commit();
+    if (i == 0) mbar_wait(wbar, 0);  // the resident weights have landed
+
+    float acc[3][4][4];
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int kh = tap / 3, kw = tap - kh * 3;
+      const uint32_t arow = wsm_s + tap * SLAB48 * 2 + a_off;
+      const uint32_t brow = xop_s + (((warp + kh) * HW2 + b_n + kw) * CPS48 + b_k) * 2;
+#pragma unroll
+      for (int cc = 0; cc < CP48; cc += 16) {
+        uint32_t af[3][4], bfr[4][2];
+#pragma unroll
+        for (int m = 0; m < 3; ++m) ldsm_x4(af[m], arow + (m * 16 * CPS48 + cc) * 2);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t r[4];
+          ldsm_x4(r, brow + (np * 16 * CPS48 + cc) * 2);
+          bfr[2 * np][0] = r[0]; bfr[2 * np][1] = r[1];
+          bfr[2 * np + 1][0] = r[2]; bfr[2 * np + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int m = 0; m < 3; ++m)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(acc[m][j], af[m], bfr[j]);
+      }
+    }
+
+    // Epilogue (D96's): the rounded y (post: dt) of the warp's 48 rows x 32
+    // pixels into its staging rows, with the statistics of the rounded y as
+    // conv_fwd_kernel takes them; then 16-byte chunks out (W % 8 == 0: a
+    // chunk is all inside or all outside), post's chain per element on x's
+    // chunk, (dmul, dadd) summed in the chunks' order.
+    bf16* ysm = ystage + warp * CP48 * YST48;
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m * 16 + half * 8 + (lane >> 2);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = j * 8 + q * 2;
+          const float v0 = acc[m][j][2 * half], v1 = acc[m][j][2 * half + 1];
+          *reinterpret_cast<uint32_t*>(&ysm[r * YST48 + c]) = pack_bf16(v0, v1);
+          if (!post) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if (ox0 + c + e < g.W) {
+                const float f = bf16r(e ? v1 : v0);
+                s1[m][half] += f;
+                s2[m][half] += f * f;
+              }
+            }
+          }
+        }
+      }
+    __syncwarp();
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int co = m * 16 + half * 8 + (lane >> 2);
+        if (co >= C || ox >= g.W) continue;
+        uint4 v = *reinterpret_cast<const uint4*>(&ysm[co * YST48 + 8 * q]);
+        if (post) {
+          const float mr = pm[co], ar = pm[CP48 + co], mw = pm[2 * CP48 + co];
+          uint32_t* vw = reinterpret_cast<uint32_t*>(&v);
+          const uint32_t* xw = reinterpret_cast<const uint32_t*>(&xv[m][half]);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            float o[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float dt = __uint_as_float(e ? vw[k] & 0xffff0000u : vw[k] << 16);
+              const float xf = __uint_as_float(e ? xw[k] & 0xffff0000u : xw[k] << 16);
+              const float t2 = bf16r(__fadd_rn(bf16r(__fmul_rn(xf, mr)), ar));
+              const float dtm = t2 > 0.f ? dt : 0.f;
+              o[e] = __fmul_rn(dtm, mw);
+              s1[m][half] = __fadd_rn(s1[m][half], __fmul_rn(dtm, xf));
+              s2[m][half] = __fadd_rn(s2[m][half], dtm);
+            }
+            vw[k] = pack_bf16(o[0], o[1]);
+          }
+        }
+        *reinterpret_cast<uint4*>(&y[(((size_t)n * C + co) * g.H + oy) * g.W + ox]) = v;
+      }
+  }
+  if (!stats && !post) return;
+
+  // Block partial: sum the 4 lanes of a row, then the 8 warps in row order.
+#pragma unroll
+  for (int m = 0; m < 3; ++m)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float a = s1[m][half], b = s2[m][half];
+      a += __shfl_xor_sync(0xffffffffu, a, 1);
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
+      b += __shfl_xor_sync(0xffffffffu, b, 1);
+      b += __shfl_xor_sync(0xffffffffu, b, 2);
+      if (q == 0) {
+        const int r = m * 16 + half * 8 + (lane >> 2);
+        red[(warp * 2 + 0) * CP48 + r] = a;
+        red[(warp * 2 + 1) * CP48 + r] = b;
+      }
+    }
+  __syncthreads();
+  for (int e = t; e < 2 * CP48; e += NT) {
+    const int which = e / CP48, co = e - which * CP48;
+    if (co >= C) continue;
+    float sum = 0.f;
+    for (int wr = 0; wr < 8; ++wr) sum += red[(wr * 2 + which) * CP48 + co];
     partial[((size_t)slab * 2 + which) * C + co] = sum;
   }
 }
@@ -1221,28 +1493,64 @@ extern "C" int branch_conv_fwd96_plan(int C, int H, int W, int* out) {
   return 0;
 }
 
-// D96: the weights packed into wpack, then one block per SM (grid nslab
-// <= tiles), then with sums the fixed-order reduction.  Needs Cp = 96,
-// W % 8 == 0 and the activations and wpack 16-byte aligned.
-static int run_fwd96(const void* x, const void* w, const void* mul, const void* add,
-                     const void* xpost, void* y, void* partial, void* sums, void* wpack, int N,
-                     int C, int H, int W, int pre, int stats, int flip, int post, int nslab,
-                     void* stream) {
-  if (!geo_ok(N, C, H, W) || nslab < 1) return (int)cudaErrorInvalidValue;
-  const Geo g = make_dw_geo(N, C, H, W);
-  if (g.Cp != CP96 || W % 8 != 0 || nslab > g.ntiles || !aligned16(x) || !aligned16(y) ||
+// D48's plan: out[0] = shared bytes, out[1] = x stages, out[2] = tile
+// rows, out[3] = blocks per SM (the occupancy calculator's, for the grid),
+// out[4] = tiles per image plane (for the grid), out[5] = packed weight
+// elements (the wpack buffer).
+extern "C" int branch_conv_fwd48_plan(int C, int H, int W, int* out) {
+  const Geo g = make_geo(1, C, H, W);
+  if (C < 1 || g.Cp != CP48) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(conv_fwd48_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, D48_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  int bps = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, conv_fwd48_kernel, NT, D48_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = D48_SMEM;
+  out[1] = XS48;
+  out[2] = TH;
+  out[3] = bps;
+  out[4] = g.ntiles;
+  out[5] = 9 * SLAB48;
+  return 0;
+}
+
+// The weight pack of D96 or D48 (cp = its padded width) into wpack.
+static cudaError_t launch_pack(const void* w, void* wpack, int C, int flip, int cp,
+                               cudaStream_t s) {
+  if (cp == CP96)
+    pack_w_kernel<CP96><<<(9 * SLAB96 + 255) / 256, 256, 0, s>>>((const float*)w, (bf16*)wpack,
+                                                                 C, flip);
+  else
+    pack_w_kernel<CP48><<<(9 * SLAB48 + 255) / 256, 256, 0, s>>>((const float*)w, (bf16*)wpack,
+                                                                 C, flip);
+  return cudaGetLastError();
+}
+
+// D96 or D48 (kern = its padded width, 96 or 48): the weights packed into
+// wpack, then the persistent blocks (grid nslab <= tiles), then with sums
+// the fixed-order reduction.  Needs C padding to kern, W % 8 == 0 and the
+// activations and wpack 16-byte aligned.
+static int run_fwd_packed(int kern, const void* x, const void* w, const void* mul,
+                          const void* add, const void* xpost, void* y, void* partial, void* sums,
+                          void* wpack, int N, int C, int H, int W, int pre, int stats, int flip,
+                          int post, int nslab, void* stream) {
+  if (!geo_ok(N, C, H, W) || nslab < 1 || (kern != CP96 && kern != CP48))
+    return (int)cudaErrorInvalidValue;
+  const Geo g = kern == CP96 ? make_dw_geo(N, C, H, W) : make_geo(N, C, H, W);
+  if (g.Cp != kern || W % 8 != 0 || nslab > g.ntiles || !aligned16(x) || !aligned16(y) ||
       !aligned16(wpack) || (xpost && !aligned16(xpost)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  pack_w96_kernel<<<(9 * SLAB96 + 255) / 256, 256, 0, s>>>((const float*)w, (bf16*)wpack, C, flip);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_pack(w, wpack, C, flip, kern, s);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(conv_fwd96_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             D96_SMEM);
+  const auto kernel = kern == CP96 ? conv_fwd96_kernel : conv_fwd48_kernel;
+  const int smem = kern == CP96 ? D96_SMEM : D48_SMEM;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  conv_fwd96_kernel<<<nslab, NT, D96_SMEM, s>>>(
-      (const bf16*)x, (const bf16*)wpack, (const float*)mul, (const float*)add,
-      (const bf16*)xpost, (bf16*)y, (float*)partial, g, pre, stats, post);
+  kernel<<<nslab, NT, smem, s>>>((const bf16*)x, (const bf16*)wpack, (const float*)mul,
+                                 (const float*)add, (const bf16*)xpost, (bf16*)y,
+                                 (float*)partial, g, pre, stats, post);
   err = cudaGetLastError();
   if (err != cudaSuccess || !sums) return (int)err;
   reduce_rows_kernel<<<(2 * C + 255) / 256, 256, 0, s>>>((const float*)partial, nslab, 2 * C,
@@ -1252,16 +1560,16 @@ static int run_fwd96(const void* x, const void* w, const void* mul, const void* 
 
 // Kernel D.  x [N,C,H,W] bf16; w [C,C,3,3] f32 (OIHW); mul, add [C] f32 (pre);
 // y [N,C,H,W] bf16; partial [nslab][2][C] f32; sums [2][C] f32 (stats).
-// c96 = 1 takes D96 (wpack: bf16 scratch of its plan's size; the grid is
-// nslab), 0 conv_fwd_kernel (the grid is nslab * D's C_out split); nslab
-// <= tiles of the kernel taken.
+// kern = 96 takes D96, 48 D48 (wpack: bf16 scratch of the plan's size; the
+// grid is nslab), 0 conv_fwd_kernel (the grid is nslab * D's C_out split);
+// nslab <= tiles of the kernel taken.
 extern "C" int branch_conv_fwd(const void* x, const void* w, const void* mul, const void* add,
                                void* y, void* partial, void* sums, void* wpack, int N, int C,
-                               int H, int W, int pre, int stats, int flip, int nslab, int c96,
+                               int H, int W, int pre, int stats, int flip, int nslab, int kern,
                                void* stream) {
-  if (c96)
-    return run_fwd96(x, w, mul, add, nullptr, y, partial, stats ? sums : nullptr, wpack, N, C,
-                     H, W, pre, stats, flip, 0, nslab, stream);
+  if (kern)
+    return run_fwd_packed(kern, x, w, mul, add, nullptr, y, partial, stats ? sums : nullptr,
+                          wpack, N, C, H, W, pre, stats, flip, 0, nslab, stream);
   return run_fwd(x, w, mul, add, nullptr, y, partial, stats ? sums : nullptr, N, C, H, W, pre,
                  stats, flip, 0, nslab, stream);
 }
@@ -1270,23 +1578,23 @@ extern "C" int branch_conv_fwd(const void* x, const void* w, const void* mul, co
 // w [C,C,3,3] f32, its epilogue fused: x [N,C,H,W] bf16 and mul, add [C]
 // f32 (raw) of the forward conv's input transform; dx [N,C,H,W] bf16;
 // partial [nslab][2][C] f32; sums [2][C] f32 = (dmul, dadd).  wpack and
-// c96 as in branch_conv_fwd.
+// kern as in branch_conv_fwd.
 extern "C" int branch_conv_dx_post(const void* dY, const void* w, const void* x,
                                    const void* mul, const void* add, void* dx, void* partial,
                                    void* sums, void* wpack, int N, int C, int H, int W,
-                                   int nslab, int c96, void* stream) {
-  if (c96)
-    return run_fwd96(dY, w, mul, add, x, dx, partial, sums, wpack, N, C, H, W, 0, 0, 1, 1, nslab,
-                     stream);
+                                   int nslab, int kern, void* stream) {
+  if (kern)
+    return run_fwd_packed(kern, dY, w, mul, add, x, dx, partial, sums, wpack, N, C, H, W, 0, 0,
+                          1, 1, nslab, stream);
   return run_fwd(dY, w, mul, add, x, dx, partial, sums, N, C, H, W, 0, 0, 1, 1, nslab, stream);
 }
 
-// D96's weight pack alone: wpack [9][96][104] bf16 from w [C,C,3,3] f32.
-extern "C" int branch_conv_pack96(const void* w, void* wpack, int C, int flip, void* stream) {
-  if (C < 1 || (C + 15) / 16 * 16 != CP96) return (int)cudaErrorInvalidValue;
-  pack_w96_kernel<<<(9 * SLAB96 + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)w, (bf16*)wpack, C, flip);
-  return (int)cudaGetLastError();
+// The weight pack alone, for C padding to 96 or 48: wpack [9][Cp][Cp + 8]
+// bf16 from w [C,C,3,3] f32.
+extern "C" int branch_conv_pack(const void* w, void* wpack, int C, int flip, void* stream) {
+  const int cp = (C + 15) / 16 * 16;
+  if (C < 1 || (cp != CP96 && cp != CP48)) return (int)cudaErrorInvalidValue;
+  return (int)launch_pack(w, wpack, C, flip, cp, (cudaStream_t)stream);
 }
 
 template <int K16>

@@ -33,23 +33,29 @@ On a CUDA tensor the wrappers launch the hand-written kernels of
 ``csrc/branch_conv.cu`` (bf16, C <= 128, H % 8 == 0; anything else raises).
 E stages its tiles through an asynchronous ring where the shape and the
 pointers allow it (:func:`dw_async`) and fills them synchronously
-otherwise, in the same kernel.  D has two kernels, picked before the launch
-by :func:`fwd_c96`: at channels padded to 96 (C = 81..96) with W % 8 == 0
-and 16-byte aligned activations, D96 (``conv_fwd96_kernel``: one block per
-SM, 4 x 32-pixel tiles of all 96 output channels, x staged once per tile
-through E's ``cp.async`` copies and transform, the weights packed once per
-call into a bf16 scratch and streamed per tap), else ``conv_fwd_kernel``.
-Counters: ``conv3x3_dw_cuda.launches_async`` (E's ring launches),
+otherwise, in the same kernel.  D has three kernels, picked before the
+launch by :func:`fwd_kernel`, where W % 8 == 0 and the activations are
+16-byte aligned: at channels padded to 96 (C = 81..96) D96
+(``conv_fwd96_kernel``: one block per SM, 4 x 32-pixel tiles of all 96
+output channels, x staged once per tile through E's ``cp.async`` copies and
+transform, the weights packed once per call into a bf16 scratch and
+streamed per tap); at channels padded to 48 (C = 33..48) D48
+(``conv_fwd48_kernel``: one block per SM, 8 x 32-pixel tiles of all 48
+output channels, the packed weights resident in shared memory, x staged two
+tiles ahead); else ``conv_fwd_kernel``.  Counters:
+``conv3x3_dw_cuda.launches_async`` (E's ring launches),
 ``conv3x3_fwd_cuda.launches_post`` (D's post-mode launches),
-``launches_c96`` (D96's launches, every mode) and ``launches_c96_post``
-(D96's post-mode launches); each D launch is also counted in
-``conv3x3_fwd_cuda.launches``.  On a CPU tensor they run the plain versions
-below, which the kernels are tested against.
+``launches_c96`` / ``launches_c48`` (D96's / D48's launches, every mode)
+and ``launches_c96_post`` / ``launches_c48_post`` (their post-mode
+launches); each D launch is also counted in ``conv3x3_fwd_cuda.launches``.
+On a CPU tensor they run the plain versions below, which the kernels are
+tested against.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -61,6 +67,7 @@ from semi_supervised_semantic_segmentation_tpu_torch.ops.stem import fold_stats_
 SOURCE = "branch_conv.cu"
 MAX_C = 128
 C96 = 96  # the padded channel width D96 serves
+C48 = 48  # the padded channel width D48 serves
 BH = 32  # the reference's row window: eligibility needs H % BH == 0
 
 
@@ -122,13 +129,19 @@ def pre_backward(x, dt, mul, add):
     return dx, (dtm * x.float()).sum(dim=(0, 2, 3)), dtm.sum(dim=(0, 2, 3))
 
 
-def pack_weights96_plain(w: torch.Tensor, flip: bool = False) -> torch.Tensor:
-    """D96's packed weights: [9, 96, 104] bf16, tap-major, rows C_out, with
-    wp[kh*3 + kw, co, ci] = bf16(w'[co, ci, kh, kw]) for w' = w or
-    :func:`flip_weight` (w); 0 for co or ci >= C and in the 8-column skew."""
+def _padded(c: int) -> int:
+    return (c + 15) // 16 * 16
+
+
+def pack_weights_plain(w: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """D96's and D48's packed weights: [9, Cp, Cp + 8] bf16 with Cp = C
+    padded to 16, tap-major, rows C_out, with wp[kh*3 + kw, co, ci] =
+    bf16(w'[co, ci, kh, kw]) for w' = w or :func:`flip_weight` (w); 0 for co
+    or ci >= C and in the 8-column skew."""
     c = w.shape[0]
+    cp = _padded(c)
     wf = (flip_weight(w) if flip else w).to(torch.bfloat16)
-    out = torch.zeros((9, C96, C96 + 8), dtype=torch.bfloat16, device=w.device)
+    out = torch.zeros((9, cp, cp + 8), dtype=torch.bfloat16, device=w.device)
     out[:, :c, :c] = wf.permute(2, 3, 0, 1).reshape(9, c, c)
     return out
 
@@ -158,8 +171,10 @@ def _lib() -> ctypes.CDLL:
         lib.branch_conv_dx_post.restype = i
         lib.branch_conv_fwd96_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.branch_conv_fwd96_plan.restype = i
-        lib.branch_conv_pack96.argtypes = [vp, vp, i, i, vp]
-        lib.branch_conv_pack96.restype = i
+        lib.branch_conv_fwd48_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
+        lib.branch_conv_fwd48_plan.restype = i
+        lib.branch_conv_pack.argtypes = [vp, vp, i, i, vp]
+        lib.branch_conv_pack.restype = i
         lib.branch_conv_dw_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.branch_conv_dw_plan.restype = i
         lib.branch_conv_dw.argtypes = [vp] * 9 + [i] * 8 + [vp]
@@ -168,13 +183,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _plan_values(entry: str, n: int, c: int, h: int, w: int) -> Tuple[int, ...]:
+    """The n ints the kernel source's plan entry writes for C, H, W: a pure
+    function of them for the built library, so asked once per shape."""
+    out = (ctypes.c_int * n)()
+    _raise_on(getattr(_lib(), entry)(c, h, w, out), entry)
+    return tuple(out)
+
+
+def _plan_dict(keys, entry: str, c: int, h: int, w: int) -> dict:
+    return dict(zip(keys, _plan_values(entry, len(keys), c, h, w)))
+
+
 def _plan(c: int, h: int, w: int) -> Tuple[int, int, int, int, int, int]:
     """(D's shared bytes, D's C_out split, E's shared bytes, E's row
     split, D's tiles per image, D's shared bytes in post mode) from the
     kernel source's own geometry."""
-    out = (ctypes.c_int * 6)()
-    _raise_on(_lib().branch_conv_plan(c, h, w, out), "branch_conv_plan")
-    return tuple(out)
+    return _plan_values("branch_conv_plan", 6, c, h, w)
 
 
 DW_PLAN_KEYS = ("smem", "row_blocks", "rows", "tile_rows", "stages", "tiles")
@@ -184,9 +210,7 @@ def dw_plan(c: int, h: int, w: int) -> dict:
     """E's tile plan for C channels at H x W, from the kernel source: shared
     bytes, blocks per slab (the split of dk's rows), dk rows per block, tile
     rows, ring stages, tiles per image."""
-    out = (ctypes.c_int * len(DW_PLAN_KEYS))()
-    _raise_on(_lib().branch_conv_dw_plan(c, h, w, out), "branch_conv_dw_plan")
-    return dict(zip(DW_PLAN_KEYS, out))
+    return _plan_dict(DW_PLAN_KEYS, "branch_conv_dw_plan", c, h, w)
 
 
 def dw_async(shape, ptrs) -> bool:
@@ -204,18 +228,41 @@ def fwd96_plan(c: int, h: int, w: int) -> dict:
     """D96's plan for C channels (padded to 96) at H x W, from the kernel
     source: shared bytes, x stages, weight stages, tile rows, tiles per
     image, packed weight elements."""
-    out = (ctypes.c_int * len(FWD96_PLAN_KEYS))()
-    _raise_on(_lib().branch_conv_fwd96_plan(c, h, w, out), "branch_conv_fwd96_plan")
-    return dict(zip(FWD96_PLAN_KEYS, out))
+    return _plan_dict(FWD96_PLAN_KEYS, "branch_conv_fwd96_plan", c, h, w)
+
+
+FWD48_PLAN_KEYS = ("smem", "x_stages", "tile_rows", "blocks_per_sm", "tiles", "wpack")
+
+
+def fwd48_plan(c: int, h: int, w: int) -> dict:
+    """D48's plan for C channels (padded to 48) at H x W, from the kernel
+    source: shared bytes, x stages, tile rows, blocks per SM (the occupancy
+    calculator's), tiles per image, packed weight elements."""
+    return _plan_dict(FWD48_PLAN_KEYS, "branch_conv_fwd48_plan", c, h, w)
+
+
+def _packed_ok(shape, ptrs, cp: int) -> bool:
+    # the copies of D96 and D48 take whole 16-byte chunks of rows, as E's ring
+    return _padded(shape[1]) == cp and dw_async(shape, ptrs)
 
 
 def fwd_c96(shape, ptrs) -> bool:
-    """D's kernel, decided before the launch from x's shape [N,C,H,W] and
-    the activations' addresses alone: D96 for channels that pad to 96, W %
-    8 == 0 and every pointer 16-byte aligned (its copies take whole 16-byte
-    chunks of rows); ``conv_fwd_kernel`` for anything else."""
-    return ((shape[1] + 15) // 16 * 16 == C96 and shape[3] % 8 == 0
-            and all(p % 16 == 0 for p in ptrs))
+    """D96 for x's shape [N,C,H,W] and the activations' addresses: channels
+    that pad to 96, W % 8 == 0 and every pointer 16-byte aligned."""
+    return _packed_ok(shape, ptrs, C96)
+
+
+def fwd_c48(shape, ptrs) -> bool:
+    """D48 for x's shape [N,C,H,W] and the activations' addresses: channels
+    that pad to 48, W % 8 == 0 and every pointer 16-byte aligned."""
+    return _packed_ok(shape, ptrs, C48)
+
+
+def fwd_kernel(shape, ptrs) -> int:
+    """D's kernel, decided before the launch from the shape and the
+    addresses alone: 96 (D96), 48 (D48) or 0 (``conv_fwd_kernel``, for
+    anything else)."""
+    return C96 if fwd_c96(shape, ptrs) else C48 if fwd_c48(shape, ptrs) else 0
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -269,8 +316,8 @@ def conv3x3_fwd_cuda(x: torch.Tensor, w: torch.Tensor, mul=None, add=None, stats
         _check_vec("mul", mul, (c,), x.device)
         _check_vec("add", add, (c,), x.device)
     y = torch.empty_like(x)
-    c96 = fwd_c96(x.shape, (x.data_ptr(), y.data_ptr()))
-    nslab, wpack = _fwd_launch_plan(x.device, n, c, h, wd, c96)
+    kern = fwd_kernel(x.shape, (x.data_ptr(), y.data_ptr()))
+    nslab, wpack = _fwd_launch_plan(x.device, n, c, h, wd, kern)
     sums = partial = None
     if stats:
         sums = torch.empty((2, c), dtype=torch.float32, device=x.device)
@@ -279,11 +326,10 @@ def conv3x3_fwd_cuda(x: torch.Tensor, w: torch.Tensor, mul=None, add=None, stats
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().branch_conv_fwd(x.data_ptr(), w.data_ptr(), ptr(mul), ptr(add), y.data_ptr(),
                                  ptr(partial), ptr(sums), ptr(wpack), n, c, h, wd,
-                                 int(mul is not None), int(stats), int(flip), nslab, int(c96),
+                                 int(mul is not None), int(stats), int(flip), nslab, kern,
                                  stream)
     _raise_on(err, "branch_conv_fwd")
-    conv3x3_fwd_cuda.launches += 1
-    conv3x3_fwd_cuda.launches_c96 += int(c96)
+    _count(kern, post=False)
     return y, sums
 
 
@@ -291,29 +337,45 @@ conv3x3_fwd_cuda.launches = 0
 conv3x3_fwd_cuda.launches_post = 0
 conv3x3_fwd_cuda.launches_c96 = 0
 conv3x3_fwd_cuda.launches_c96_post = 0
+conv3x3_fwd_cuda.launches_c48 = 0
+conv3x3_fwd_cuda.launches_c48_post = 0
 
 
-def _fwd_launch_plan(device, n: int, c: int, h: int, wd: int, c96: bool, post: bool = False):
-    """(persistent blocks, D96's packed-weight scratch or None) for D's
-    kernel at [n, c, h, wd]."""
-    if c96:
-        plan = fwd96_plan(c, h, wd)
+def _count(kern: int, post: bool) -> None:
+    """One launch of D by the kernel ``kern`` (:func:`fwd_kernel`)."""
+    f = conv3x3_fwd_cuda
+    f.launches += 1
+    f.launches_post += int(post)
+    f.launches_c96 += int(kern == C96)
+    f.launches_c96_post += int(kern == C96 and post)
+    f.launches_c48 += int(kern == C48)
+    f.launches_c48_post += int(kern == C48 and post)
+
+
+def _fwd_launch_plan(device, n: int, c: int, h: int, wd: int, kern: int, post: bool = False):
+    """(persistent blocks, the packed-weight scratch of D96 or D48 or None)
+    for D's kernel ``kern`` at [n, c, h, wd]."""
+    if kern:
+        plan = (fwd96_plan if kern == C96 else fwd48_plan)(c, h, wd)
         wpack = torch.empty(plan["wpack"], dtype=torch.bfloat16, device=device)
-        return _slabs(device, 1, 1, n * plan["tiles"]), wpack
+        per_sm = plan["blocks_per_sm"] if kern == C48 else 1
+        return _slabs(device, per_sm, 1, n * plan["tiles"]), wpack
     smem, nmt, _, _, tiles, smem_post = _plan(c, h, wd)
     return _fwd_slabs(device, smem_post if post else smem, nmt, n * tiles), None
 
 
-def pack_weights96_cuda(w: torch.Tensor, flip: bool = False) -> torch.Tensor:
-    """D96's weight pack alone (the kernel each D96 launch runs first):
-    w f32 OIHW on the card -> [9, 96, 104] bf16 (:func:`pack_weights96_plain`)."""
+def pack_weights_cuda(w: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """The weight pack of D96 or D48 alone (the kernel each of their
+    launches runs first): w f32 OIHW on the card, C padding to 96 or 48 ->
+    [9, Cp, Cp + 8] bf16 (:func:`pack_weights_plain`)."""
     c = w.shape[0]
+    cp = _padded(c)
     _check_vec("w", w, (c, c, 3, 3), w.device)
-    _check(w.is_cuda and (c + 15) // 16 * 16 == C96, f"needs a CUDA w with C padding to {C96}")
-    out = torch.empty((9, C96, C96 + 8), dtype=torch.bfloat16, device=w.device)
-    err = _lib().branch_conv_pack96(w.data_ptr(), out.data_ptr(), c, int(flip),
-                                    torch.cuda.current_stream(w.device).cuda_stream)
-    _raise_on(err, "branch_conv_pack96")
+    _check(w.is_cuda and cp in (C96, C48), f"needs a CUDA w with C padding to {C96} or {C48}")
+    out = torch.empty((9, cp, cp + 8), dtype=torch.bfloat16, device=w.device)
+    err = _lib().branch_conv_pack(w.data_ptr(), out.data_ptr(), c, int(flip),
+                                  torch.cuda.current_stream(w.device).cuda_stream)
+    _raise_on(err, "branch_conv_pack")
     return out
 
 
@@ -326,20 +388,17 @@ def conv3x3_dx_post_cuda(dY: torch.Tensor, w: torch.Tensor, x: torch.Tensor, mul
     _check_vec("mul", mul, (c,), dY.device)
     _check_vec("add", add, (c,), dY.device)
     dx = torch.empty_like(dY)
-    c96 = fwd_c96(dY.shape, (dY.data_ptr(), dx.data_ptr(), x.data_ptr()))
-    nslab, wpack = _fwd_launch_plan(dY.device, n, c, h, wd, c96, post=True)
+    kern = fwd_kernel(dY.shape, (dY.data_ptr(), dx.data_ptr(), x.data_ptr()))
+    nslab, wpack = _fwd_launch_plan(dY.device, n, c, h, wd, kern, post=True)
     sums = torch.empty((2, c), dtype=torch.float32, device=dY.device)
     partial = torch.empty((nslab, 2, c), dtype=torch.float32, device=dY.device)
     stream = torch.cuda.current_stream(dY.device).cuda_stream
     err = _lib().branch_conv_dx_post(dY.data_ptr(), w.data_ptr(), x.data_ptr(), mul.data_ptr(),
                                      add.data_ptr(), dx.data_ptr(), partial.data_ptr(),
                                      sums.data_ptr(), None if wpack is None else wpack.data_ptr(),
-                                     n, c, h, wd, nslab, int(c96), stream)
+                                     n, c, h, wd, nslab, kern, stream)
     _raise_on(err, "branch_conv_dx_post")
-    conv3x3_fwd_cuda.launches += 1
-    conv3x3_fwd_cuda.launches_post += 1
-    conv3x3_fwd_cuda.launches_c96 += int(c96)
-    conv3x3_fwd_cuda.launches_c96_post += int(c96)
+    _count(kern, post=True)
     return dx, sums
 
 
@@ -356,7 +415,7 @@ def conv3x3_dw_cuda(x: torch.Tensor, dy: torch.Tensor, y=None, ds=None, mul=None
         _check_vec("mul", mul, (c,), x.device)
         _check_vec("add", add, (c,), x.device)
     plan = dw_plan(c, h, wd)
-    cp = (c + 15) // 16 * 16
+    cp = _padded(c)
     # E: one block per SM (its f32 partial fills the registers)
     nslab = _slabs(x.device, 1, plan["row_blocks"], n * plan["tiles"])
     partial = torch.empty((nslab, cp, 9 * cp), dtype=torch.float32, device=x.device)

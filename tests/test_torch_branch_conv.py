@@ -144,7 +144,7 @@ def test_dw_path_choice(shape, ptrs, ring):
 
 @pytest.mark.parametrize("shape,ptrs,c96", [
     ((8, 96, 128, 128), (0x7f0000000000, 0x7f0000400000), True),  # config 5's branch 1
-    ((8, 48, 256, 256), (0x7f0000000000, 0x7f0000400000), False),  # branch 0: conv_fwd_kernel
+    ((8, 48, 256, 256), (0x7f0000000000, 0x7f0000400000), False),  # branch 0: D48, not D96
     ((1, 88, 32, 64), (256, 512), True),        # pads to 96
     ((1, 80, 32, 64), (256, 512), False),       # pads to 80
     ((1, 128, 32, 64), (256, 512), False),
@@ -160,16 +160,42 @@ def test_fwd_kernel_choice(shape, ptrs, c96):
     assert bc.fwd_c96(shape, ptrs) is c96
 
 
-@pytest.mark.parametrize("c,flip", [(96, False), (88, True)])
+@pytest.mark.parametrize("shape,ptrs,kern", [
+    ((8, 48, 256, 256), (0x7f0000000000, 0x7f0000400000), 48),  # config 5's branch 0
+    ((8, 48, 256, 256), (0x7f0000000000, 0x7f0000400000, 0x7f0000800000), 48),  # post
+    ((8, 96, 128, 128), (0x7f0000000000, 0x7f0000400000), 96),  # branch 1: D96, never D48
+    ((2, 40, 32, 64), (256, 512), 48),          # pads to 48
+    ((2, 33, 32, 64), (256, 512), 48),
+    ((2, 32, 32, 64), (256, 512), 0),           # pads to 32
+    ((1, 88, 32, 64), (256, 512), 96),
+    ((2, 48, 32, 40), (256, 512, 768), 48),     # ragged last column tile, whole chunks
+    ((2, 48, 32, 70), (256, 512), 0),           # W % 8 != 0
+    ((2, 48, 32, 64), (258, 512), 0),           # x 2 bytes past a 16-byte boundary
+    ((2, 48, 32, 64), (256, 520), 0),           # y 8 bytes past it
+    ((2, 48, 32, 64), (256, 512, 770), 0),      # post's x 2 bytes past it
+])
+def test_fwd48_kernel_choice(shape, ptrs, kern):
+    """D's kernel among D96, D48 and conv_fwd_kernel is a function of the
+    shape and the addresses alone, decided before the launch: D48 for
+    channels that pad to 48, W % 8 == 0 and 16-byte aligned activations
+    (post's x included); a width that pads to 96 goes to D96 and never to
+    D48; anything else to conv_fwd_kernel (0)."""
+    assert bc.fwd_c48(shape, ptrs) is (kern == 48)
+    assert bc.fwd_c96(shape, ptrs) is (kern == 96)
+    assert bc.fwd_kernel(shape, ptrs) == kern
+
+
+@pytest.mark.parametrize("c,flip", [(96, False), (88, True), (48, False), (48, True), (40, True)])
 def test_packed_weights96_are_the_conv_as_tap_gemms(c, flip):
-    """D96's packed weights [9, 96, 104] as nine per-tap GEMMs over shifted
-    inputs give the plain D (flipped: the dx conv) bit for bit in f32, and
-    are 0 beyond C and in the skew."""
+    """The packed weights of D96 ([9, 96, 104]) and D48 ([9, 48, 56]) as
+    nine per-tap GEMMs over shifted inputs give the plain D (flipped: the dx
+    conv) bit for bit in f32, and are 0 beyond C and in the skew."""
     g = torch.Generator().manual_seed(c)
     x = torch.randn(1, c, 8, 16, generator=g).to(torch.bfloat16)
     w = torch.randn(c, c, 3, 3, generator=g) * 0.1
-    wp = bc.pack_weights96_plain(w, flip)
-    assert wp.shape == (9, 96, 104) and wp.dtype == torch.bfloat16
+    wp = bc.pack_weights_plain(w, flip)
+    cp = 96 if c > 48 else 48
+    assert wp.shape == (9, cp, cp + 8) and wp.dtype == torch.bfloat16
     assert not wp[:, c:].any() and not wp[:, :, c:].any()
     xp = torch.nn.functional.pad(x.double(), (1, 1, 1, 1))
     acc = torch.zeros(c, 8, 16, dtype=torch.float64)

@@ -292,20 +292,22 @@ def test_d96_matches_plain_in_every_mode(dev, n, c, h, w):
     assert bool(((s - sp).abs() <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all())
 
 
-@pytest.mark.parametrize("n,c,h,w,shift", [(1, 96, 32, 64, True), (1, 96, 32, 33, False)])
+@pytest.mark.parametrize("n,c,h,w,shift", [(1, 96, 32, 64, True), (1, 96, 32, 33, False),
+                                           (2, 48, 32, 64, True), (2, 48, 32, 70, False)])
 def test_d_outside_d96_takes_conv_fwd_kernel(dev, n, c, h, w, shift):
-    """A misaligned copy of x, or W = 33, takes conv_fwd_kernel (the D96
-    counters stay put) in every mode and matches the plain version."""
+    """A misaligned copy of x, or W % 8 != 0, takes conv_fwd_kernel (the
+    D96 and D48 counters stay put) in every mode and matches the plain
+    version, at C = 96 and at C = 48."""
     x, wt, mul, add, dy, _ = _branch_inputs(dev, n, c, h, w)
     if shift:
         x, dy = _misaligned(x), _misaligned(dy)
     f = bc.conv3x3_fwd_cuda
-    before, before96 = f.launches, f.launches_c96
+    before, before96, before48 = f.launches, f.launches_c96, f.launches_c48
     y, s = bc.conv3x3_fwd(x, wt, mul, add)
     dt = bc.conv3x3_fwd(dy, wt, stats=False, flip=True)[0]
     dx, sd = bc.conv3x3_dx_post(dy, wt, x, mul, add)
     torch.cuda.synchronize()
-    assert f.launches == before + 3 and f.launches_c96 == before96
+    assert f.launches == before + 3 and f.launches_c96 == before96 and f.launches_c48 == before48
     yp, sp = bc.conv3x3_fwd_plain(x, wt, mul, add)
     assert _within_one_ulp(y, yp)
     assert bool(((s - sp).abs() <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all())
@@ -313,12 +315,81 @@ def test_d_outside_d96_takes_conv_fwd_kernel(dev, n, c, h, w, shift):
     assert torch.equal(dx, bc.pre_backward(x, dt, mul, add)[0])
 
 
-@pytest.mark.parametrize("c,flip", [(96, False), (96, True), (88, True)])
+@pytest.mark.parametrize("c,flip", [(96, False), (96, True), (88, True), (48, False), (48, True),
+                                    (40, True)])
 def test_d96_packed_weights_equal_the_plain_pack(dev, c, flip):
-    """D96's pack kernel writes flip_weight(w).to(bf16) (or w) tap-major,
-    rows C_out, zero beyond C and in the skew: the plain pack, bit for bit."""
+    """The pack kernel of D96 and of D48 writes flip_weight(w).to(bf16) (or
+    w) tap-major, rows C_out, zero beyond C and in the skew: the plain pack,
+    bit for bit."""
     wt = _branch_inputs(dev, 1, c, 8, 8)[1]
-    assert torch.equal(bc.pack_weights96_cuda(wt, flip), bc.pack_weights96_plain(wt, flip))
+    assert torch.equal(bc.pack_weights_cuda(wt, flip), bc.pack_weights_plain(wt, flip))
+
+
+# config 5's branch 0, a width that pads to 48, a ragged last column tile
+D48_SHAPES = [(8, 48, 256, 256), (2, 40, 32, 64), (2, 48, 32, 40)]
+
+
+@pytest.mark.parametrize("n,c,h,w", D48_SHAPES)
+def test_d48_matches_plain_in_every_mode(dev, n, c, h, w):
+    """D48 (C padding to 48, W % 8 == 0, aligned) in every mode against the
+    plain versions: y within one bf16 ulp, the statistics within 1e-3 of
+    each row's max; post bit-equal to D48's own dx conv followed by
+    pre_backward.  Two launches give the same bits (y and the [2,C] sums:
+    fixed-order partials).  Every launch is counted in ``launches_c48``
+    (post ones also in ``launches_c48_post``), none in D96's."""
+    x, wt, mul, add, dy, _ = _branch_inputs(dev, n, c, h, w)
+    f = bc.conv3x3_fwd_cuda
+    for pre in ((), (mul, add)):
+        before, before96 = f.launches_c48, f.launches_c96
+        y, s = bc.conv3x3_fwd(x, wt, *pre)
+        y2, s2 = bc.conv3x3_fwd(x, wt, *pre)
+        assert f.launches_c48 == before + 2 and f.launches_c96 == before96
+        yp, sp = bc.conv3x3_fwd_plain(x, wt, *pre)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y2) and torch.equal(s, s2)
+        assert _within_one_ulp(y, yp), (pre != (), (y.float() - yp.float()).abs().max().item())
+        assert bool(((s - sp).abs() <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all())
+    before = f.launches_c48
+    dt, none = bc.conv3x3_fwd(dy, wt, stats=False, flip=True)
+    assert none is None and f.launches_c48 == before + 1
+    assert torch.equal(dt, bc.conv3x3_fwd(dy, wt, stats=False, flip=True)[0])
+    assert _within_one_ulp(dt, bc.conv3x3_fwd_plain(dy, wt, stats=False, flip=True)[0])
+    before, before_post = f.launches_c48, f.launches_c48_post
+    dx, s = bc.conv3x3_dx_post(dy, wt, x, mul, add)
+    dx2, s2 = bc.conv3x3_dx_post(dy, wt, x, mul, add)
+    torch.cuda.synchronize()
+    assert f.launches_c48 == before + 2 and f.launches_c48_post == before_post + 2
+    assert torch.equal(dx, dx2) and torch.equal(s, s2)
+    assert torch.equal(dx, bc.pre_backward(x, dt, mul, add)[0])
+    dxp, sp = bc.conv3x3_dx_post_plain(dy, wt, x, mul, add)
+    assert bool(((dx.float() - dxp.float()).abs() <= 2.0 ** -6 * dxp.float().abs() + 1e-4).all())
+    assert bool(((s - sp).abs() <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all())
+
+
+@pytest.mark.parametrize("n,c,h,w", D48_SHAPES)
+def test_d48_is_bit_equal_to_conv_fwd_kernel(dev, n, c, h, w):
+    """Misaligned copies of the inputs take conv_fwd_kernel; D48 keeps its k
+    order and MMA shape, so y, the dx conv and post's dx are bit-equal to
+    it, and the [2,C] sums agree within f32 reordering (1e-3 of each row's
+    max, the bound against the plain version)."""
+    x, wt, mul, add, dy, _ = _branch_inputs(dev, n, c, h, w)
+    xm, dym = _misaligned(x), _misaligned(dy)
+    f = bc.conv3x3_fwd_cuda
+    for pre in ((), (mul, add)):
+        y, s = bc.conv3x3_fwd(x, wt, *pre)
+        before = f.launches_c48
+        yo, so = bc.conv3x3_fwd(xm, wt, *pre)
+        torch.cuda.synchronize()
+        assert f.launches_c48 == before
+        assert torch.equal(y, yo), (pre != (), (y.float() - yo.float()).abs().max().item())
+        assert bool(((s - so).abs() <= 1e-3 * so.abs().amax(dim=1, keepdim=True)).all())
+    dt = bc.conv3x3_fwd(dy, wt, stats=False, flip=True)[0]
+    assert torch.equal(dt, bc.conv3x3_fwd(dym, wt, stats=False, flip=True)[0])
+    dx, s = bc.conv3x3_dx_post(dy, wt, x, mul, add)
+    dxo, so = bc.conv3x3_dx_post(dym, wt, xm, mul, add)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dxo)
+    assert bool(((s - so).abs() <= 1e-3 * so.abs().amax(dim=1, keepdim=True)).all())
 
 
 def test_branch_conv_kernels_refuse_what_they_do_not_take(dev):
