@@ -27,12 +27,21 @@ Phases; any failure exits non-zero and prints no result:
                 on the same inputs and through its synchronous fill (a
                 misaligned input) beside its asynchronous ring, all
                 bit-equal, with its tile plan and the registers ptxas gives it;
+ 2b. D at eval -- D in ``pre`` mode at every shape config 5's shipped eval
+                gives it (each scale's windows of both views in one
+                batch: branch 0 at C = 48, branch 1 at C = 96), against its
+                plain version, with the kernel ``fwd_kernel`` picks, its
+                time, the plain version's, ``F.conv2d``'s and its bound;
  3. reference -- at a small size, on the card (kernels) against the CPU
                 (plain versions), from the same weights and inputs: the stem
                 segment and one config-3 FixMatch step; an HRModule (branches
                 16/32) forward and backward (D's post mode in the
                 backward); one config-5 FixMatch step (OHEM, fused branch
-                convs, remat 'stages:3') on a width-8 HRNet;
+                convs, remat 'stages:3') on a width-8 HRNet; the eval of a
+                width-8 HRNet through the staged path (sliding, flip, two
+                scales: D on the card) and of config 3's R50 at 256^2 with
+                ``stem_impl=pallas`` (B on the card): probability sums and
+                confusion matrices;
  4. slice    -- the port's ``Trainer`` trains config 3 (synthetic data,
                 8 + 8 images at 512^2, ``model.stem_impl=pallas``,
                 ``data.cutmix_impl=pallas``) and then config 5 as shipped
@@ -43,9 +52,18 @@ Phases; any failure exits non-zero and prints no result:
                 asynchronous ring every time; config 5's C = 96 branch convs
                 on D96 and its C = 48 ones on D48, post mode included, and
                 none on conv_fwd_kernel), time per step,
-                peak memory and a profile.
+                peak memory and a profile.  Each run ends in ``Trainer.fit``'s
+                evaluation (``train.epochs=1``), counted and measured apart
+                from training: the ``val`` record, wall seconds, val
+                images/s, peak memory, device time by kernel group and each
+                kernel's launches per val pass against the derived counts
+                (config 3: B twice per val batch; config 5 as shipped: D
+                128 times per forward, one forward per scale).  Config 3's
+                trained state then goes through a reference-layout
+                checkpoint file into a fresh model through the eval entry
+                point's loader: the same confusion matrix.
 Then it prints the card's name and power limit, one JSON line of kernel
-records, and the ok line.  A longer report goes to
+records (launches per training step and per val pass), and the ok line.  A longer report goes to
 ``chiprun_out/chip_smoke_report.json``.
 """
 
@@ -231,8 +249,19 @@ def main() -> None:
     kernels["branch_conv_dx_post_c96"] = d_rows["N8_C96_128x128 post"]
     kernels["branch_conv_dw"] = e_rows["N8_C48_256x256 fuse+pre"]
 
+    # ------------------------------------ 2b. D at config 5's eval shapes
+    from semi_supervised_semantic_segmentation_tpu_torch.config import load_config
+
+    slice5 = {"data.synthetic_canvas": 1024, "data.synthetic_size": 8,
+              "train.labeled_batch_size": 4, "train.unlabeled_batch_size": 4}
+    cfg5 = load_config(CONFIG5, {"data.dataset": "synthetic", **slice5})
+    eval5_shapes = eval_branch_shapes(cfg5, branch_conv)
+    report["d_eval_shapes"] = d_eval_rows(torch, dev, branch_conv, time_ms, bound, bf16_peak,
+                                          eval5_shapes)
+
     # -------------------------------------------- 3. reference, small size
     report["reference"] = reference_phase(torch, dev)
+    report["reference"]["eval"] = eval_reference_phase(torch, dev)
 
     # ------------------------------------------------------ 4. the slices
     # name -> (wrapper, counter attribute); "branch_conv_dx_post" counts D's
@@ -251,23 +280,31 @@ def main() -> None:
                 "branch_conv_dw": (branch_conv.conv3x3_dw_cuda, "launches"),
                 "branch_conv_dw_async": (branch_conv.conv3x3_dw_cuda, "launches_async")}
     none = {k: 0 for k in counters}
-    report["slice_config3"], launches3 = slice_phase(torch, "config 3", CONFIG3, {
+    # eval: config 3's 24 synthetic val images in 3 batches of 8, two
+    # forwards each (the image and its mirror), one stem each: B 2 x 3
+    report["slice_config3"], launches3, eval3 = slice_phase(torch, "config 3", CONFIG3, {
         "data.synthetic_canvas": 512, "data.synthetic_size": 48, "data.cutmix_impl": "pallas",
         "model.stem_impl": "pallas"}, counters,
-        {**none, "cutmix_normalize": 1, "stem_fwd": 2, "stem_dw": 1}, steps=8)
+        {**none, "cutmix_normalize": 1, "stem_fwd": 2, "stem_dw": 1}, steps=8,
+        eval_expected={**none, "stem_fwd": 2 * 3}, after_fit=checkpoint_round_trip)
     # D: 8 modules x 2 eligible branches (48 and 96 ch) x 4 blocks x 2 convs
     # = 128 per forward: teacher 128 + student 128 + stage 3's 4 modules
     # re-run by the checkpoint (64) + the dx convs (128), of which the 64 of
     # the convs with the input transform (each block's second) run in D's
     # post mode; the half of each at C = 96 (branch 1, W = 128) on D96, the
     # other half at C = 48 (branch 0, W = 256) on D48; E: 128.
-    report["slice_config5"], launches5 = slice_phase(torch, "config 5", CONFIG5, {
-        "data.synthetic_canvas": 1024, "data.synthetic_size": 8,
-        "train.labeled_batch_size": 4, "train.unlabeled_batch_size": 4}, counters,
+    # eval (8 val images, one batch, 6 scales, flip, sliding): each scale's
+    # windows of both views in one forward, 128 D launches each, on the
+    # kernel fwd_kernel picks for each eligible branch shape (phase 2b)
+    report["slice_config5"], launches5, eval5 = slice_phase(torch, "config 5", CONFIG5, slice5,
+        counters,
         {**none, "branch_conv_fwd": 448, "branch_conv_dx_post": 64, "branch_conv_fwd_c96": 224,
          "branch_conv_dx_post_c96": 32, "branch_conv_fwd_c48": 224, "branch_conv_dx_post_c48": 32,
          "branch_conv_dw": 128, "branch_conv_dw_async": 128},
-        steps=8)
+        steps=8, eval_expected={**none, **eval_d_launches(eval5_shapes, branch_conv, cfg5)})
+    old_eval = eval5["branch_conv_fwd"] - eval5["branch_conv_fwd_c96"] - eval5["branch_conv_fwd_c48"]
+    print(f"[slice] config 5 eval: conv_fwd_kernel launched {old_eval} times per val pass "
+          f"(D48 {eval5['branch_conv_fwd_c48']}, D96 {eval5['branch_conv_fwd_c96']})", flush=True)
     # conv_fwd_kernel's launches are D's less D96's and D48's: none
     old = launches5["branch_conv_fwd"] - launches5["branch_conv_fwd_c96"] \
         - launches5["branch_conv_fwd_c48"]
@@ -299,7 +336,9 @@ def main() -> None:
         k = kernels[kname]
         records.append({
             "name": kname, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "launches": launches[kname],
+            "launches_per_val_pass": eval3[kname] + eval5[kname],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })
@@ -919,14 +958,332 @@ def reference_phase(torch, dev) -> dict:
     return out
 
 
+def eval_branch_shapes(cfg, bc) -> list:
+    """Config ``cfg``'s eval on its synthetic square canvas, per scale: the
+    [N, C, H, W] of each HRNet branch the fused branch flow takes (C <= 128,
+    ``bc.supported``), per forward, and the forwards per scale.  The
+    staged path batches every window of every view of a scale into one
+    forward (chunked by ``data.eval_window_batch``), so N = eval_batch_size
+    x views x windows."""
+    from semi_supervised_semantic_segmentation_tpu_torch.engine.evaluator import (
+        _snap, _window_starts)
+
+    d = cfg.data
+    canvas, crop = d.synthetic_canvas, d.crop_size
+    stride = d.eval_stride or crop * 2 // 3
+    widths = [cfg.model.hrnet_width * 2 ** i for i in range(4)]
+    out = []
+    for s in d.eval_scales:
+        side = canvas if s == 1.0 else _snap(canvas * s)
+        win = min(crop, side)
+        n = cfg.train.eval_batch_size * (2 if d.eval_flip else 1) * len(
+            _window_starts(side, crop, stride)) ** 2
+        wb = d.eval_window_batch
+        chunks = [min(wb, n - i) for i in range(0, n, wb)] if 0 < wb < n else [n]
+        for m in chunks:
+            shapes = [(m, c, win // 4 // 2 ** i, win // 4 // 2 ** i) for i, c in enumerate(widths)]
+            out.append({"scale": s, "shapes": [sh for sh in shapes
+                                               if bc.supported(sh, sh[1], sh[1])]})
+    return out
+
+
+def eval_d_launches(shapes: list, bc, cfg) -> dict:
+    """D's launches per val pass (one val batch) from :func:`eval_branch_shapes`:
+    every block of every module runs two convs per eligible branch, on the
+    kernel ``fwd_kernel`` picks for the shape (16-byte aligned tensors, as
+    torch allocates them); no post mode, no E in eval."""
+    per_branch = sum(cfg.model.hrnet_modules) * 4 * 2
+    out = {"branch_conv_fwd": 0, "branch_conv_fwd_c48": 0, "branch_conv_fwd_c96": 0}
+    for fwd in shapes:
+        for sh in fwd["shapes"]:
+            kern = bc.fwd_kernel(sh, (0, 0))
+            out["branch_conv_fwd"] += per_branch
+            if kern:
+                out[f"branch_conv_fwd_c{kern}"] += per_branch
+    return out
+
+
+def d_eval_rows(torch, dev, bc, time_ms, bound, bf16_peak, shapes: list) -> dict:
+    """D at each distinct shape of config 5's eval (:func:`eval_branch_shapes`),
+    as is + stats and ``pre`` + stats, against its plain version (y within
+    one bf16 ulp, the statistics within 1e-3 of each row's max), with the
+    kernel ``fwd_kernel`` picks; ``pre`` + stats timed (median of 10 after
+    an L2 flush) beside the plain version, ``F.conv2d`` (the conv alone)
+    and the bound."""
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(11)
+    names = {bc.C96: "conv_fwd96_kernel", bc.C48: "conv_fwd48_kernel", 0: "conv_fwd_kernel"}
+    rows = {}
+    for n, c, h, w_ in sorted({sh for fwd in shapes for sh in fwd["shapes"]}):
+        tag = f"N{n}_C{c}_{h}x{w_}"
+        x = torch.randn(n, c, h, w_, generator=g, device=dev).to(bf16)
+        w = torch.randn(c, c, 3, 3, generator=g, device=dev) / (3.0 * c ** 0.5)
+        mul = torch.rand(c, generator=g, device=dev) + 0.5
+        add = torch.randn(c, generator=g, device=dev) * 0.1
+        kern = bc.fwd_kernel(x.shape, (x.data_ptr(),))
+        errs = []
+        for pre in ((), (mul, add)):
+            y, s = bc.conv3x3_fwd_cuda(x, w, *pre)
+            yp, sp = bc.conv3x3_fwd_plain(x, w, *pre)
+            torch.cuda.synchronize()
+            err = (y.float() - yp.float()).abs()
+            check(bool((err <= 2.0 ** -7 * yp.float().abs() + 1e-4).all()),
+                  f"D eval {tag} pre={bool(pre)}: y differs from the plain version by "
+                  f"{err.max().item()}")
+            err_s = (s - sp).abs()
+            check(bool((err_s <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all()),
+                  f"D eval {tag} pre={bool(pre)}: stats differ by {err_s.max().item()}")
+            errs.append(err.max().item())
+            del y, yp, err
+        w_bf = w.to(bf16)
+        row = {"kernel": names[kern], "max_abs_err": max(errs),
+               "ms": time_ms(lambda: bc.conv3x3_fwd_cuda(x, w, mul, add)),
+               "plain_ms": time_ms(lambda: bc.conv3x3_fwd_plain(x, w, mul, add)),
+               "library_ms": time_ms(lambda: F.conv2d(x, w_bf, padding=1))}
+        nbytes = 2 * x.numel() * 2 + w.numel() * 4 + 2 * c * 4 + 2 * c * 4
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * n * h * w_ * c * 9 * c, bf16_peak)
+        rows[tag] = row
+        print(f"[kernel D at eval] {tag} pre+stats: {row['kernel']} max|dy|={row['max_abs_err']:.3g}"
+              f"  kernel {row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms  F.conv2d "
+              f"{row['library_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+              flush=True)
+        del x
+    return rows
+
+
+# Limits of the card-vs-CPU eval reference, fixed from the readings that
+# PERF.md records: 2 x the larger of the card's largest distance from the
+# CPU's bf16 sums over sound runs and the CPU's own bf16-vs-f32 distance.
+# The margin rule uses the probability limit.  Each run also holds a
+# control (the kernel with its taps mirrored) against them: it must break
+# each rule.
+EVAL_REF_LIMITS = {"hrnet_w8_staged": {"max": 0.18, "rms": 0.010},
+                   "r50_stem_pallas": {"max": 0.35, "rms": 0.031}}
+
+
+def _blob_images(torch, rng, n: int, h: int, w: int):
+    """uint8 (n, h, w, 3): a 4-row grid of random colours, bilinearly
+    smoothed, with 10 % pixel noise -- regions, as in a photograph."""
+    import torch.nn.functional as F
+
+    grid = torch.from_numpy(rng.rand(n, 3, 4, max(4 * w // h, 1)).astype("float32"))
+    x = F.interpolate(grid, size=(h, w), mode="bilinear", align_corners=False)
+    x = x + 0.1 * torch.from_numpy(rng.rand(n, 3, h, w).astype("float32"))
+    return (x.clamp(0, 1) * 255).round().to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+
+
+def _conditioned_model(torch, cfg, seed: int):
+    """A seeded f32 model conditioned so that bf16 rounding moves its
+    output little: the last BatchNorm scale of every residual block at 0.25
+    (a random-init BatchNorm-ReLU net is chaotic: it amplifies a 1e-3
+    input change about 60-fold), then every running statistic set from one
+    train-mode forward of two calibration images (momentum 0)."""
+    import numpy as np
+
+    from semi_supervised_semantic_segmentation_tpu_torch.models import build_model, resnet
+    from semi_supervised_semantic_segmentation_tpu_torch.models.layers import BatchNorm
+    from semi_supervised_semantic_segmentation_tpu_torch.ops import augment
+
+    model = build_model(cfg, seed=seed)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    momenta = [b.momentum for b in bns]
+    crop = cfg.data.crop_size
+    x = augment.canvas_normalize_eval(_blob_images(torch, np.random.RandomState(seed + 1), 2,
+                                                   crop, crop),
+                                      tuple(cfg.data.mean), tuple(cfg.data.std), torch.float32)
+    with torch.no_grad():
+        for blk in model.modules():
+            last = (blk.conv3 if isinstance(blk, resnet.Bottleneck) else
+                    blk.conv2 if isinstance(blk, resnet.BasicBlock) else None)
+            if last is not None:
+                last.Norm_0.BatchNorm_0.weight.mul_(0.25)
+        for b in bns:
+            b.momentum = 0.0
+        model.train()
+        model(x)
+    for b, m in zip(bns, momenta):
+        b.momentum = m
+    return model.eval()
+
+
+def eval_reference_phase(torch, dev) -> dict:
+    """(e) a width-8 HRNet with config 5's head and ``branch_conv=pallas``
+    through the staged eval path (sliding at crop 256 / stride 192 on a
+    256 x 384 canvas, flip, scales 0.75 and 1.0: D on the card in the 256^2
+    windows), and (f) config 3's R50 + DeepLabV3+ with ``stem_impl=pallas``
+    through its whole + flip protocol at 256^2 (B on the card, once per
+    view).  The same seeded, conditioned weights (:func:`_conditioned_model`)
+    and uint8 images of smooth colour regions (2 per case) on the card
+    (bf16, the kernels), on the CPU (bf16, the plain versions) and on the
+    CPU in f32.
+
+    Limits (:data:`EVAL_REF_LIMITS`, fixed): the card's probability sums lie
+    within ``max`` of the CPU's bf16 ones, their RMS distance within
+    ``rms``, and the confusion matrices differ only in pixels whose top-2
+    margin (CPU bf16) is under ``max``; the count of those pixels, the
+    share of all pixels under that margin, and the CPU's own bf16-vs-f32
+    distances are printed.  A control -- the card's kernel with its taps
+    mirrored -- must break each of the three rules."""
+    import numpy as np
+
+    from semi_supervised_semantic_segmentation_tpu_torch.config import load_config
+    from semi_supervised_semantic_segmentation_tpu_torch.engine import evaluator
+    from semi_supervised_semantic_segmentation_tpu_torch.models import build_model
+    from semi_supervised_semantic_segmentation_tpu_torch.ops import branch_conv, stem
+
+    cases = {
+        # 3 modules x 4 blocks x 2 convs x 2 branches in the 256^2 windows
+        # (branch 0 at 64^2, branch 1 at 32^2); the 192-row windows of
+        # scale 0.75 leave the branches at H 48 / 24, not eligible
+        "hrnet_w8_staged": (CONFIG5, {
+            "data.crop_size": 256, "data.eval_stride": 192, "data.eval_scales": (0.75, 1.0),
+            "model.hrnet_width": 8, "model.hrnet_modules": (1, 1, 1)}, (2, 256, 384),
+            (branch_conv.conv3x3_fwd_cuda, "launches"), 48, (branch_conv, "conv3x3_fwd")),
+        "r50_stem_pallas": (CONFIG3, {"data.crop_size": 256, "model.stem_impl": "pallas"},
+                            (2, 256, 256), (stem.stem_fwd_cuda, "launches"), 2,
+                            (stem, "stem_fwd")),
+    }
+
+    def distances(p, ref, valid, tol):
+        top2 = ref.topk(2, dim=1).values
+        margin = top2[:, 0] - top2[:, 1]
+        moved = valid & (p.argmax(1) != ref.argmax(1))
+        return {"max_dprob": (p - ref).abs().max().item(),
+                "rms_dprob": (p - ref).pow(2).mean().sqrt().item(),
+                "pixels_moved": int(moved.sum()),
+                "confident_moved": int((moved & (margin >= tol)).sum()),
+                "share_under_margin": (valid & (margin < tol)).sum().item() / valid.sum().item()}
+
+    out = {}
+    for name, (path, over, (n, h, w), (fn, attr), launches, (mod, fname)) in cases.items():
+        lim = EVAL_REF_LIMITS[name]
+        cfgs = {dt: load_config(path, {"data.dataset": "synthetic", **over,
+                                       "model.compute_dtype": dt})
+                for dt in ("bfloat16", "float32")}
+        cfg = cfgs["bfloat16"]
+        model_f32 = _conditioned_model(torch, cfgs["float32"], seed=5)
+        model = build_model(cfg, seed=5)
+        model.load_state_dict(model_f32.state_dict())
+        model.eval()
+        rng = np.random.RandomState(7)
+        batch = {"image": _blob_images(torch, rng, n, h, w),
+                 "label": torch.from_numpy(rng.randint(
+                     0, cfg.data.num_classes, (n, h, w)).astype(np.int32))}
+        probs_fn, cm_fn = evaluator.make_probs(cfg), evaluator.make_evaluator(cfg)
+        real = getattr(mod, fname)  # the kernel's dispatcher: (x, w OIHW, ...)
+
+        def mirrored(x, w, *rest, real=real, **kw):
+            return real(x, w.flip(2, 3), *rest, **kw)
+
+        def run(m, where, control=False):
+            b = {k: v.to(where) for k, v in batch.items()}
+            before = getattr(fn, attr)
+            setattr(mod, fname, mirrored if control else real)
+            try:
+                with torch.no_grad():
+                    p = probs_fn(m, b).float().cpu()
+                    cm = cm_fn(m, b).cpu()
+            finally:
+                setattr(mod, fname, real)
+            return p, cm, getattr(fn, attr) - before
+
+        on_card = copy.deepcopy(model).to(dev)
+        pc, cmc, lc = run(on_card, dev)
+        p_ctrl = run(on_card, dev, control=True)[0]
+        del on_card
+        pb, cmb, _ = run(model, "cpu")
+        pf = run(model_f32, "cpu")[0]
+        check(lc == 2 * launches, f"eval reference {name}: the kernel launched {lc} times on "
+              f"the card, expected {2 * launches} (probabilities and confusion matrix)")
+        valid = batch["label"] != cfg.data.ignore_index
+        card = distances(pc, pb, valid, lim["max"])
+        noise = distances(pb, pf, valid, lim["max"])
+        ctrl = distances(p_ctrl, pb, valid, lim["max"])
+        check(bool(torch.isfinite(pc).all()), f"eval reference {name}: non-finite probabilities")
+        check(card["max_dprob"] <= lim["max"], f"eval reference {name}: probabilities differ "
+              f"by {card['max_dprob']} (limit {lim['max']})")
+        check(card["rms_dprob"] <= lim["rms"], f"eval reference {name}: RMS distance "
+              f"{card['rms_dprob']} (limit {lim['rms']})")
+        check(card["confident_moved"] == 0, f"eval reference {name}: "
+              f"{card['confident_moved']} pixels with a top-2 margin >= {lim['max']} moved")
+        check(card["pixels_moved"] > 0 or torch.equal(cmc, cmb),
+              f"eval reference {name}: confusion matrices differ with no pixel moved")
+        check(int(cmc.sum()) == int(valid.sum()),
+              f"eval reference {name}: the card counted {int(cmc.sum())} pixels")
+        check(ctrl["max_dprob"] > lim["max"] and ctrl["rms_dprob"] > lim["rms"]
+              and ctrl["confident_moved"] > 0,
+              f"eval reference {name}: a rule passed the control (taps mirrored): {ctrl}")
+        out[name] = {**card, "limits": lim, "bf16_vs_f32": noise, "control": ctrl,
+                     "pixels": int(valid.sum()), "kernel_launches": lc,
+                     "staged": evaluator.use_staged(cfg)}
+        print(f"[reference] eval {name} ({'staged' if out[name]['staged'] else 'fused'} path, "
+              f"{n}x{h}x{w}, bf16): card vs CPU probability sums max|d| "
+              f"{card['max_dprob']:.4g} (limit {lim['max']}), RMS {card['rms_dprob']:.4g} "
+              f"(limit {lim['rms']}); {card['pixels_moved']} of {int(valid.sum())} pixels "
+              f"moved, {card['confident_moved']} with a margin >= {lim['max']} "
+              f"({card['share_under_margin']:.3f} of pixels lie under it); CPU bf16 vs f32 "
+              f"max|d| {noise['max_dprob']:.4g}, RMS {noise['rms_dprob']:.4g}, "
+              f"{noise['pixels_moved']} moved; control (taps mirrored) max|d| "
+              f"{ctrl['max_dprob']:.4g}, RMS {ctrl['rms_dprob']:.4g}, "
+              f"{ctrl['confident_moved']} confident pixels moved; kernel launches on the card "
+              f"{lc}", flush=True)
+    return out
+
+
+def checkpoint_round_trip(torch, trainer, cfg) -> dict:
+    """Config 3's trained state -> ``export_reference_checkpoint`` -> a
+    fresh model through the eval entry point's loader (``eval.load_state``)
+    -> the val pass's confusion matrix, equal to the trained state's."""
+    import numpy as np
+
+    from semi_supervised_semantic_segmentation_tpu_torch import eval as port_eval
+    from semi_supervised_semantic_segmentation_tpu_torch.engine import compat, evaluator
+
+    path = os.path.join(REPO, "build", "chip_smoke_checkpoint.pth")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    compat.export_reference_checkpoint(path, trainer.state, {"epoch": 0,
+                                                             "best_miou": trainer.best_miou}, cfg)
+    mb = os.path.getsize(path) / 1e6
+    loader = evaluator.val_loader(cfg)
+    step = evaluator.make_evaluator(cfg)
+    try:
+        cm_a = evaluator.eval_confusion(step, evaluator.inference_model(trainer.state,
+                                                                        trainer.method),
+                                        loader, trainer.device)
+        state, method, meta = port_eval.load_state(cfg, path, trainer.device)
+        cm_b = evaluator.eval_confusion(step, evaluator.inference_model(state, method), loader,
+                                        trainer.device)
+    finally:
+        loader.close()
+        os.remove(path)
+    check(np.array_equal(cm_a, cm_b), "checkpoint round trip: the confusion matrix changed")
+    check(state.step == trainer.state.step, "checkpoint round trip: the step changed")
+    print(f"[slice] config 3 checkpoint round trip ({mb:.1f} MB reference-layout file, loaded "
+          f"through the eval entry point): confusion matrix equal {np.array_equal(cm_a, cm_b)} "
+          f"over {int(cm_a.sum())} pixels, step {state.step}", flush=True)
+    del state
+    return {"file_mb": mb, "cm_equal": bool(np.array_equal(cm_a, cm_b)),
+            "pixels": int(cm_a.sum())}
+
+
 def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: dict,
-                expected: dict, steps: int):
+                expected: dict, steps: int, eval_expected: dict, after_fit=None):
     """One config through the Trainer on synthetic data for ``steps`` steps.
     Every launch counter is set to 0 just before and read just after; each
     step must launch each kernel ``expected`` times.  Steps 3..steps-2 are
     timed; the last two run under torch.profiler for the breakdown of device
-    time by kernel."""
+    time by kernel.  ``fit`` ends in one evaluation (``train.epochs=1``):
+    the training launches and peak memory are read just before it, then
+    the counters and the peak are reset and the val pass is counted
+    (``eval_expected`` per pass) and measured on its own; a second pass
+    (warm: no new shapes) is timed, and a third, profiled, gives its device
+    time by kernel group; neither writes a record.
+    ``after_fit(torch, trainer, cfg)`` runs last.  Returns (record,
+    training launches, launches per val pass)."""
     from semi_supervised_semantic_segmentation_tpu_torch.config import load_config
+    from semi_supervised_semantic_segmentation_tpu_torch.engine.evaluator import (
+        inference_model, run_eval, use_staged)
     from semi_supervised_semantic_segmentation_tpu_torch.engine.trainer import Trainer
 
     warm, profiled = 2, 2
@@ -965,20 +1322,61 @@ def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: 
             prof.stop()
         return metrics
 
+    inner_eval = trainer.evaluate
+    ev = {}
+
+    def counted_eval(epoch):
+        torch.cuda.synchronize()
+        ev["train_launches"] = {k: getattr(f, a) for k, (f, a) in counters.items()}
+        ev["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        for f, a in counters.values():
+            setattr(f, a, 0)
+        ev["held_gb"] = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        miou = inner_eval(epoch)
+        torch.cuda.synchronize()
+        ev["seconds"] = time.time() - t0
+        ev["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        ev["launches"] = {k: getattr(f, a) for k, (f, a) in counters.items()}
+        ev["miou"] = miou
+        # the first pass meets new shapes (cuDNN's algorithm search, the
+        # allocator's first blocks): the pass again, warm, is the one timed;
+        # then once more under the profiler, for its device time
+        model = inference_model(trainer.state, trainer.method)
+        before = {k: getattr(f, a) for k, (f, a) in counters.items()}
+        t1 = time.time()
+        run_eval(trainer.eval_step, model, trainer.val_loader, trainer.device)
+        torch.cuda.synchronize()
+        ev["warm_seconds"] = time.time() - t1
+        ev["warm_launches"] = {k: getattr(f, a) - before[k] for k, (f, a) in counters.items()}
+        eprof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                   torch.profiler.ProfilerActivity.CUDA])
+        eprof.start()
+        t1 = time.time()
+        run_eval(trainer.eval_step, model, trainer.val_loader, trainer.device)
+        torch.cuda.synchronize()
+        ev["profiled_wall_ms"] = (time.time() - t1) * 1e3
+        eprof.stop()
+        ev["prof"] = eprof
+        return miou
+
     trainer.train_step = counted
+    trainer.evaluate = counted_eval
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for f, a in counters.values():
         setattr(f, a, 0)
     trainer.fit()
-    launches = {k: getattr(f, a) for k, (f, a) in counters.items()}
+    check("train_launches" in ev, f"{label}: fit ran no evaluation")
+    launches = ev.get("train_launches", {k: getattr(f, a) for k, (f, a) in counters.items()})
     check(len(losses) == steps, f"{label}: ran {len(losses)} steps, expected {steps}")
     check(all(math.isfinite(v) for v in losses), f"{label}: non-finite loss {losses}")
     for i, d in enumerate(per_step):
         check(d == expected, f"{label}: step {i} launched {d}, expected {expected}")
     check(all(launches[k] == steps * expected[k] for k in expected),
           f"{label}: launches {launches}")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = ev.get("train_peak_gb", torch.cuda.max_memory_allocated() / 1e9)
     timed = times[warm:steps - profiled]
     ms = statistics.median(timed) * 1e3
     imgs = cfg.train.labeled_batch_size + cfg.train.unlabeled_batch_size
@@ -990,10 +1388,43 @@ def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: 
           f"{peak_gb:.2f} GB ({held_gb:.2f} GB held before the run); step times s "
           f"{[round(t, 3) for t in times]}", flush=True)
     breakdown = device_breakdown(torch, prof, (window[1] - window[0]) * 1e3, profiled)
-    return ({"losses": losses, "step_s": times, "ms_per_step": ms,
-             "img_per_s": imgs / ms * 1e3, "peak_gb": peak_gb, "held_gb": held_gb,
-             "per_step_launches": per_step,
-             "profile": breakdown}, launches)
+    record = {"losses": losses, "step_s": times, "ms_per_step": ms,
+              "img_per_s": imgs / ms * 1e3, "peak_gb": peak_gb, "held_gb": held_gb,
+              "per_step_launches": per_step, "profile": breakdown}
+
+    # ---- the val pass
+    eval_launches = ev.get("launches", {k: 0 for k in counters})
+    n_val = len(trainer.val_loader.dataset)
+    with open(os.path.join(cfg.train.work_dir, "metrics.jsonl")) as f:
+        last = json.loads(f.read().strip().splitlines()[-1])
+    val = last.get("val", {})
+    check(val.get("step") == 0 and math.isfinite(val.get("miou", float("nan"))),
+          f"{label}: the val record is missing or its mIoU is not finite: {last}")
+    check(eval_launches == eval_expected,
+          f"{label}: the val pass launched {eval_launches}, expected {eval_expected}")
+    if "prof" in ev:
+        check(ev["warm_launches"] == eval_launches,
+              f"{label}: the warm val pass launched {ev['warm_launches']}, the first "
+              f"{eval_launches}")
+        print(f"[slice] {label} eval ({'staged' if use_staged(cfg) else 'fused'} path, "
+              f"{n_val} val images at {cfg.data.synthetic_canvas}^2, scales "
+              f"{tuple(cfg.data.eval_scales)}, flip {cfg.data.eval_flip}, eval_batch_size "
+              f"{cfg.train.eval_batch_size}): mIoU {ev['miou']:.4f}; warm pass "
+              f"{ev['warm_seconds']:.3f} s = {n_val / ev['warm_seconds']:.2f} val img/s (the "
+              f"first pass, in fit: {ev['seconds']:.3f} s); peak memory {ev['peak_gb']:.2f} GB "
+              f"({ev['held_gb']:.2f} GB held before the pass); launches per val pass "
+              f"{ {k: v for k, v in eval_launches.items() if v} }", flush=True)
+        eb = device_breakdown(torch, ev["prof"], ev["profiled_wall_ms"], 1, unit="pass")
+        if eb.get("device_ms_per_step") is not None:
+            print(f"[profile] {label} eval: {eb['device_ms_per_step'] / n_val:.1f} device ms "
+                  f"per val image", flush=True)
+        record["eval"] = {k: v for k, v in ev.items() if k not in ("prof", "train_launches")}
+        record["eval"].update({"val_images": n_val, "img_per_s": n_val / ev["warm_seconds"],
+                               "first_pass_img_per_s": n_val / ev["seconds"],
+                               "launches": eval_launches, "profile": eb, "record": val})
+    if after_fit is not None:
+        record["after_fit"] = after_fit(torch, trainer, cfg)
+    return record, launches, eval_launches
 
 
 # lower-cased kernel-name fragments -> group, first match wins
@@ -1014,10 +1445,10 @@ GROUPS = [
 ]
 
 
-def device_breakdown(torch, prof, wall_ms: float, nsteps: int) -> dict:
-    """Device time per step by kernel group, kernel launches per step and
-    the top kernels, from the profiled window; busy share = summed kernel
-    time / window wall time."""
+def device_breakdown(torch, prof, wall_ms: float, nsteps: int, unit: str = "step") -> dict:
+    """Device time per ``unit`` (a step, or a val pass) by kernel group,
+    kernel launches per unit and the top kernels, from the profiled window;
+    busy share = summed kernel time / window wall time."""
     from torch.autograd import DeviceType
 
     evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -1039,12 +1470,12 @@ def device_breakdown(torch, prof, wall_ms: float, nsteps: int) -> dict:
            "groups_ms_per_step": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
            "top": [{"kernel": e.key[:120], "ms_per_step": e.self_device_time_total / 1e3 / nsteps,
                     "calls_per_step": e.count / nsteps} for e in top]}
-    print(f"[profile] {nsteps} profiled steps: device {dev_ms:.1f} ms/step of "
+    print(f"[profile] {nsteps} profiled {unit}(s): device {dev_ms:.1f} ms/{unit} of "
           f"{wall_ms / nsteps:.1f} ms wall (busy {out['busy_share']:.3f}), "
-          f"{out['kernels_per_step']:.0f} kernels per step; by group ms/step "
+          f"{out['kernels_per_step']:.0f} kernels per {unit}; by group ms/{unit} "
           f"{ {k: round(v, 2) for k, v in out['groups_ms_per_step'].items()} }", flush=True)
     for t in out["top"]:
-        print(f"[profile]   {t['ms_per_step']:8.3f} ms/step  x{t['calls_per_step']:.0f}  "
+        print(f"[profile]   {t['ms_per_step']:8.3f} ms/{unit}  x{t['calls_per_step']:.0f}  "
               f"{t['kernel']}", flush=True)
     return out
 

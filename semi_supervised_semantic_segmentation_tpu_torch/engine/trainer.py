@@ -10,14 +10,20 @@ record shape (``MetricLogger.log_scalars``): ``{"train": {"step", "time",
 ...}}`` with step = i + epoch * iters_per_epoch, the 0-based index of the
 step just run, and time in seconds since the logger was made.
 
-Evaluation, checkpoints and resume are not ported yet (ROADMAP.md Queue 1
-items 1-3); ``fit`` says so in one log line and only trains.
+``fit`` evaluates every ``train.eval_interval`` epochs and after the last
+one, on the EMA teacher where the method has one (``engine/evaluator.py``),
+writes a ``{"val": {"step": epoch, "time", "miou", "acc", "iou/<name>",
+...}}`` record and returns the best mIoU.  ``train.init_from_torch`` starts
+from a reference-layout checkpoint file (``engine/compat.py``).  The
+best-mIoU snapshot, rolling checkpoints and resume are not ported yet
+(ROADMAP.md Queue 1 item 3).
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 import queue
 import threading
@@ -30,8 +36,19 @@ from semi_supervised_semantic_segmentation_tpu_torch import resolve_device
 from semi_supervised_semantic_segmentation_tpu_torch.config import Config, save_config
 from semi_supervised_semantic_segmentation_tpu_torch.data.datasets import build_dataset
 from semi_supervised_semantic_segmentation_tpu_torch.data.pipeline import DualLoader, Loader
+from semi_supervised_semantic_segmentation_tpu_torch.engine import compat
+from semi_supervised_semantic_segmentation_tpu_torch.engine.evaluator import (
+    inference_model,
+    make_evaluator,
+    run_eval,
+    val_loader,
+)
 from semi_supervised_semantic_segmentation_tpu_torch.methods import common, get_method
 from semi_supervised_semantic_segmentation_tpu_torch.models import build_model
+from semi_supervised_semantic_segmentation_tpu_torch.ops.metrics import (
+    class_names,
+    format_iou_table,
+)
 
 log = logging.getLogger("sstpu_torch")
 
@@ -128,10 +145,14 @@ class Trainer:
                                        seed=t.seed + 17, num_workers=cfg.data.num_workers)
         self.dual = DualLoader(self.labeled_loader, self.unlabeled_loader)
         self.iters_per_epoch = t.iters_per_epoch or len(self.dual)
+        self.val_loader = val_loader(cfg)
         self.total_steps = self.iters_per_epoch * t.epochs
 
         self.state = self.method.init_state(cfg, self.model, self.total_steps)
         self.train_step = self.method.make_train_step(cfg, self.total_steps)
+        self.eval_step = make_evaluator(cfg)
+        self.best_miou = 0.0
+        self.last: Dict[str, float] = {}
         self._prefetch: Optional[_Prefetcher] = None
         os.makedirs(t.work_dir, exist_ok=True)
         save_config(cfg, os.path.join(t.work_dir, "config.yaml"))
@@ -143,6 +164,12 @@ class Trainer:
                  cfg.model.backbone, cfg.model.decoder, cfg.model.stem_impl,
                  cfg.model.branch_conv, cfg.model.remat, cfg.data.cutmix_impl,
                  cfg.method.sup_loss, self.total_steps)
+        if t.init_from_torch:
+            # reference-layout interop: weights, EMA teacher and momentum
+            # from a torch.save checkpoint file
+            compat.import_reference_checkpoint(t.init_from_torch, self.state)
+            log.info("initialized from reference torch checkpoint %s (step=%d)",
+                     t.init_from_torch, self.state.step)
 
     def _pairs(self, start_epoch: int):
         epoch = start_epoch
@@ -173,16 +200,36 @@ class Trainer:
                          json.dumps(rec))
         return host
 
-    def fit(self) -> Dict[str, float]:
-        log.info("evaluation, checkpoints and resume are not ported yet "
-                 "(ROADMAP.md Queue 1 items 1-3): training only")
-        last = {}
+    def evaluate(self, epoch: int) -> float:
+        """One pass over the val set: logs the IoU table, writes the ``val``
+        record (finite IoUs only, as the reference) and returns the mIoU."""
+        cfg = self.cfg
+        t0 = time.time()
+        iou, miou, acc = run_eval(self.eval_step, inference_model(self.state, self.method),
+                                  self.val_loader, self.device)
+        names = class_names(cfg.data.dataset, cfg.data.num_classes)
+        log.info("eval epoch %d: mIoU=%.4f acc=%.4f (%.1fs)\n%s", epoch, miou, acc,
+                 time.time() - t0, format_iou_table(iou, names))
+        scalars = {"miou": miou, "acc": acc}
+        scalars.update({f"iou/{n}": float(v) for n, v in zip(names, iou) if math.isfinite(v)})
+        self.metrics.log_scalars(epoch, scalars, "val")
+        return miou
+
+    def fit(self) -> float:
+        """Train ``train.epochs`` epochs, evaluating every ``eval_interval``
+        epochs and after the last; returns the best mIoU.  The last
+        interval's train scalars stay in ``self.last``."""
+        t = self.cfg.train
+        log.info("the best-mIoU snapshot, rolling checkpoints and resume are not ported yet "
+                 "(ROADMAP.md Queue 1 item 3)")
         try:
-            for epoch in range(self.cfg.train.epochs):
-                last = self.train_epoch(epoch)
+            for epoch in range(t.epochs):
+                self.last = self.train_epoch(epoch)
+                if (epoch + 1) % t.eval_interval == 0 or epoch + 1 == t.epochs:
+                    self.best_miou = max(self.best_miou, self.evaluate(epoch))
         finally:
             self.close()
-        return last
+        return self.best_miou
 
     def close(self) -> None:
         if self._prefetch is not None:
@@ -190,3 +237,4 @@ class Trainer:
             self._prefetch = None
         self.labeled_loader.close()
         self.unlabeled_loader.close()
+        self.val_loader.close()

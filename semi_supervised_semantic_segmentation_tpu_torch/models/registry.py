@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 
 from semi_supervised_semantic_segmentation_tpu_torch.config import Config
+from semi_supervised_semantic_segmentation_tpu_torch.engine import compat
 from semi_supervised_semantic_segmentation_tpu_torch.models.deeplab import DeepLabV3Plus
 from semi_supervised_semantic_segmentation_tpu_torch.models.hrnet import HRNet, HRNetV2Head
 from semi_supervised_semantic_segmentation_tpu_torch.models.resnet import ResNet
@@ -110,5 +111,6 @@ def build_model(cfg: Config, seed: Optional[int] = None) -> SegModel:
     )
     init_weights(model, cfg.train.seed if seed is None else seed)
     if m.pretrained:
-        raise NotImplementedError("model.pretrained is not yet ported (ROADMAP.md Queue 1 item 2)")
+        # ImageNet-pretrained encoder from a torchvision / official HRNet state dict
+        compat.load_pretrained_encoder(m.pretrained, model)
     return model

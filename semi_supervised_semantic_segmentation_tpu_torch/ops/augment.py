@@ -344,3 +344,8 @@ def normalize_images(images01: torch.Tensor, mean, std, dtype=torch.bfloat16) ->
     m = torch.tensor(mean, dtype=torch.float32, device=images01.device)
     s = torch.tensor(std, dtype=torch.float32, device=images01.device)
     return ((images01.float() - m) / s).to(dtype)
+
+
+def canvas_normalize_eval(images_u8: torch.Tensor, mean, std, dtype=torch.bfloat16) -> torch.Tensor:
+    """uint8 canvas (N,H,W,3) -> normalized ``dtype``: the eval path's feed."""
+    return normalize_images(images_u8.float() * (1.0 / 255.0), mean, std, dtype)

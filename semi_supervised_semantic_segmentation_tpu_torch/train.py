@@ -24,6 +24,8 @@ def main(argv=None) -> None:
                    help="dotted config overrides, e.g. optim.lr=0.02")
     p.add_argument("--work_dir", default=None)
     p.add_argument("--device", default=None, help="cuda (default) | cpu | cuda:N")
+    p.add_argument("--init_from_torch", default=None, metavar="CKPT.pth",
+                   help="initialize from a reference-layout torch checkpoint")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     try:
@@ -32,9 +34,13 @@ def main(argv=None) -> None:
         raise SystemExit(str(e))
     if args.work_dir is not None:
         overrides["train.work_dir"] = args.work_dir
+    if args.init_from_torch is not None:
+        overrides["train.init_from_torch"] = args.init_from_torch
     cfg = load_config(args.config, overrides)
-    last = Trainer(cfg, device=args.device).fit()
-    print(json.dumps(last))
+    trainer = Trainer(cfg, device=args.device)
+    best = trainer.fit()
+    print(f"best mIoU: {best:.4f}")
+    print(json.dumps({**trainer.last, "best_miou": best}))
 
 
 if __name__ == "__main__":

@@ -392,6 +392,21 @@ def test_d48_is_bit_equal_to_conv_fwd_kernel(dev, n, c, h, w):
     assert bool(((s - so).abs() <= 1e-3 * so.abs().amax(dim=1, keepdim=True)).all())
 
 
+def test_d_at_an_eval_shape_matches_plain(dev):
+    """D in ``pre`` mode at one of config 5's eval shapes (branch 0 of a
+    768^2 window, 16 windows in a batch): y within one bf16 ulp of the
+    plain version, the statistics within 1e-3 of each row's max.  Prints
+    the kernel ``fwd_kernel`` picks (48: D48, 96: D96, 0: conv_fwd_kernel)."""
+    x, wt, mul, add, _, _ = _branch_inputs(dev, 16, 48, 192, 192)
+    kern = bc.fwd_kernel(x.shape, (x.data_ptr(), x.data_ptr()))
+    print(f"fwd_kernel at {tuple(x.shape)}: {kern}")
+    y, s = bc.conv3x3_fwd(x, wt, mul, add)
+    yp, sp = bc.conv3x3_fwd_plain(x, wt, mul, add)
+    torch.cuda.synchronize()
+    assert _within_one_ulp(y, yp), (y.float() - yp.float()).abs().max().item()
+    assert bool(((s - sp).abs() <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all())
+
+
 def test_branch_conv_kernels_refuse_what_they_do_not_take(dev):
     w = torch.zeros(8, 8, 3, 3, device=dev)
     with pytest.raises(ValueError):

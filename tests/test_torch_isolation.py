@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of it loads no JAX, flax,
-optax, PyYAML or module of the JAX package, and its entry points refuse to
-run without CUDA unless the caller asks for the CPU."""
+optax, PyYAML, PIL or module of the JAX package, and its entry points
+refuse to run without CUDA unless the caller asks for the CPU."""
 
 import json
 import os
@@ -25,7 +25,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "{PKG}.")]
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "yaml",
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "yaml", "PIL",
                                     "semi_supervised_semantic_segmentation_tpu"))
 print(json.dumps({{"modules": names, "bad": bad}}))
 """
@@ -39,6 +39,8 @@ def test_importing_every_module_loads_no_jax_or_reference_module():
     assert f"{PKG}.methods.fixmatch" in got["modules"]
     assert f"{PKG}.ops.stem" in got["modules"]
     assert {f"{PKG}.ops.branch_conv", f"{PKG}.models.hrnet"} <= set(got["modules"])
+    assert {f"{PKG}.ops.metrics", f"{PKG}.engine.evaluator", f"{PKG}.engine.compat",
+            f"{PKG}.eval"} <= set(got["modules"])
     assert got["bad"] == []
 
 
@@ -71,6 +73,12 @@ def test_trainer_without_a_device_needs_cuda(tmp_path, monkeypatch):
         Trainer(_cfg(tmp_path))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port.resolve_device("cuda:0")
+    from semi_supervised_semantic_segmentation_tpu_torch import eval as port_eval
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_eval.main(["--config", os.path.join(REPO, "configs",
+                                                 "3_fixmatch_dlv3p_r50_voc_512.yaml"),
+                        "--checkpoint", "x.pth"])
     assert port.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -87,12 +95,17 @@ def test_train_entry_point_runs_on_an_explicit_cpu(tmp_path, capsys):
         "train.labeled_batch_size=2", "train.unlabeled_batch_size=2", "train.epochs=1",
         "train.iters_per_epoch=2", "train.log_interval=1",
     ])
-    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    out = capsys.readouterr().out.strip().splitlines()
+    last = json.loads(out[-1])
     with open(tmp_path / "metrics.jsonl") as f:
         records = [json.loads(line) for line in f]
-    # the reference's records: {"train": {...}}, step = i + epoch * iters_per_epoch
-    assert all(list(r) == ["train"] for r in records)
-    lines = [r["train"] for r in records]
+    # the reference's records: {"train": {...}}, step = i + epoch * iters_per_epoch,
+    # then the one eval of train.epochs=1: {"val": {"step": 0, ...}}
+    assert all(list(r) == ["train"] for r in records[:-1]) and list(records[-1]) == ["val"]
+    val = records[-1]["val"]
+    assert val["step"] == 0 and 0.0 <= val["miou"] <= 1.0 and "acc" in val
+    assert last["best_miou"] == val["miou"] and out[-2] == f"best mIoU: {val['miou']:.4f}"
+    lines = [r["train"] for r in records[:-1]]
     assert [r["step"] for r in lines] == [0, 1]
     assert all(r["time"] >= 0 for r in lines)
     assert all(np.isfinite(r["loss"]) for r in lines)
@@ -116,3 +129,5 @@ def test_train_entry_point_builds_and_trains_config5_on_an_explicit_cpu(tmp_path
     ])
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert np.isfinite(last["loss"]) and np.isfinite(last["sup_loss"])
+    # config 5's eval protocol (sliding, flip, six scales: the staged path)
+    assert 0.0 <= last["best_miou"] <= 1.0

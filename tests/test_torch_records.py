@@ -1,6 +1,9 @@
 """The port's run records against the reference's: the ``config.yaml`` a
 run saves (written by either side, read by both) and the ``metrics.jsonl``
-record (shape and step numbering of ``utils/logging.py::MetricLogger``)."""
+records (shape and step numbering of ``utils/logging.py::MetricLogger``):
+the ``train`` records of the steps and, since ``fit`` evaluates, one
+``val`` record per eval (step = epoch, ``miou``, ``acc``, ``iou/<name>``
+for the finite IoUs, as the reference's ``Trainer.evaluate``)."""
 
 import gc
 import glob
@@ -78,6 +81,34 @@ def test_metric_record_matches_the_reference_logger(tmp_path):
     assert port == ref
 
 
+def test_val_record_matches_the_reference_logger(tmp_path):
+    """The record ``Trainer.evaluate`` writes, through both loggers."""
+    scalars = {"miou": 0.375, "acc": 0.8125, "iou/class_0": 0.5, "iou/class_2": 0.25}
+    RefLogger(str(tmp_path / "ref"), enable_tb=False).log_scalars(3, scalars, "val")
+    MetricLogger(str(tmp_path / "port")).log_scalars(3, scalars, "val")
+    recs = []
+    for side in ("ref", "port"):
+        with open(tmp_path / side / "metrics.jsonl") as f:
+            recs.append(json.loads(f.read().strip()))
+    ref, port = recs
+    assert list(port) == list(ref) == ["val"]
+    assert list(port["val"]) == list(ref["val"])
+    for r in (ref, port):
+        r["val"].pop("time")
+    assert port == ref
+
+
+def _check_val_records(recs, epochs):
+    """One ``val`` record per eval, in the reference's shape."""
+    val = [r["val"] for r in recs if list(r) == ["val"]]
+    assert [r["step"] for r in val] == list(epochs)
+    for r in val:
+        assert list(r)[:4] == ["step", "time", "miou", "acc"]
+        assert all(k.startswith("iou/") and math.isfinite(v) for k, v in list(r.items())[4:])
+        assert 0.0 <= r["miou"] <= 1.0 and 0.0 <= r["acc"] <= 1.0 and r["time"] >= 0
+    return val
+
+
 def _tiny_config3(work_dir, **train):
     return config.load_config(os.path.join(REPO, "configs", "3_fixmatch_dlv3p_r50_voc_512.yaml"), {
         "data.dataset": "synthetic", "data.crop_size": 32, "data.synthetic_size": 4,
@@ -90,10 +121,16 @@ def test_trainer_numbers_steps_as_the_reference(tmp_path):
     """Two epochs of two steps, logged every second step: the reference's
     step = i + epoch * iters_per_epoch gives 1 and 3."""
     cfg = _tiny_config3(tmp_path, epochs=2, iters_per_epoch=2, log_interval=2)
-    Trainer(cfg, device="cpu").fit()
+    best = Trainer(cfg, device="cpu").fit()
     with open(tmp_path / "metrics.jsonl") as f:
-        recs = [json.loads(line)["train"] for line in f]
+        lines = [json.loads(line) for line in f]
+    assert all(list(r) in (["train"], ["val"]) for r in lines)
+    recs = [r["train"] for r in lines if list(r) == ["train"]]
     assert [r["step"] for r in recs] == [1, 3]
+    # an eval after each epoch (eval_interval 1), after that epoch's steps
+    assert [list(r)[0] for r in lines] == ["train", "val", "train", "val"]
+    val = _check_val_records(lines, range(2))
+    assert best == max(r["miou"] for r in val)
     assert recs[0]["time"] <= recs[1]["time"]
     assert config.load_config(str(tmp_path / "config.yaml")).to_dict() == cfg.to_dict()
 
