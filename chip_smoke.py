@@ -9,10 +9,12 @@ Phases; any failure exits non-zero and prints no result:
  1. build    -- compile ``csrc/*.cu`` with nvcc for sm_90a (one nvcc per
                 source, started together) and print the seconds;
  2. kernels  -- each hand-written kernel against its plain PyTorch version
-                on the same inputs, at the shapes its path gives it (A, B, C
-                at config 3's, B at both of its batches, B and C also twice
-                on the same inputs, bit-equal, with their tile plan and
-                registers; D, D's post mode and E at config 5's two
+                on the same inputs, at the shapes its path gives it (A at
+                config 3's; B at config 3's two batches [8|16,512^2], config
+                1's [8,128^2] and config 2's [8|16,256^2], C at [16,512^2],
+                [8,128^2] and [16,256^2], each twice on the same inputs,
+                bit-equal, with their tile plan and registers; D, D's post
+                mode and E at config 5's two
                 eligible HRNet branches, [8,48,256,256] and [8,96,128,128]),
                 with its time, the plain version's, the library call's where
                 one exists, and its bound on this card; at C = 96 D96 and
@@ -41,7 +43,10 @@ Phases; any failure exits non-zero and prints no result:
                 width-8 HRNet through the staged path (sliding, flip, two
                 scales: D on the card) and of config 3's R50 at 256^2 with
                 ``stem_impl=pallas`` (B on the card): probability sums and
-                confusion matrices;
+                confusion matrices; one supervised step (config 1) and one
+                Mean-Teacher step (config 2) on U-Net/R18 at 128^2 (B and C
+                on the card): losses and the update as one vector, held to
+                fixed limits (STEP_REF_LIMITS);
  4. slice    -- the port's ``Trainer`` trains config 3 (synthetic data,
                 8 + 8 images at 512^2, ``model.stem_impl=pallas``,
                 ``data.cutmix_impl=pallas``) and then config 5 as shipped
@@ -61,9 +66,20 @@ Phases; any failure exits non-zero and prints no result:
                 128 times per forward, one forward per scale).  Config 3's
                 trained state then goes through a reference-layout
                 checkpoint file into a fresh model through the eval entry
-                point's loader: the same confusion matrix.
+                point's loader: the same confusion matrix.  Then config 1
+                (supervised U-Net/R18, 8 images at 128^2, B and C once a
+                step; ``train.profile_steps=2``: the trainer's own trace of
+                steps 2-4, its path, size and per-step summary) and config
+                2 (Mean Teacher, 8 + 8 at 256^2, B twice a step and C once),
+                both ``model.stem_impl=pallas`` on synthetic data, counted
+                and measured as above; config 2's rolling slot is then
+                restored by a second Trainer (``train.resume=auto``,
+                ``train.epochs=2``) bit-equal, which trains epoch 1, and the
+                eval entry point's loader reads the ``checkpoints``
+                directory: the trained state's confusion matrix.
 Then it prints the card's name and power limit, one JSON line of kernel
-records (launches per training step and per val pass), and the ok line.  A longer report goes to
+records (launches in the training runs, per val pass and per step of each
+config), and the ok line.  A longer report goes to
 ``chiprun_out/chip_smoke_report.json``.
 """
 
@@ -76,12 +92,15 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+CONFIG1 = os.path.join(REPO, "configs", "1_supervised_unet_r18_128.yaml")
+CONFIG2 = os.path.join(REPO, "configs", "2_mean_teacher_unet_voc_256.yaml")
 CONFIG3 = os.path.join(REPO, "configs", "3_fixmatch_dlv3p_r50_voc_512.yaml")
 CONFIG5 = os.path.join(REPO, "configs", "5_hrnet_w48_1024_full_ssl.yaml")
 OUT_DIR = os.path.join(REPO, "chiprun_out")
@@ -198,8 +217,8 @@ def main() -> None:
     h, w_ = 512, 512
     report["stem_kernels"] = stem_rows = stem_kernels(torch, dev, stem, time_ms, bound,
                                                       bf16_peak, ptxas)
-    kernels["stem_fwd"] = stem_rows["B N16"]
-    kernels["stem_dw"] = stem_rows["C N16"]
+    kernels["stem_fwd"] = stem_rows["B N16 512^2"]
+    kernels["stem_dw"] = stem_rows["C N16 512^2"]
 
     b = 8
     mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
@@ -262,6 +281,7 @@ def main() -> None:
     # -------------------------------------------- 3. reference, small size
     report["reference"] = reference_phase(torch, dev)
     report["reference"]["eval"] = eval_reference_phase(torch, dev)
+    report["reference"]["unet_steps"] = unet_step_reference(torch, dev)
 
     # ------------------------------------------------------ 4. the slices
     # name -> (wrapper, counter attribute); "branch_conv_dx_post" counts D's
@@ -309,9 +329,36 @@ def main() -> None:
     old = launches5["branch_conv_fwd"] - launches5["branch_conv_fwd_c96"] \
         - launches5["branch_conv_fwd_c48"]
     check(old == 0, f"config 5: conv_fwd_kernel launched {old} times, expected none")
-    launches = {**launches3, **{k: launches5[k] for k in (
-        "branch_conv_fwd_c48", "branch_conv_dx_post_c48", "branch_conv_fwd_c96",
-        "branch_conv_dx_post_c96", "branch_conv_dw")}}
+    # config 1 (supervised U-Net/R18, 8 images at 128^2): B and C once per
+    # step; train.profile_steps=2 traces steps 2-4 (the slice's own profile
+    # takes steps 6 and 7); eval: 32 synthetic val images, 4 batches, one
+    # forward each
+    cfg1_over = {"data.synthetic_canvas": 128, "model.stem_impl": "pallas",
+                 "train.profile_steps": 2}
+    cfg1 = load_config(CONFIG1, {"data.dataset": "synthetic", **cfg1_over})
+    report["slice_config1"], launches1, eval1 = slice_phase(
+        torch, "config 1", CONFIG1, cfg1_over, counters,
+        {**none, "stem_fwd": 1, "stem_dw": 1}, steps=8,
+        eval_expected={**none, "stem_fwd": val_stem_launches(cfg1)},
+        after_fit=profile_trace_check)
+    # config 2 (Mean Teacher U-Net/R18, 8 + 8 at 256^2; VOC is not in the
+    # repo): B twice per step (teacher N = 8, student N = 16), C once (N =
+    # 16); eval: 8 synthetic val images, one batch, one forward; a rolling
+    # slot after the epoch, then the resume on the card
+    cfg2_over = {"data.synthetic_canvas": 256, "data.synthetic_size": 16,
+                 "model.stem_impl": "pallas", "train.checkpoint_interval": 1}
+    cfg2 = load_config(CONFIG2, {"data.dataset": "synthetic", **cfg2_over})
+    report["slice_config2"], launches2, eval2 = slice_phase(
+        torch, "config 2", CONFIG2, cfg2_over, counters,
+        {**none, "stem_fwd": 2, "stem_dw": 1}, steps=8,
+        eval_expected={**none, "stem_fwd": val_stem_launches(cfg2)},
+        after_fit=resume_on_card)
+
+    runs = {"config 1": (launches1, eval1, 8), "config 2": (launches2, eval2, 8),
+            "config 3": (launches3, eval3, 8), "config 5": (launches5, eval5, 8)}
+    launches = {k: sum(r[0][k] for r in runs.values()) for k in counters}
+    by_config = {k: {c: {"per_step": r[0][k] / r[2], "run": r[0][k], "per_val_pass": r[1][k]}
+                     for c, r in runs.items() if r[0][k] or r[1][k]} for k in counters}
 
     meta = {
         "cutmix_normalize": ("triton", "semi_supervised_semantic_segmentation_tpu_torch/ops/cutmix_normalize.py",
@@ -337,11 +384,16 @@ def main() -> None:
         records.append({
             "name": kname, "route": route, "source": source, "replaces": replaces,
             "launches": launches[kname],
-            "launches_per_val_pass": eval3[kname] + eval5[kname],
+            "launches_per_val_pass": sum(r[1][kname] for r in runs.values()),
+            "launches_by_config": by_config[kname],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })
+        if kname in ("stem_fwd", "stem_dw"):
+            records[-1]["shapes"] = {key.split(" ", 1)[1]: {f: row[f] for f in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+                for key, row in stem_rows.items() if key.startswith("BC"[kname == "stem_dw"])}
     report["kernels"] = records
     report["failures"] = FAILURES
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -383,14 +435,20 @@ def ptxas_usage(log: str) -> dict:
     return out
 
 
+# (N, H = W) of kernel B's launches and whether C runs there too: config 3
+# (512^2: teacher N = 8, student N = 16), config 1 (128^2, N = 8) and
+# config 2 (256^2: teacher N = 8, student N = 16); C runs at the student's
+STEM_SHAPES = [(8, 512, False), (16, 512, True), (8, 128, True), (8, 256, False),
+               (16, 256, True)]
+
+
 def stem_kernels(torch, dev, stem, time_ms, bound, bf16_peak, ptxas) -> dict:
-    """Kernels B and C at config 3's shapes (k = 7, 512^2): B at N = 8 (the
-    teacher's batch) and N = 16 (the student's), C at N = 16.  Each against
-    its plain version on the same inputs (y within one bf16 ulp, the
+    """Kernels B and C (k = 7) at every shape of :data:`STEM_SHAPES`.  Each
+    against its plain version on the same inputs (y within one bf16 ulp, the
     statistics within 1e-3 of each row's max, dW within 1e-3 of max|dW|),
     twice on the same inputs (bit-equal), with its time, the plain
     version's, the library call's and its bound; the tile plan and the
-    registers ptxas gives each kernel."""
+    registers ptxas gives each kernel.  Rows are keyed "B N<n> <h>^2"."""
     F = torch.nn.functional
     bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
@@ -405,30 +463,32 @@ def stem_kernels(torch, dev, stem, time_ms, bound, bf16_peak, ptxas) -> dict:
           f"{plan['dw_blocks_per_sm']} blocks/SM, {plan['dw_n_width']} N columns, ptxas "
           f"{plan['ptxas']['stem_dw_kernel']}", flush=True)
     rows = {"plan": plan}
-    h = w_ = 512
-    h2, w2 = h // 2, w_ // 2
     wt = torch.randn(64, 3, 7, 7, generator=g, device=dev) * 0.05
     w_hwio = wt.permute(2, 3, 1, 0).contiguous()
     w_bf = wt.to(bf16)
     flops_px = 2.0 * 147 * 64
-    for n in (8, 16):
+    for n, h, with_c in STEM_SHAPES:
+        w_ = h
+        h2, w2 = h // 2, w_ // 2
         x = (torch.rand(n, h, w_, 3, generator=g, device=dev) * 4.0 - 2.0).to(bf16)
         yk, sk = stem.stem_fwd_cuda(x, w_hwio)
         yk2, sk2 = stem.stem_fwd_cuda(x, w_hwio)
         torch.cuda.synchronize()
         check(torch.equal(yk, yk2) and torch.equal(sk, sk2),
-              f"B N={n}: two launches on the same inputs differ")
+              f"B N={n} {h}^2: two launches on the same inputs differ")
         yp, sp = stem.stem_fwd_plain(x, wt)
         err_y = (yk.float() - yp.float()).abs()
         # about one bf16 ulp (2^-8 relative, rounding either way) plus f32
         # summation-order noise near zero
         check(bool((err_y <= 2.0 ** -7 * yp.float().abs() + 1e-4).all()),
-              f"B N={n}: y differs from the plain version by {err_y.max().item()}")
+              f"B N={n} {h}^2: y differs from the plain version by {err_y.max().item()}")
         err_s = (sk - sp).abs()
         check(bool((err_s <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all()),
-              f"B N={n}: stats differ by {err_s.max().item()} (rtol 1e-3 of each row's max)")
+              f"B N={n} {h}^2: stats differ by {err_s.max().item()} (rtol 1e-3 of each "
+              f"row's max)")
         x_nchw = x.permute(0, 3, 1, 2)
         k_b = {
+            "shape": [n, h, w_, 3],
             "ms": time_ms(lambda: stem.stem_fwd_cuda(x, w_hwio)),
             "plain_ms": time_ms(lambda: stem.stem_fwd_plain(x, wt)),
             # the conv alone: F.conv2d does not compute the BN statistics
@@ -437,39 +497,46 @@ def stem_kernels(torch, dev, stem, time_ms, bound, bf16_peak, ptxas) -> dict:
         nbytes = x.numel() * 2 + wt.numel() * 4 + yk.numel() * 2 + sk.numel() * 4
         k_b["bound_ms"], k_b["bound_by"] = bound(nbytes, flops_px * n * h2 * w2, bf16_peak)
         k_b["max_abs_err"] = err_y.max().item()
-        rows[f"B N{n}"] = k_b
+        rows[f"B N{n} {h}^2"] = k_b
         print(f"[kernel B stem_fwd] N={n} {h}x{w_}: max|dy|={k_b['max_abs_err']:.3g} "
               f"max|dstats|={err_s.max().item():.3g}, two launches bit-equal  kernel "
               f"{k_b['ms']:.4f} ms  plain {k_b['plain_ms']:.3f} ms  F.conv2d "
               f"{k_b['library_ms']:.4f} ms  bound {k_b['bound_ms']:.4f} ms ({k_b['bound_by']})",
               flush=True)
         del yk2, sk2, yp, sp, err_y
-    dy = (torch.randn(n, 64, h2, w2, generator=g, device=dev) * 1e-2).to(bf16)
-    ds = torch.randn(2, 64, generator=g, device=dev) * 1e-3
-    dwk = stem.stem_dw_cuda(x, dy, yk, ds, 7)
-    dwk2 = stem.stem_dw_cuda(x, dy, yk, ds, 7)
-    torch.cuda.synchronize()
-    check(torch.equal(dwk, dwk2), "C: two launches on the same inputs differ")
-    dwp = stem.stem_dw_plain(x, dy, yk, ds, 7).permute(2, 3, 1, 0)
-    err_w = (dwk - dwp).abs().max().item()
-    check(err_w <= 1e-3 * dwp.abs().max().item(),
-          f"C: dW differs by {err_w} (tolerance 1e-3 of max|dW|={dwp.abs().max().item()})")
-    dY_bf = stem.fold_stats_cotangent(dy, yk, ds)
-    k_c = {
-        "ms": time_ms(lambda: stem.stem_dw_cuda(x, dy, yk, ds, 7)),
-        "plain_ms": time_ms(lambda: stem.stem_dw_plain(x, dy, yk, ds, 7)),
-        # the weight gradient alone: the stats fold is not part of the call
-        "library_ms": time_ms(lambda: torch.nn.grad.conv2d_weight(
-            x_nchw, (64, 3, 7, 7), dY_bf, stride=2, padding=3)),
-    }
-    nbytes = x.numel() * 2 + dy.numel() * 2 + yk.numel() * 2 + ds.numel() * 4 + dwk.numel() * 4
-    k_c["bound_ms"], k_c["bound_by"] = bound(nbytes, flops_px * n * h2 * w2, bf16_peak)
-    k_c["max_abs_err"] = err_w
-    rows["C N16"] = k_c
-    print(f"[kernel C stem_dw] N={n} {h}x{w_}: max|ddW|={err_w:.3g} (max|dW| "
-          f"{dwp.abs().max().item():.3g}), two launches bit-equal  kernel {k_c['ms']:.4f} ms  "
-          f"plain {k_c['plain_ms']:.3f} ms  conv2d_weight {k_c['library_ms']:.4f} ms  bound "
-          f"{k_c['bound_ms']:.4f} ms ({k_c['bound_by']})", flush=True)
+        if not with_c:
+            continue
+        dy = (torch.randn(n, 64, h2, w2, generator=g, device=dev) * 1e-2).to(bf16)
+        ds = torch.randn(2, 64, generator=g, device=dev) * 1e-3
+        dwk = stem.stem_dw_cuda(x, dy, yk, ds, 7)
+        dwk2 = stem.stem_dw_cuda(x, dy, yk, ds, 7)
+        torch.cuda.synchronize()
+        check(torch.equal(dwk, dwk2), f"C N={n} {h}^2: two launches on the same inputs differ")
+        dwp = stem.stem_dw_plain(x, dy, yk, ds, 7).permute(2, 3, 1, 0)
+        err_w = (dwk - dwp).abs().max().item()
+        check(err_w <= 1e-3 * dwp.abs().max().item(),
+              f"C N={n} {h}^2: dW differs by {err_w} (tolerance 1e-3 of max|dW|="
+              f"{dwp.abs().max().item()})")
+        dY_bf = stem.fold_stats_cotangent(dy, yk, ds)
+        k_c = {
+            "shape": [n, h, w_, 3],
+            "ms": time_ms(lambda: stem.stem_dw_cuda(x, dy, yk, ds, 7)),
+            "plain_ms": time_ms(lambda: stem.stem_dw_plain(x, dy, yk, ds, 7)),
+            # the weight gradient alone: the stats fold is not part of the call
+            "library_ms": time_ms(lambda: torch.nn.grad.conv2d_weight(
+                x_nchw, (64, 3, 7, 7), dY_bf, stride=2, padding=3)),
+        }
+        nbytes = x.numel() * 2 + dy.numel() * 2 + yk.numel() * 2 + ds.numel() * 4 \
+            + dwk.numel() * 4
+        k_c["bound_ms"], k_c["bound_by"] = bound(nbytes, flops_px * n * h2 * w2, bf16_peak)
+        k_c["max_abs_err"] = err_w
+        rows[f"C N{n} {h}^2"] = k_c
+        print(f"[kernel C stem_dw] N={n} {h}x{w_}: max|ddW|={err_w:.3g} (max|dW| "
+              f"{dwp.abs().max().item():.3g}), two launches bit-equal  kernel "
+              f"{k_c['ms']:.4f} ms  plain {k_c['plain_ms']:.3f} ms  conv2d_weight "
+              f"{k_c['library_ms']:.4f} ms  bound {k_c['bound_ms']:.4f} ms ({k_c['bound_by']})",
+              flush=True)
+        del dy, dwk, dwk2, dwp
     return rows
 
 
@@ -1231,6 +1298,112 @@ def eval_reference_phase(torch, dev) -> dict:
     return out
 
 
+# card (bf16, kernels B and C) against the CPU (bf16, plain versions): the
+# step's losses (max relative distance) and its update of every parameter
+# as one vector (relative distance).  Fixed at 2x the largest of the card's
+# reading and the CPU's own bf16-vs-f32 readings, on the card's machine and
+# on a development CPU (NVIDIA H100 80GB HBM3, 700.00 W): supervised losses
+# 1.07e-4 / 1.09e-4 / 2.06e-4, update 0.085 / 0.100 / 0.099; Mean Teacher
+# losses 2.5e-3 / 7.7e-3 / 6.9e-3, update 0.095 / 0.125 / 0.124
+STEP_REF_LIMITS = {"supervised_unet_r18": {"loss": 4.2e-4, "update": 0.20},
+                   "mean_teacher_unet_r18": {"loss": 0.016, "update": 0.25}}
+
+
+def unet_step_run(torch, name: str, where, dtype: str) -> dict:
+    """One step of config 1's supervised method or config 2's Mean Teacher
+    (:data:`STEP_REF_LIMITS` names) on U-Net/R18 at 128^2, 2 (+ 2) images,
+    ``model.stem_impl=pallas``, in ``dtype`` on ``where``: the same seeded,
+    conditioned weights (:func:`_conditioned_model`), smooth colour images
+    and draws every time.  Returns the step's losses (computed before its
+    update), its update of every parameter and the stem kernels' launches."""
+    import numpy as np
+
+    from semi_supervised_semantic_segmentation_tpu_torch.config import load_config
+    from semi_supervised_semantic_segmentation_tpu_torch.methods import common, get_method
+    from semi_supervised_semantic_segmentation_tpu_torch.models import build_model
+    from semi_supervised_semantic_segmentation_tpu_torch.ops import stem
+
+    path = CONFIG1 if name.startswith("supervised") else CONFIG2
+    over = {"data.dataset": "synthetic", "data.crop_size": 128, "model.stem_impl": "pallas",
+            "train.labeled_batch_size": 2, "train.unlabeled_batch_size": 2,
+            "method.rampup_iters": 0}
+    cfg = load_config(path, {**over, "model.compute_dtype": dtype})
+    cfg32 = load_config(path, {**over, "model.compute_dtype": "float32"})
+    rng = np.random.RandomState(7)
+    lab = {"image": _blob_images(torch, rng, 2, 128, 128).numpy(),
+           "label": rng.randint(0, cfg.data.num_classes, (2, 128, 128)).astype(np.int32),
+           "size": np.full((2, 2), 128, np.int32)}
+    unlab = {"image": _blob_images(torch, rng, 2, 128, 128).numpy(),
+             "label": np.full((2, 128, 128), 255, np.int32), "size": lab["size"]}
+    method = get_method(cfg.method.name)
+    g = common.step_generator(1, 0, "cpu")
+    lab_c, unlab_c = common.to_device(lab, "cpu"), common.to_device(unlab, "cpu")
+    draws = (method.draw(cfg, lab_c, unlab_c, g) if method.uses_unlabeled
+             else method.draw(cfg, lab_c, g))
+    draws.dropout = None  # U-Net has no dropout
+    model = build_model(cfg, seed=5)
+    model.load_state_dict(_conditioned_model(torch, cfg32, seed=5).state_dict())
+    model = model.to(where)
+    state = method.init_state(cfg, model, 10)
+    before = {k: p.detach().float().cpu().clone() for k, p in model.named_parameters()}
+    b0, c0 = stem.stem_fwd_cuda.launches, stem.stem_dw_cuda.launches
+    m = method.make_train_step(cfg, 10)(
+        state, common.to_device(lab, where),
+        common.to_device(unlab, where) if method.uses_unlabeled else None, _to(draws, where))
+    cols = ("loss", "sup_loss", "unsup_loss") if method.uses_unlabeled else ("loss",)
+    return {"losses": np.array([float(m[k]) for k in cols]),
+            "update": {k: p.detach().float().cpu() - before[k]
+                       for k, p in model.named_parameters()},
+            "launches": (stem.stem_fwd_cuda.launches - b0, stem.stem_dw_cuda.launches - c0)}
+
+
+def unet_step_reference(torch, dev) -> dict:
+    """(g) one supervised U-Net/R18 step (config 1) and (h) one Mean-Teacher
+    step (config 2) at 128^2 (:func:`unet_step_run`) on the card (kernels B
+    and C) against the CPU (their plain versions), in bf16, and the CPU's
+    own bf16-vs-f32 distance beside: losses within ``loss`` (relative), the
+    update as one vector within ``update`` (relative) of
+    :data:`STEP_REF_LIMITS`; B launched once per forward, C once."""
+    import numpy as np
+
+    def vec_rel(a, b):
+        num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
+        return math.sqrt(num / sum(float((b[k] ** 2).sum()) for k in b))
+
+    def loss_rel(a, b):
+        return float((np.abs(a - b) / np.maximum(np.abs(b), 1e-3)).max())
+
+    out = {}
+    for name, lim in STEP_REF_LIMITS.items():
+        card = unet_step_run(torch, name, dev, "bfloat16")
+        cpu = unet_step_run(torch, name, "cpu", "bfloat16")
+        f32 = unet_step_run(torch, name, "cpu", "float32")
+        r = {"losses_card": card["losses"].tolist(), "losses_cpu": cpu["losses"].tolist(),
+             "loss_rel": loss_rel(card["losses"], cpu["losses"]),
+             "update_rel": vec_rel(card["update"], cpu["update"]),
+             "cpu_bf16_vs_f32": {"loss_rel": loss_rel(cpu["losses"], f32["losses"]),
+                                 "update_rel": vec_rel(cpu["update"], f32["update"])},
+             "limits": lim, "launches": card["launches"]}
+        want = (2, 1) if name.startswith("mean_teacher") else (1, 1)  # teacher + student
+        check(bool(np.all(np.isfinite(card["losses"]))),
+              f"reference {name}: non-finite losses on the card {r['losses_card']}")
+        check(r["loss_rel"] <= lim["loss"], f"reference {name}: losses card "
+              f"{r['losses_card']} vs cpu {r['losses_cpu']} ({r['loss_rel']:.4g}, limit "
+              f"{lim['loss']})")
+        check(r["update_rel"] <= lim["update"], f"reference {name}: the update differs by "
+              f"{r['update_rel']:.4g} as one vector (limit {lim['update']})")
+        check(tuple(card["launches"]) == want, f"reference {name}: (B, C) launched "
+              f"{card['launches']} times, expected {want}")
+        print(f"[reference] {name} step at 128^2, bf16, stem_impl=pallas: losses card "
+              f"{r['losses_card']} cpu {r['losses_cpu']}, max rel {r['loss_rel']:.4g} (limit "
+              f"{lim['loss']}); update as one vector {r['update_rel']:.4g} (limit "
+              f"{lim['update']}); CPU bf16 vs f32: losses {r['cpu_bf16_vs_f32']['loss_rel']:.4g}"
+              f", update {r['cpu_bf16_vs_f32']['update_rel']:.4g}; (B, C) launches on the "
+              f"card {card['launches']}", flush=True)
+        out[name] = r
+    return out
+
+
 def checkpoint_round_trip(torch, trainer, cfg) -> dict:
     """Config 3's trained state -> ``export_reference_checkpoint`` -> a
     fresh model through the eval entry point's loader (``eval.load_state``)
@@ -1267,6 +1440,149 @@ def checkpoint_round_trip(torch, trainer, cfg) -> dict:
             "pixels": int(cm_a.sum())}
 
 
+def val_stem_launches(cfg) -> int:
+    """Kernel B's launches in one val pass of the fused whole-image path:
+    one per view (the image, its mirror with ``eval_flip``) per scale per
+    batch of the synthetic val set."""
+    check(cfg.data.eval_mode == "whole", f"val_stem_launches: {cfg.data.eval_mode} mode")
+    n_val = max(cfg.data.synthetic_size // 2, 8)
+    views = 2 if cfg.data.eval_flip else 1
+    return math.ceil(n_val / cfg.train.eval_batch_size) * views * len(cfg.data.eval_scales)
+
+
+def trace_summary(path: str, nsteps: int) -> dict:
+    """Per-step numbers of a ``torch.profiler`` Chrome trace: its wall span;
+    host ops (``cpu_op``): their count and the time covered by the
+    outermost ones (nested ops counted once); CUDA runtime calls and
+    kernels: count and summed duration."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") != "Trace"]
+    out = {}
+    for cat in ("cpu_op", "cuda_runtime", "kernel"):
+        evs = sorted((e for e in events if e.get("cat") == cat),
+                     key=lambda e: (e.get("tid", 0), e["ts"]))
+        ms, end, tid = 0.0, -1.0, None
+        for e in evs:
+            if cat != "cpu_op" or e.get("tid") != tid or e["ts"] >= end:
+                ms += e.get("dur", 0.0) / 1e3
+                tid, end = e.get("tid"), e["ts"] + e.get("dur", 0.0)
+        out[cat] = {"count": len(evs) / nsteps, "ms": ms / nsteps}
+    span = (max(e["ts"] + e.get("dur", 0.0) for e in events)
+            - min(e["ts"] for e in events)) / 1e3 if events else 0.0
+    return {"wall_ms_per_step": span / nsteps, "per_step": out}
+
+
+def profile_trace_check(torch, trainer, cfg) -> dict:
+    """``train.profile_steps``: the trainer's own trace of steps 2 .. 2 + n
+    exists under ``<work_dir>/profile``; its path, size and per-step
+    summary."""
+    out = os.path.join(cfg.train.work_dir, "profile")
+    names = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    check(len(names) == 1, f"profile_steps: expected one trace in {out}, found {names}")
+    if not names:
+        return {}
+    path = os.path.join(out, names[0])
+    mb = os.path.getsize(path) / 1e6
+    check(mb > 0, f"profile_steps: {path} is empty")
+    summary = trace_summary(path, cfg.train.profile_steps + 1)
+    print(f"[slice] config 1 train.profile_steps={cfg.train.profile_steps}: trace {path} "
+          f"({mb:.2f} MB); per step {summary['wall_ms_per_step']:.2f} ms wall, "
+          f"{ {k: (round(v['count']), round(v['ms'], 3)) for k, v in summary['per_step'].items()} }"
+          f" (events, ms)", flush=True)
+    return {"path": path, "mb": mb, **summary}
+
+
+def resume_on_card(torch, trainer, cfg) -> dict:
+    """Config 2: ``fit`` left one rolling slot (``checkpoint_interval`` 1)
+    and one best slot.  A second Trainer with ``train.resume=auto`` and
+    ``train.epochs=2`` restores the rolling slot -- model, teacher,
+    momentum and step bit-equal to the trained state, ``start_epoch`` 1 --
+    and trains epoch 1 with finite losses; the eval entry point's loader
+    reads the ``checkpoints`` directory (before the second run adds its
+    slot) and gives the trained state's confusion matrix, whose mIoU is the
+    ``val`` record's."""
+    import numpy as np
+
+    from semi_supervised_semantic_segmentation_tpu_torch import eval as port_eval
+    from semi_supervised_semantic_segmentation_tpu_torch.config import update_config
+    from semi_supervised_semantic_segmentation_tpu_torch.engine import compat, evaluator
+    from semi_supervised_semantic_segmentation_tpu_torch.engine.checkpoint import (
+        CheckpointManager)
+    from semi_supervised_semantic_segmentation_tpu_torch.engine.trainer import Trainer
+    from semi_supervised_semantic_segmentation_tpu_torch.ops.metrics import iou_from_confusion
+
+    work = cfg.train.work_dir
+    rolling = CheckpointManager(os.path.join(work, "checkpoints")).steps()
+    best = CheckpointManager(os.path.join(work, "checkpoints_best")).steps()
+    check(rolling == [trainer.state.step], f"config 2: rolling slots {rolling}, expected "
+          f"[{trainer.state.step}]")
+    check(len(best) == 1, f"config 2: checkpoints_best holds {best}, expected one slot")
+    slot_mb = sum(os.path.getsize(os.path.join(work, "checkpoints", str(rolling[-1]), n))
+                  for n in os.listdir(os.path.join(work, "checkpoints", str(rolling[-1])))) / 1e6
+
+    def tensors(state):
+        out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+        out.update({f"ema.{k}": v for k, v in state.ema_model.state_dict().items()})
+        out.update({f"momentum.{k}": v for k, v in compat._named_buffers(state).items()})
+        return out
+
+    loader = evaluator.val_loader(cfg)
+    step = evaluator.make_evaluator(cfg)
+    try:
+        cm_a = evaluator.eval_confusion(step, evaluator.inference_model(trainer.state,
+                                                                        trainer.method),
+                                        loader, trainer.device)
+        state, method, meta = port_eval.load_state(cfg, os.path.join(work, "checkpoints"),
+                                                   trainer.device)
+        cm_b = evaluator.eval_confusion(step, evaluator.inference_model(state, method), loader,
+                                        trainer.device)
+    finally:
+        loader.close()
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        val = [json.loads(line)["val"] for line in f if '"val"' in line]
+    miou = float(iou_from_confusion(cm_a)[1])
+    check(np.array_equal(cm_a, cm_b), "config 2: the checkpoint directory's confusion matrix "
+          "differs from the trained state's")
+    check(bool(val) and val[0]["miou"] == miou, f"config 2: the val record's mIoU "
+          f"{val[0]['miou'] if val else None} is not the trained state's {miou}")
+    t0 = time.time()
+    second = Trainer(update_config(cfg, {"train.resume": "auto", "train.epochs": 2}))
+    restore_s = time.time() - t0
+    want, got = tensors(trainer.state), tensors(second.state)
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    check(not differ and set(want) == set(got), f"config 2 resume: tensors differ {differ[:5]}")
+    check(second.state.step == trainer.state.step and second.start_epoch == 1,
+          f"config 2 resume: step {second.state.step} (saved {trainer.state.step}), "
+          f"start_epoch {second.start_epoch}")
+    losses = []
+    inner = second.train_step
+
+    def record(state, lab, unlab):
+        m = inner(state, lab, unlab)
+        losses.append(float(m["loss"]))
+        return m
+
+    second.train_step = record
+    second.fit()
+    check(len(losses) == second.iters_per_epoch and all(math.isfinite(v) for v in losses),
+          f"config 2 resume: epoch 1 losses {losses}")
+
+    print(f"[slice] config 2 resume on the card: rolling slot {rolling} ({slot_mb:.1f} MB), "
+          f"best slot {best}; a Trainer with train.resume=auto restored model, teacher, "
+          f"momentum and step {trainer.state.step} bit-equal "
+          f"{not differ} in {restore_s:.2f} s (its construction), start_epoch "
+          f"{second.start_epoch}; epoch 1 losses {[round(v, 4) for v in losses]}; the eval "
+          f"entry point's loader on checkpoints/: confusion matrix equal "
+          f"{np.array_equal(cm_a, cm_b)} over {int(cm_a.sum())} pixels, mIoU {miou:.4f} = the "
+          f"val record's", flush=True)
+    start_epoch = second.start_epoch
+    del second, state
+    return {"rolling": rolling, "best": best, "slot_mb": slot_mb, "bit_equal": not differ,
+            "start_epoch": start_epoch, "epoch1_losses": losses, "cm_equal": bool(np.array_equal(cm_a, cm_b)),
+            "miou": miou, "trainer_construction_s": restore_s}
+
+
 def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: dict,
                 expected: dict, steps: int, eval_expected: dict, after_fit=None):
     """One config through the Trainer on synthetic data for ``steps`` steps.
@@ -1293,11 +1609,13 @@ def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: 
     gc.collect()
     torch.cuda.empty_cache()
     held_gb = torch.cuda.memory_allocated() / 1e9
+    # the work directory (metrics, checkpoints: 0.5-0.8 GB a slot for
+    # configs 3 and 5) stays in the git-ignored build tree, and starts empty
+    work_dir = os.path.join(REPO, "build", f"chip_smoke_{label.replace(' ', '')}")
+    shutil.rmtree(work_dir, ignore_errors=True)
     cfg = load_config(config_path, {
         "data.dataset": "synthetic", "data.num_workers": 8, "train.iters_per_epoch": steps,
-        "train.epochs": 1, "train.log_interval": 1,
-        "train.work_dir": os.path.join(OUT_DIR, f"chip_smoke_{label.replace(' ', '')}"),
-        **overrides,
+        "train.epochs": 1, "train.log_interval": 1, "train.work_dir": work_dir, **overrides,
     })
     trainer = Trainer(cfg)  # default device: CUDA
     inner = trainer.train_step
@@ -1379,9 +1697,12 @@ def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: 
     peak_gb = ev.get("train_peak_gb", torch.cuda.max_memory_allocated() / 1e9)
     timed = times[warm:steps - profiled]
     ms = statistics.median(timed) * 1e3
-    imgs = cfg.train.labeled_batch_size + cfg.train.unlabeled_batch_size
+    imgs = cfg.train.labeled_batch_size + (cfg.train.unlabeled_batch_size
+                                            if trainer.method.uses_unlabeled else 0)
+    batch = (f"{cfg.train.labeled_batch_size}+{cfg.train.unlabeled_batch_size}"
+             if trainer.method.uses_unlabeled else f"{cfg.train.labeled_batch_size}")
     print(f"[slice] {label} synthetic, {cfg.model.backbone}+{cfg.model.decoder}, "
-          f"{cfg.train.labeled_batch_size}+{cfg.train.unlabeled_batch_size} at "
+          f"{cfg.method.name}, {batch} at "
           f"{cfg.data.crop_size}^2, {steps} steps: losses {[round(v, 4) for v in losses]}; "
           f"launches per step {per_step[-1]}; {ms:.1f} ms/step (median of steps "
           f"{warm + 1}-{steps - profiled}) = {imgs / ms * 1e3:.2f} img/s; peak memory "

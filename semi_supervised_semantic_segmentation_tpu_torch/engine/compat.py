@@ -12,9 +12,11 @@ port model.
 
 Reference-layout checkpoint files: ``export_reference_checkpoint`` writes
 ``torch.save({'model', 'ema_model', 'optimizer', 'epoch', 'best_miou',
-'step'})`` with the optimizer in torch's ``state_dict()`` layout (two
-param groups per net, backbone and head at ``lr * head_lr_mult``, the
-momentum buffers indexed in the reference's parameter order);
+'step'})`` (:func:`reference_checkpoint`, which the port's checkpoint
+manager also writes into its slots) with the optimizer in torch's
+``state_dict()`` layout (two param groups per net, backbone and head at
+``lr * head_lr_mult``, the momentum buffers indexed in the reference's
+parameter order);
 ``import_reference_checkpoint`` reads such a file back (a file without
 ``optimizer`` restarts momentum).  ``load_pretrained_encoder`` maps a
 torchvision ResNet or an official HRNet state dict onto the encoder.
@@ -286,11 +288,11 @@ def _named_buffers(state) -> Dict[str, torch.Tensor]:
     return {n: by_id[id(p)] for n, p in state.model.named_parameters()}
 
 
-def export_optimizer_state(state, cfg) -> Dict[str, Any]:
+def export_optimizer_state(state, optim) -> Dict[str, Any]:
     """The reference's ``state_dict(opt)``: ``{'state': {idx:
     {'momentum_buffer'}}, 'param_groups': [backbone, head]}``, indexed in
     :func:`reference_param_order`, with the group lrs at ``optim.lr`` and
-    ``optim.lr * head_lr_mult``."""
+    ``optim.lr * head_lr_mult`` (``optim``: the run's ``cfg.optim``)."""
     from semi_supervised_semantic_segmentation_tpu_torch.engine.state import is_head
 
     bufs = _named_buffers(state)
@@ -298,11 +300,11 @@ def export_optimizer_state(state, cfg) -> Dict[str, Any]:
     for idx, name in enumerate(reference_param_order(state.model)):
         out[idx] = {"momentum_buffer": bufs[name].detach().float().cpu().clone()}
         groups["head" if is_head(name) else "backbone"].append(idx)
-    o = cfg.optim
     param_groups = [{
-        "params": groups[g], "lr": float(o.lr) * mult, "momentum": float(o.momentum),
-        "weight_decay": float(o.weight_decay), "nesterov": bool(o.nesterov), "dampening": 0.0,
-    } for g, mult in (("backbone", 1.0), ("head", float(o.head_lr_mult)))]
+        "params": groups[g], "lr": float(optim.lr) * mult, "momentum": float(optim.momentum),
+        "weight_decay": float(optim.weight_decay), "nesterov": bool(optim.nesterov),
+        "dampening": 0.0,
+    } for g, mult in (("backbone", 1.0), ("head", float(optim.head_lr_mult)))]
     return {"state": out, "param_groups": param_groups}
 
 
@@ -336,9 +338,10 @@ def _cpu_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     return {k: v.detach().float().cpu().clone() for k, v in model.state_dict().items()}
 
 
-def export_reference_checkpoint(path: str, state, meta: dict, cfg) -> None:
-    """Write ``{'model', 'ema_model', 'optimizer', 'epoch', 'best_miou',
-    'step'}`` with ``torch.save``; the optimizer's groups from ``cfg.optim``."""
+def reference_checkpoint(state, meta: dict, optim) -> Dict[str, Any]:
+    """``{'model', 'ema_model', 'optimizer', 'epoch', 'best_miou', 'step'}``
+    as CPU copies of the state (the optimizer's groups from ``optim``, the
+    run's ``cfg.optim``)."""
     out: Dict[str, Any] = {
         "epoch": int(meta.get("epoch", 0)),
         "best_miou": float(meta.get("best_miou", 0.0)),
@@ -347,22 +350,33 @@ def export_reference_checkpoint(path: str, state, meta: dict, cfg) -> None:
     }
     if state.ema_model is not None:
         out["ema_model"] = _cpu_state_dict(state.ema_model)
-    out["optimizer"] = export_optimizer_state(state, cfg)
-    torch.save(out, path)
+    out["optimizer"] = export_optimizer_state(state, optim)
+    return out
 
 
-def import_reference_checkpoint(path: str, state):
-    """Read a reference-layout checkpoint into ``state`` in place: the
+def export_reference_checkpoint(path: str, state, meta: dict, cfg) -> None:
+    """Write :func:`reference_checkpoint` with ``torch.save``."""
+    torch.save(reference_checkpoint(state, meta, cfg.optim), path)
+
+
+def load_reference_checkpoint(obj: Dict[str, Any], state) -> None:
+    """Load a reference-layout checkpoint dict into ``state`` in place: the
     model, the EMA teacher when both sides have one, the step and, when the
-    file has ``optimizer``, the momentum buffers (else momentum restarts).
-    Returns the file's ``{'epoch', 'best_miou'}``."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    if not isinstance(obj, dict) or "model" not in obj:
-        raise ValueError(f"{path}: not a reference-layout checkpoint (no 'model' entry)")
+    dict has ``optimizer``, the momentum buffers (else momentum restarts)."""
     load_flat(state.model, obj["model"])
     if "ema_model" in obj and state.ema_model is not None:
         load_flat(state.ema_model, obj["ema_model"])
     state.step = int(obj.get("step", 0))
     if "optimizer" in obj:
         import_optimizer_state(obj["optimizer"], state)
+
+
+def import_reference_checkpoint(path: str, state):
+    """Read a reference-layout checkpoint file into ``state`` in place
+    (:func:`load_reference_checkpoint`).  Returns the file's ``{'epoch',
+    'best_miou'}``."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(obj, dict) or "model" not in obj:
+        raise ValueError(f"{path}: not a reference-layout checkpoint (no 'model' entry)")
+    load_reference_checkpoint(obj, state)
     return {"epoch": int(obj.get("epoch", 0)), "best_miou": float(obj.get("best_miou", 0.0))}

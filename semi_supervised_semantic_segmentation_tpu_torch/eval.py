@@ -9,9 +9,10 @@ Usage:
   ... --device cpu            (explicit CPU run; the default is CUDA, which must exist)
 
 ``--checkpoint`` reads a reference-layout ``torch.save`` file (.pth / .pt),
-as the JAX package's ``eval.py --export_torch`` writes it.  The JAX
-package's own checkpoint directories (``dir`` or ``dir:step``) are not read
-here: the port's checkpoint manager is ROADMAP.md Queue 1 item 3.
+as the JAX package's ``eval.py --export_torch`` writes it, or a directory
+of the port's checkpoint manager (``<work_dir>/checkpoints``, its latest
+slot) or ``dir:step``.  An Orbax directory of the JAX package crosses over
+as a file written by its ``eval.py --export_torch``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,10 @@ from semi_supervised_semantic_segmentation_tpu_torch.config import (
     parse_overrides,
 )
 from semi_supervised_semantic_segmentation_tpu_torch.engine import compat
+from semi_supervised_semantic_segmentation_tpu_torch.engine.checkpoint import (
+    CheckpointManager,
+    parse_checkpoint_arg,
+)
 from semi_supervised_semantic_segmentation_tpu_torch.engine.evaluator import (
     inference_model,
     make_evaluator,
@@ -43,28 +48,29 @@ from semi_supervised_semantic_segmentation_tpu_torch.ops.metrics import (
 
 
 def load_state(cfg: Config, checkpoint: str, device):
-    """A fresh train state of ``cfg`` on ``device`` with the reference-layout
-    checkpoint file loaded into it -> (state, method module, file meta)."""
-    if not checkpoint.endswith((".pth", ".pt")):
-        raise ValueError(
-            f"--checkpoint {checkpoint!r}: the port reads reference-layout .pth/.pt files; a "
-            "checkpoint directory (or dir:step) is the JAX package's own format, which the "
-            "port's checkpoint manager (ROADMAP.md Queue 1 item 3) will read.  Convert it "
-            "with the JAX package's eval.py --export_torch OUT.pth")
-    if not os.path.isfile(checkpoint):
-        raise FileNotFoundError(checkpoint)
+    """A fresh train state of ``cfg`` on ``device`` with the checkpoint
+    loaded into it -> (state, method module, meta).  ``checkpoint``: a
+    reference-layout file, or a checkpoint directory (its latest slot) or
+    ``dir:step``."""
     method = get_method(cfg.method.name)
     model = build_model(cfg).to(device)
     state = method.init_state(cfg, model, max(cfg.train.epochs, 1))
-    meta = compat.import_reference_checkpoint(checkpoint, state)
-    return state, method, meta
+    if checkpoint.endswith((".pth", ".pt")):
+        if not os.path.isfile(checkpoint):
+            raise FileNotFoundError(checkpoint)
+        return state, method, compat.import_reference_checkpoint(checkpoint, state)
+    directory, step = parse_checkpoint_arg(checkpoint)
+    if not os.path.isdir(directory):
+        raise FileNotFoundError(directory)
+    return state, method, CheckpointManager(directory).restore(state, step)
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", required=True)
-    p.add_argument("--checkpoint", required=True, help="reference-layout checkpoint (.pth)")
+    p.add_argument("--checkpoint", required=True,
+                   help="reference-layout checkpoint (.pth), or a checkpoint directory or dir:step")
     p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE")
     p.add_argument("--device", default=None, help="cuda (default) | cpu | cuda:N")
     p.add_argument("--save_preds", default=None, metavar="DIR",

@@ -1,16 +1,19 @@
-"""Shared plumbing of the SSL methods (counterpart of ``methods/common.py``):
+"""Shared plumbing of the methods (counterpart of ``methods/common.py``):
 the per-step generator, batch transfer, the weak / strong views and the
-normalization, each taking its sampled parameters explicitly, and the
-supervised loss that ``method.sup_loss`` selects."""
+normalization, each taking its sampled parameters explicitly, the
+supervised loss that ``method.sup_loss`` selects, and the train state with
+an EMA teacher."""
 
 from __future__ import annotations
 
+import copy
 from typing import Dict
 
 import numpy as np
 import torch
 
 from semi_supervised_semantic_segmentation_tpu_torch.config import Config
+from semi_supervised_semantic_segmentation_tpu_torch.engine.state import SGD, TrainState
 from semi_supervised_semantic_segmentation_tpu_torch.ops import augment, losses
 
 Batch = Dict[str, torch.Tensor]
@@ -75,3 +78,11 @@ def sup_loss_fn(cfg: Config):
         return lambda logits, labels: losses.ohem_cross_entropy(
             logits, labels, ignore, m.ohem_thresh, m.ohem_min_kept)
     return lambda logits, labels: losses.cross_entropy(logits, labels, ignore)
+
+
+def state_with_teacher(cfg: Config, model: torch.nn.Module, total_steps: int) -> TrainState:
+    """SGD on ``model`` and an EMA teacher: a frozen copy in eval mode."""
+    teacher = copy.deepcopy(model).eval()
+    for p in teacher.parameters():
+        p.requires_grad_(False)
+    return TrainState(model=model, optimizer=SGD(cfg, model, total_steps), ema_model=teacher)

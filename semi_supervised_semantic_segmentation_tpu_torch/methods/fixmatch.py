@@ -17,14 +17,13 @@ dropout mask.
 
 from __future__ import annotations
 
-import copy
 from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
 
 from semi_supervised_semantic_segmentation_tpu_torch.config import Config
-from semi_supervised_semantic_segmentation_tpu_torch.engine.state import SGD, TrainState, ema_update
+from semi_supervised_semantic_segmentation_tpu_torch.engine.state import TrainState, ema_update
 from semi_supervised_semantic_segmentation_tpu_torch.methods import common
 from semi_supervised_semantic_segmentation_tpu_torch.ops import augment, losses
 from semi_supervised_semantic_segmentation_tpu_torch.ops.cutmix_normalize import cutmix_normalize
@@ -59,10 +58,7 @@ def draw(cfg: Config, labeled: common.Batch, unlabeled: common.Batch,
 
 
 def init_state(cfg: Config, model: torch.nn.Module, total_steps: int) -> TrainState:
-    teacher = copy.deepcopy(model).eval()
-    for p in teacher.parameters():
-        p.requires_grad_(False)
-    return TrainState(model=model, optimizer=SGD(cfg, model, total_steps), ema_model=teacher)
+    return common.state_with_teacher(cfg, model, total_steps)
 
 
 def make_train_step(cfg: Config, total_steps: int):

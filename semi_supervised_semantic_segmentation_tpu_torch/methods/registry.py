@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from types import ModuleType
 
-_PORTED = {"fixmatch_cutmix"}
+_PORTED = ("supervised", "mean_teacher", "fixmatch_cutmix")
 _ALL = ("supervised", "mean_teacher", "fixmatch_cutmix", "cps")
 
 
@@ -13,7 +13,12 @@ def get_method(name: str) -> ModuleType:
         raise ValueError(f"unknown method {name!r}; valid: {list(_ALL)}")
     if name not in _PORTED:
         raise NotImplementedError(
-            f"method {name!r} is not yet ported (ROADMAP.md Queue 1); ported: {sorted(_PORTED)}")
-    from semi_supervised_semantic_segmentation_tpu_torch.methods import fixmatch
+            f"method {name!r} is not yet ported (ROADMAP.md Queue 1); ported: {list(_PORTED)}")
+    from semi_supervised_semantic_segmentation_tpu_torch.methods import (
+        fixmatch,
+        mean_teacher,
+        supervised,
+    )
 
-    return fixmatch
+    return {"supervised": supervised, "mean_teacher": mean_teacher,
+            "fixmatch_cutmix": fixmatch}[name]

@@ -60,7 +60,7 @@ class HRModule(nn.Module):
         n = len(self.channels)
         for i, c in enumerate(self.channels):
             for b in range(num_blocks):
-                setattr(self, f"branch{i}_block{b}", BasicBlock(c, **kw))
+                setattr(self, f"branch{i}_block{b}", BasicBlock(c, c, **kw))
         for i in range(n):
             for j in range(n):
                 if j > i:

@@ -1,10 +1,10 @@
 """Model registry: (backbone, decoder) -> ``SegModel``.
 
 Counterpart of the reference's ``models/registry.py`` for the backbones
-ResNet-50 and HRNet-W48 and the decoders DeepLabV3+ and the HRNetV2 head;
-the others (ResNet-18/101, U-Net) raise until their slice is ported
-(ROADMAP.md Queue 1).  ``model.hrnet_width`` / ``model.hrnet_modules``
-(default 48 and (1, 4, 3), the reference's fixed W48) size the HRNet.
+ResNet-18, ResNet-50 and HRNet-W48 and the decoders DeepLabV3+, U-Net and
+the HRNetV2 head; ResNet-101 raises until its slice is ported (ROADMAP.md
+Queue 1 item 7).  ``model.hrnet_width`` / ``model.hrnet_modules`` (default
+48 and (1, 4, 3), the reference's fixed W48) size the HRNet.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from semi_supervised_semantic_segmentation_tpu_torch.engine import compat
 from semi_supervised_semantic_segmentation_tpu_torch.models.deeplab import DeepLabV3Plus
 from semi_supervised_semantic_segmentation_tpu_torch.models.hrnet import HRNet, HRNetV2Head
 from semi_supervised_semantic_segmentation_tpu_torch.models.resnet import ResNet
+from semi_supervised_semantic_segmentation_tpu_torch.models.unet import UNetDecoder
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -51,12 +52,12 @@ class SegModel(nn.Module):
         super().__init__()
         self.compute_dtype = compute_dtype
         kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype)
-        if backbone == "resnet50":
+        if backbone in ("resnet18", "resnet50"):
             if remat not in ("", "none"):
                 raise NotImplementedError(f"model.remat={remat!r} is not yet ported for ResNet")
             self.encoder = ResNet(backbone, output_stride if decoder == "deeplabv3plus" else 32,
                                   stem_impl=stem_impl, **kw)
-            chans = (256, 512, 1024, 2048)
+            chans = self.encoder.feature_channels[1:]
         elif backbone == "hrnet_w48":
             # 's2d' and 'pallas' stems are the reference's TPU formulations
             # of the same 3x3 convs; 'branches' plans checkpoint only blocks
@@ -73,6 +74,10 @@ class SegModel(nn.Module):
                                          features=decoder_channels, dilations=rates, **kw)
         elif decoder == "hrnet_head":
             self.decoder = HRNetV2Head(num_classes, chans, fuse_order=head_fuse, **kw)
+        elif decoder == "unet":
+            if not backbone.startswith("resnet"):
+                raise ValueError(f"decoder 'unet' takes the ResNet taps c1..c5, not {backbone!r}")
+            self.decoder = UNetDecoder(num_classes, self.encoder.feature_channels, **kw)
         else:
             raise NotImplementedError(f"decoder {decoder!r} is not yet ported")
 

@@ -1,5 +1,5 @@
-"""ResNet-50 encoder (torchvision v1.5 bottlenecks, dilated for DeepLab)
-and the BasicBlock of HRNet's branches.
+"""ResNet-18/50 encoders (torchvision v1.5, dilated for DeepLab); the
+BasicBlock also builds HRNet's branches.
 
 Counterpart of the reference's ``models/resnet.py``: stride on the 3x3
 conv of the bottleneck; output stride 16 moves layer4's stride into
@@ -10,7 +10,7 @@ c2 (s4), c3 (s8), c4, c5.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
@@ -21,28 +21,33 @@ from semi_supervised_semantic_segmentation_tpu_torch.models.layers import (
     StemSegment,
 )
 
-_SPECS = {"resnet50": (3, 4, 6, 3)}
-
-
 class BasicBlock(nn.Module):
-    """Two 3x3 Conv-BN with an identity shortcut (stride 1, no downsample:
-    the HRNet branch blocks).  ``fused=True`` is the reference's NCHW branch
-    flow: both convs run through ``ConvNormAct.raw`` (kernels D and E on
-    the card), conv1's BatchNorm + ReLU is applied inside conv2's kernel,
-    and conv2's BatchNorm is applied before the residual.  Same math and
+    """Two 3x3 Conv-BN (stride and dilation on the first) with an identity
+    or 1x1 Conv-BN ``downsample`` shortcut: ResNet-18's block, and with
+    stride 1 and no downsample HRNet's branch block.  ``fused=True`` is the
+    reference's NCHW branch flow (stride 1, dilation 1, no downsample only):
+    both convs run through ``ConvNormAct.raw`` (kernels D and E on the
+    card), conv1's BatchNorm + ReLU is applied inside conv2's kernel, and
+    conv2's BatchNorm is applied before the residual.  Same math and
     parameters either way."""
 
-    def __init__(self, planes: int, bn_momentum: float = 0.9,
+    expansion = 1
+
+    def __init__(self, cin: int, planes: int, stride: int = 1, dilation: int = 1,
+                 downsample: bool = False, bn_momentum: float = 0.9,
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype)
-        self.conv1 = ConvNormAct(planes, planes, 3, **kw)
-        self.conv2 = ConvNormAct(planes, planes, 3, act=False, **kw)
+        self.conv1 = ConvNormAct(cin, planes, 3, stride=stride, dilation=dilation, **kw)
+        self.conv2 = ConvNormAct(planes, planes, 3, dilation=dilation, act=False, **kw)
+        self.downsample = (ConvNormAct(cin, planes, 1, stride=stride, act=False, **kw)
+                           if downsample else None)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
         if not fused:
-            return F.relu(self.conv2(self.conv1(x)) + x)
+            identity = self.downsample(x) if self.downsample is not None else x
+            return F.relu(self.conv2(self.conv1(x)) + identity)
         y1, fold1 = self.conv1.raw(x)
         y2, (mul2, add2) = self.conv2.raw(y1, fold1)
         d = self.compute_dtype
@@ -70,6 +75,9 @@ class Bottleneck(nn.Module):
         return F.relu(self.conv3(self.conv2(self.conv1(x))) + identity)
 
 
+_SPECS = {"resnet18": (BasicBlock, (2, 2, 2, 2)), "resnet50": (Bottleneck, (3, 4, 6, 3))}
+
+
 class ResNet(nn.Module):
     """ResNet encoder returning the taps c1..c5."""
 
@@ -79,7 +87,8 @@ class ResNet(nn.Module):
         super().__init__()
         if arch not in _SPECS:
             raise NotImplementedError(f"backbone {arch!r} is not yet ported")
-        layers = _SPECS[arch]
+        block, layers = _SPECS[arch]
+        self.expansion = block.expansion
         kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype)
         self.stem = StemSegment(64, 7, impl=stem_impl, **kw)
         strides = [1, 2, 2, 2]
@@ -93,14 +102,20 @@ class ResNet(nn.Module):
         self.layers = layers
         in_ch = 64
         for stage, planes in enumerate((64, 128, 256, 512)):
-            out_ch = planes * Bottleneck.expansion
+            out_ch = planes * block.expansion
             for b in range(layers[stage]):
                 stride = strides[stage] if b == 0 else 1
-                setattr(self, f"layer{stage + 1}_{b}", Bottleneck(
+                setattr(self, f"layer{stage + 1}_{b}", block(
                     in_ch, planes, stride=stride,
                     dilation=prev_dilations[stage] if b == 0 else dilations[stage],
                     downsample=(b == 0 and (strides[stage] != 1 or in_ch != out_ch)), **kw))
                 in_ch = out_ch
+
+    @property
+    def feature_channels(self) -> Tuple[int, int, int, int, int]:
+        """Channels of the taps c1..c5."""
+        e = self.expansion
+        return (64, 64 * e, 128 * e, 256 * e, 512 * e)
 
     def forward(self, x_nhwc: torch.Tensor) -> Dict[str, torch.Tensor]:
         x, c1 = self.stem(x_nhwc)

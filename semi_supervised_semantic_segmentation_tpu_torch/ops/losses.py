@@ -1,14 +1,15 @@
-"""Losses for the FixMatch slices (NCHW logits, computed in float32).
+"""Losses of the ported methods (NCHW logits, computed in float32).
 
 Counterparts of the reference's ``ops/losses.py``: ``cross_entropy`` with
 ignore 255 (a masked mean that is 0, not NaN, when every pixel is ignored),
-``ohem_cross_entropy``, ``pseudo_labels_from_logits`` and
-``confidence_masked_ce`` with the "all" denominator.
+``ohem_cross_entropy``, ``pseudo_labels_from_logits``,
+``confidence_masked_ce`` with the "all" denominator and Mean Teacher's
+``mse_consistency``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +51,24 @@ def pseudo_labels_from_logits(teacher_logits: torch.Tensor, conf_thresh: float
     probs = F.softmax(teacher_logits.float(), dim=1)
     conf, labels = probs.max(dim=1)
     return labels.to(torch.int32), conf > conf_thresh
+
+
+def mse_consistency(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
+                    valid_mask: Optional[torch.Tensor] = None,
+                    reduction: str = "mean") -> torch.Tensor:
+    """Mean Teacher's softmax MSE between (N,C,H,W) logits, softmax in f32.
+    ``"mean"`` averages over pixels x classes (torch's ``F.mse_loss`` of the
+    softmaxes), ``"classes"`` sums over classes and averages over pixels.
+    ``valid_mask`` (N,H,W) keeps padding pixels out; the denominators are
+    clamped at 1."""
+    if reduction not in ("mean", "classes"):
+        raise ValueError(f"unknown consistency reduction {reduction!r}")
+    sq = (F.softmax(student_logits.float(), dim=1) - F.softmax(teacher_logits.float(), dim=1)) ** 2
+    if valid_mask is None:
+        return sq.mean() if reduction == "mean" else sq.sum(dim=1).mean()
+    m = valid_mask.float()[:, None]
+    denom = m.sum() * sq.shape[1] if reduction == "mean" else m.sum()
+    return (sq * m).sum() / denom.clamp(min=1.0)
 
 
 def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = 255,

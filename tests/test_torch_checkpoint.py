@@ -16,8 +16,9 @@ entry point) against the JAX package:
 - ``save_predictions``: the port's own PNG writer decodes (PIL) to the same
   indices and palette as the reference's PIL files;
 - the ``eval`` entry point on an explicit CPU (IoU table, ``--save_preds``,
-  ``--export_torch``, the refusal of a checkpoint directory) and
-  ``train.init_from_torch``.
+  ``--export_torch``, a missing file or checkpoint directory) and
+  ``train.init_from_torch``.  Checkpoint directories of the port's own
+  manager are tests/test_torch_checkpoint_manager.py's.
 """
 
 import os
@@ -306,7 +307,7 @@ def test_eval_entry_point_on_an_explicit_cpu(tmp_path, capsys):
     for k in ("model", "ema_model"):
         assert all(torch.equal(a[k][n], b[k][n]) for n in a[k])
     assert b["epoch"] == 1
-    with pytest.raises(ValueError, match="Queue 1 item 3"):
+    with pytest.raises(FileNotFoundError):
         port_eval_cli.main(args + ["--checkpoint", str(tmp_path / "checkpoints:5")])
     with pytest.raises(FileNotFoundError):
         port_eval_cli.main(args + ["--checkpoint", str(tmp_path / "missing.pth")])

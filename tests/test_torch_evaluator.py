@@ -7,11 +7,12 @@ uint8 canvases made from a seed:
 - a width-8 HRNet + HRNetV2 head, the port with ``branch_conv: pallas``
   (its plain versions of the branch kernels), through whole, whole at
   ``eval_size``, sliding on a non-square canvas, flip, multi-scale, staged
-  with and without ``eval_window_batch``; and the port's staged path
-  against its fused one.  The reference runs its Pallas kernels (interpret
-  mode) in config 5's protocol case; elsewhere its XLA branch path, which
-  tests/test_pallas_conv.py holds equal to them (an interpret-mode HRNet
-  forward takes the CPU ~15 s to compile);
+  with and without ``eval_window_batch`` (the port's staged path against
+  its fused one is in tests/test_torch_evaluator_staged.py).  The
+  reference runs its Pallas kernels (interpret mode) in config 5's protocol
+  case; elsewhere its XLA branch path, which tests/test_pallas_conv.py
+  holds equal to them (an interpret-mode HRNet forward takes the CPU ~15 s
+  to compile);
 - ResNet-50 + DeepLabV3+ with ``stem_impl: pallas`` through config 3's
   whole + flip protocol.
 
@@ -192,18 +193,6 @@ def test_hrnet_evaluator_matches_the_reference(hrnet_pair, case, monkeypatch):
     print(f"{case}: max |dprob| {np.abs(prob - prob_ref).max():.3g}, {moved} pixels under "
           f"the margin moved, {cm.sum()} counted")
     assert cm.sum() == (batch["label"] != 255).sum()
-
-
-def test_staged_equals_fused_in_the_port(hrnet_pair):
-    """Both paths of the port on config 5's protocol at a small size: the
-    same arithmetic in a different order of batching."""
-    model = hrnet_pair[3]
-    data = dict(crop_size=128, eval_mode="sliding", eval_stride=96, eval_flip=True,
-                eval_scales=[0.75, 1.0, 1.25], eval_window_batch=5)
-    batch = _batch(2, 128, 192, seed=7)
-    cm_s, prob_s = port_eval(_raw(**data, eval_impl="staged"), model, batch)
-    cm_f, prob_f = port_eval(_raw(**data, eval_impl="fused"), model, batch)
-    assert_confusion_agrees(cm_s, cm_f, prob_s, prob_f, batch["label"], NCLS, tol=1e-5)
 
 
 def test_r50_pallas_stem_whole_flip_matches_the_reference(monkeypatch):
