@@ -11,8 +11,10 @@ Phases; any failure exits non-zero and prints no result:
  2. kernels  -- each hand-written kernel against its plain PyTorch version
                 on the same inputs, at the shapes its path gives it (A at
                 config 3's; B at config 3's two batches [8|16,512^2], config
-                1's [8,128^2] and config 2's [8|16,256^2], C at [16,512^2],
-                [8,128^2] and [16,256^2], each twice on the same inputs,
+                1's [8,128^2], config 2's [8|16,256^2], config 4's [8,768^2]
+                and its eval's [16,768^2], [64,768^2] and [144,768^2], C at
+                [16,512^2], [8,128^2], [16,256^2] and [8,768^2], each twice
+                on the same inputs,
                 bit-equal, with their tile plan and registers; D, D's post
                 mode and E at config 5's two
                 eligible HRNet branches, [8,48,256,256] and [8,96,128,128]),
@@ -43,10 +45,13 @@ Phases; any failure exits non-zero and prints no result:
                 width-8 HRNet through the staged path (sliding, flip, two
                 scales: D on the card) and of config 3's R50 at 256^2 with
                 ``stem_impl=pallas`` (B on the card): probability sums and
-                confusion matrices; one supervised step (config 1) and one
-                Mean-Teacher step (config 2) on U-Net/R18 at 128^2 (B and C
-                on the card): losses and the update as one vector, held to
-                fixed limits (STEP_REF_LIMITS);
+                confusion matrices; one supervised step (config 1), one
+                Mean-Teacher step (config 2) and one CPS step (config 4's
+                method) in each form, 'separate' and 'stacked'
+                (torch.func.vmap), on U-Net/R18 at 128^2 (B and C on the
+                card): losses and the update as one vector, held to fixed
+                limits (STEP_REF_LIMITS), and the card's stacked step to its
+                separate one;
  4. slice    -- the port's ``Trainer`` trains config 3 (synthetic data,
                 8 + 8 images at 512^2, ``model.stem_impl=pallas``,
                 ``data.cutmix_impl=pallas``) and then config 5 as shipped
@@ -76,7 +81,14 @@ Phases; any failure exits non-zero and prints no result:
                 restored by a second Trainer (``train.resume=auto``,
                 ``train.epochs=2``) bit-equal, which trains epoch 1, and the
                 eval entry point's loader reads the ``checkpoints``
-                directory: the trained state's confusion matrix.
+                directory: the trained state's confusion matrix.  Then
+                config 4 (CPS, DeepLabV3+/ResNet-101, 4 + 4 at 768^2 from
+                1024^2 canvases, OHEM, 'separate' as shipped, B and C once
+                per net per step; eval staged: sliding 768 / 512, flip, six
+                scales, B once per scale), its rolling slot resumed on the
+                card as config 2's, and 4 steps of the 'stacked' form (B and
+                C once per net, its step 0 against the separate run's) with
+                their device time.
 Then it prints the card's name and power limit, one JSON line of kernel
 records (launches in the training runs, per val pass and per step of each
 config), and the ok line.  A longer report goes to
@@ -102,6 +114,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG1 = os.path.join(REPO, "configs", "1_supervised_unet_r18_128.yaml")
 CONFIG2 = os.path.join(REPO, "configs", "2_mean_teacher_unet_voc_256.yaml")
 CONFIG3 = os.path.join(REPO, "configs", "3_fixmatch_dlv3p_r50_voc_512.yaml")
+CONFIG4 = os.path.join(REPO, "configs", "4_cps_dlv3p_r101_cityscapes_768.yaml")
 CONFIG5 = os.path.join(REPO, "configs", "5_hrnet_w48_1024_full_ssl.yaml")
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 
@@ -352,10 +365,30 @@ def main() -> None:
         torch, "config 2", CONFIG2, cfg2_over, counters,
         {**none, "stem_fwd": 2, "stem_dw": 1}, steps=8,
         eval_expected={**none, "stem_fwd": val_stem_launches(cfg2)},
-        after_fit=resume_on_card)
+        after_fit=lambda t, tr, c: resume_on_card(t, tr, c, "config 2"))
+
+    # config 4 (CPS, DeepLabV3+/R101 at 768^2, 4 + 4 from 1024^2 synthetic
+    # canvases, OHEM, cps_impl 'separate' as shipped): B and C once per net
+    # per step; eval: 8 val images in one batch, staged (sliding 768 / 512,
+    # flip, six scales), one forward per scale, B 6; then the rolling slot
+    # resumed on the card, and 4 steps of the 'stacked' form
+    cfg4_over = {"data.synthetic_canvas": 1024, "data.synthetic_size": 16,
+                 "train.labeled_batch_size": 4, "train.unlabeled_batch_size": 4,
+                 "model.stem_impl": "pallas", "train.checkpoint_interval": 1}
+    cfg4 = load_config(CONFIG4, {"data.dataset": "synthetic", **cfg4_over})
+    stacked4 = {}
+    report["slice_config4"], launches4, eval4 = slice_phase(
+        torch, "config 4", CONFIG4, cfg4_over, counters, {**none, "stem_fwd": 2, "stem_dw": 2},
+        steps=8, eval_expected={**none, "stem_fwd": staged_forwards(cfg4)},
+        after_fit=lambda t, tr, c: {
+            "resume": resume_on_card(t, tr, c, "config 4"),
+            "stacked": stacked_steps(t, c, counters, {**none, "stem_fwd": 2, "stem_dw": 2},
+                                     stacked4)})
 
     runs = {"config 1": (launches1, eval1, 8), "config 2": (launches2, eval2, 8),
-            "config 3": (launches3, eval3, 8), "config 5": (launches5, eval5, 8)}
+            "config 3": (launches3, eval3, 8), "config 4": (launches4, eval4, 8),
+            "config 4 stacked": (stacked4.get("launches", none), none, STACKED_STEPS),
+            "config 5": (launches5, eval5, 8)}
     launches = {k: sum(r[0][k] for r in runs.values()) for k in counters}
     by_config = {k: {c: {"per_step": r[0][k] / r[2], "run": r[0][k], "per_val_pass": r[1][k]}
                      for c, r in runs.items() if r[0][k] or r[1][k]} for k in counters}
@@ -436,10 +469,13 @@ def ptxas_usage(log: str) -> dict:
 
 
 # (N, H = W) of kernel B's launches and whether C runs there too: config 3
-# (512^2: teacher N = 8, student N = 16), config 1 (128^2, N = 8) and
-# config 2 (256^2: teacher N = 8, student N = 16); C runs at the student's
+# (512^2: teacher N = 8, student N = 16), config 1 (128^2, N = 8),
+# config 2 (256^2: teacher N = 8, student N = 16) and config 4 (768^2: each
+# net N = 8, B and C; its eval's windows of both views per scale, N = 16 at
+# 512^2 and 768^2, 64 and 144 at 768^2); C runs at the student's
 STEM_SHAPES = [(8, 512, False), (16, 512, True), (8, 128, True), (8, 256, False),
-               (16, 256, True)]
+               (16, 256, True), (8, 768, True), (16, 768, False), (64, 768, False),
+               (144, 768, False)]
 
 
 def stem_kernels(torch, dev, stem, time_ms, bound, bf16_peak, ptxas) -> dict:
@@ -1304,18 +1340,26 @@ def eval_reference_phase(torch, dev) -> dict:
 # reading and the CPU's own bf16-vs-f32 readings, on the card's machine and
 # on a development CPU (NVIDIA H100 80GB HBM3, 700.00 W): supervised losses
 # 1.07e-4 / 1.09e-4 / 2.06e-4, update 0.085 / 0.100 / 0.099; Mean Teacher
-# losses 2.5e-3 / 7.7e-3 / 6.9e-3, update 0.095 / 0.125 / 0.124
+# losses 2.5e-3 / 7.7e-3 / 6.9e-3, update 0.095 / 0.125 / 0.124; CPS
+# separate losses 4.2e-4 / 5.2e-4 / 4.1e-4, update 0.102 / 0.133 / 0.133,
+# stacked losses 1.7e-4 / 4.5e-4 / 4.3e-4, update 0.100 / 0.134 / 0.133
 STEP_REF_LIMITS = {"supervised_unet_r18": {"loss": 4.2e-4, "update": 0.20},
-                   "mean_teacher_unet_r18": {"loss": 0.016, "update": 0.25}}
+                   "mean_teacher_unet_r18": {"loss": 0.016, "update": 0.25},
+                   "cps_separate_unet_r18": {"loss": 1.04e-3, "update": 0.27},
+                   "cps_stacked_unet_r18": {"loss": 1.04e-3, "update": 0.27}}
+# config 4's method on config 1's model: both nets U-Net/R18, OHEM as config 4
+CPS_UNET = {"model.backbone": "resnet18", "model.decoder": "unet", "model.output_stride": 32}
 
 
 def unet_step_run(torch, name: str, where, dtype: str) -> dict:
-    """One step of config 1's supervised method or config 2's Mean Teacher
-    (:data:`STEP_REF_LIMITS` names) on U-Net/R18 at 128^2, 2 (+ 2) images,
-    ``model.stem_impl=pallas``, in ``dtype`` on ``where``: the same seeded,
-    conditioned weights (:func:`_conditioned_model`), smooth colour images
-    and draws every time.  Returns the step's losses (computed before its
-    update), its update of every parameter and the stem kernels' launches."""
+    """One step of config 1's supervised method, config 2's Mean Teacher or
+    config 4's CPS in either form (:data:`STEP_REF_LIMITS` names) on
+    U-Net/R18 at 128^2, 2 (+ 2) images, ``model.stem_impl=pallas``, in
+    ``dtype`` on ``where``: the same seeded, conditioned weights
+    (:func:`_conditioned_model`; CPS's net2 from another seed), smooth
+    colour images and draws every time.  Returns the step's losses
+    (computed before its update), its update of every parameter and the
+    stem kernels' launches."""
     import numpy as np
 
     from semi_supervised_semantic_segmentation_tpu_torch.config import load_config
@@ -1323,10 +1367,13 @@ def unet_step_run(torch, name: str, where, dtype: str) -> dict:
     from semi_supervised_semantic_segmentation_tpu_torch.models import build_model
     from semi_supervised_semantic_segmentation_tpu_torch.ops import stem
 
-    path = CONFIG1 if name.startswith("supervised") else CONFIG2
+    method = next(m for m in ("supervised", "mean_teacher", "cps") if name.startswith(m))
+    path = {"supervised": CONFIG1, "mean_teacher": CONFIG2, "cps": CONFIG4}[method]
     over = {"data.dataset": "synthetic", "data.crop_size": 128, "model.stem_impl": "pallas",
             "train.labeled_batch_size": 2, "train.unlabeled_batch_size": 2,
             "method.rampup_iters": 0}
+    if name.startswith("cps"):
+        over.update({**CPS_UNET, "method.cps_impl": name.split("_")[1]})
     cfg = load_config(path, {**over, "model.compute_dtype": dtype})
     cfg32 = load_config(path, {**over, "model.compute_dtype": "float32"})
     rng = np.random.RandomState(7)
@@ -1335,35 +1382,51 @@ def unet_step_run(torch, name: str, where, dtype: str) -> dict:
            "size": np.full((2, 2), 128, np.int32)}
     unlab = {"image": _blob_images(torch, rng, 2, 128, 128).numpy(),
              "label": np.full((2, 128, 128), 255, np.int32), "size": lab["size"]}
-    method = get_method(cfg.method.name)
+    method = get_method(method)
     g = common.step_generator(1, 0, "cpu")
     lab_c, unlab_c = common.to_device(lab, "cpu"), common.to_device(unlab, "cpu")
-    draws = (method.draw(cfg, lab_c, unlab_c, g) if method.uses_unlabeled
-             else method.draw(cfg, lab_c, g))
-    draws.dropout = None  # U-Net has no dropout
     model = build_model(cfg, seed=5)
     model.load_state_dict(_conditioned_model(torch, cfg32, seed=5).state_dict())
     model = model.to(where)
+    if cfg.method.name == "cps":
+        draws = method.draw(cfg, model, lab_c, unlab_c, g)  # U-Net: no dropout masks
+    elif method.uses_unlabeled:
+        draws = method.draw(cfg, lab_c, unlab_c, g)
+    else:
+        draws = method.draw(cfg, lab_c, g)
+    if hasattr(draws, "dropout"):
+        draws.dropout = None  # U-Net has no dropout
     state = method.init_state(cfg, model, 10)
-    before = {k: p.detach().float().cpu().clone() for k, p in model.named_parameters()}
+    if state.model2 is not None:
+        state.model2.load_state_dict(_conditioned_model(torch, cfg32, seed=6).state_dict())
+    nets = {"": model} if state.model2 is None else {"net1.": model, "net2.": state.model2}
+
+    def params():
+        return {p + k: v for p, net in nets.items() for k, v in net.named_parameters()}
+
+    before = {k: p.detach().float().cpu().clone() for k, p in params().items()}
     b0, c0 = stem.stem_fwd_cuda.launches, stem.stem_dw_cuda.launches
     m = method.make_train_step(cfg, 10)(
         state, common.to_device(lab, where),
         common.to_device(unlab, where) if method.uses_unlabeled else None, _to(draws, where))
-    cols = ("loss", "sup_loss", "unsup_loss") if method.uses_unlabeled else ("loss",)
+    cols = ("loss", "sup_loss", "cps_loss" if cfg.method.name == "cps" else "unsup_loss")
+    cols = cols if method.uses_unlabeled else ("loss",)
     return {"losses": np.array([float(m[k]) for k in cols]),
-            "update": {k: p.detach().float().cpu() - before[k]
-                       for k, p in model.named_parameters()},
+            "update": {k: p.detach().float().cpu() - before[k] for k, p in params().items()},
             "launches": (stem.stem_fwd_cuda.launches - b0, stem.stem_dw_cuda.launches - c0)}
 
 
 def unet_step_reference(torch, dev) -> dict:
-    """(g) one supervised U-Net/R18 step (config 1) and (h) one Mean-Teacher
-    step (config 2) at 128^2 (:func:`unet_step_run`) on the card (kernels B
-    and C) against the CPU (their plain versions), in bf16, and the CPU's
-    own bf16-vs-f32 distance beside: losses within ``loss`` (relative), the
-    update as one vector within ``update`` (relative) of
-    :data:`STEP_REF_LIMITS`; B launched once per forward, C once."""
+    """(g) one supervised U-Net/R18 step (config 1), (h) one Mean-Teacher
+    step (config 2) and (i) one CPS step (config 4's method, U-Net/R18
+    nets) in each form, ``separate`` and ``stacked`` (``torch.func.vmap``),
+    at 128^2 (:func:`unet_step_run`) on the card (kernels B and C) against
+    the CPU (their plain versions), in bf16, and the CPU's own bf16-vs-f32
+    distance beside: losses within ``loss`` (relative), the update as one
+    vector within ``update`` (relative) of :data:`STEP_REF_LIMITS`; B
+    launched once per forward, C once per backward (CPS: twice each, in
+    both forms); the card's ``stacked`` losses and update against its
+    ``separate`` ones within the same limits."""
     import numpy as np
 
     def vec_rel(a, b):
@@ -1384,7 +1447,9 @@ def unet_step_reference(torch, dev) -> dict:
              "cpu_bf16_vs_f32": {"loss_rel": loss_rel(cpu["losses"], f32["losses"]),
                                  "update_rel": vec_rel(cpu["update"], f32["update"])},
              "limits": lim, "launches": card["launches"]}
-        want = (2, 1) if name.startswith("mean_teacher") else (1, 1)  # teacher + student
+        # Mean Teacher: teacher + student forwards; CPS: one per net
+        want = (2, 1) if name.startswith("mean_teacher") else (
+            (2, 2) if name.startswith("cps") else (1, 1))
         check(bool(np.all(np.isfinite(card["losses"]))),
               f"reference {name}: non-finite losses on the card {r['losses_card']}")
         check(r["loss_rel"] <= lim["loss"], f"reference {name}: losses card "
@@ -1401,6 +1466,18 @@ def unet_step_reference(torch, dev) -> dict:
               f", update {r['cpu_bf16_vs_f32']['update_rel']:.4g}; (B, C) launches on the "
               f"card {card['launches']}", flush=True)
         out[name] = r
+        r["_card"] = card
+    sep, stk = (out[f"cps_{f}_unet_r18"] for f in ("separate", "stacked"))
+    lim = STEP_REF_LIMITS["cps_stacked_unet_r18"]
+    forms = {"loss_rel": loss_rel(stk["_card"]["losses"], sep["_card"]["losses"]),
+             "update_rel": vec_rel(stk["_card"]["update"], sep["_card"]["update"])}
+    check(forms["loss_rel"] <= lim["loss"] and forms["update_rel"] <= lim["update"],
+          f"reference cps: stacked against separate on the card {forms} (limits {lim})")
+    print(f"[reference] cps on the card, stacked against separate: losses "
+          f"{forms['loss_rel']:.4g}, update {forms['update_rel']:.4g} (limits {lim})", flush=True)
+    for r in out.values():
+        r.pop("_card")
+    out["cps_stacked_vs_separate_card"] = forms
     return out
 
 
@@ -1493,15 +1570,15 @@ def profile_trace_check(torch, trainer, cfg) -> dict:
     return {"path": path, "mb": mb, **summary}
 
 
-def resume_on_card(torch, trainer, cfg) -> dict:
-    """Config 2: ``fit`` left one rolling slot (``checkpoint_interval`` 1)
-    and one best slot.  A second Trainer with ``train.resume=auto`` and
-    ``train.epochs=2`` restores the rolling slot -- model, teacher,
-    momentum and step bit-equal to the trained state, ``start_epoch`` 1 --
-    and trains epoch 1 with finite losses; the eval entry point's loader
-    reads the ``checkpoints`` directory (before the second run adds its
-    slot) and gives the trained state's confusion matrix, whose mIoU is the
-    ``val`` record's."""
+def resume_on_card(torch, trainer, cfg, label: str) -> dict:
+    """Config 2 or 4: ``fit`` left one rolling slot (``checkpoint_interval``
+    1) and one best slot.  A second Trainer with ``train.resume=auto`` and
+    ``train.epochs=2`` restores the rolling slot -- model, teacher or CPS's
+    second net, every net's momentum and step bit-equal to the trained
+    state, ``start_epoch`` 1 -- and trains epoch 1 with finite losses; the
+    eval entry point's loader reads the ``checkpoints`` directory (before
+    the second run adds its slot) and gives the trained state's confusion
+    matrix, whose mIoU is the ``val`` record's."""
     import numpy as np
 
     from semi_supervised_semantic_segmentation_tpu_torch import eval as port_eval
@@ -1515,16 +1592,18 @@ def resume_on_card(torch, trainer, cfg) -> dict:
     work = cfg.train.work_dir
     rolling = CheckpointManager(os.path.join(work, "checkpoints")).steps()
     best = CheckpointManager(os.path.join(work, "checkpoints_best")).steps()
-    check(rolling == [trainer.state.step], f"config 2: rolling slots {rolling}, expected "
+    check(rolling == [trainer.state.step], f"{label}: rolling slots {rolling}, expected "
           f"[{trainer.state.step}]")
-    check(len(best) == 1, f"config 2: checkpoints_best holds {best}, expected one slot")
+    check(len(best) == 1, f"{label}: checkpoints_best holds {best}, expected one slot")
     slot_mb = sum(os.path.getsize(os.path.join(work, "checkpoints", str(rolling[-1]), n))
                   for n in os.listdir(os.path.join(work, "checkpoints", str(rolling[-1])))) / 1e6
 
     def tensors(state):
-        out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
-        out.update({f"ema.{k}": v for k, v in state.ema_model.state_dict().items()})
-        out.update({f"momentum.{k}": v for k, v in compat._named_buffers(state).items()})
+        nets = {"model": state.model, "ema": state.ema_model, "model2": state.model2}
+        out = {f"{n}.{k}": v for n, net in nets.items() if net is not None
+               for k, v in net.state_dict().items()}
+        out.update({f"momentum.{i}.{k}": v for i, net in enumerate(state.nets())
+                    for k, v in compat._named_buffers(state, net).items()})
         return out
 
     loader = evaluator.val_loader(cfg)
@@ -1542,18 +1621,18 @@ def resume_on_card(torch, trainer, cfg) -> dict:
     with open(os.path.join(work, "metrics.jsonl")) as f:
         val = [json.loads(line)["val"] for line in f if '"val"' in line]
     miou = float(iou_from_confusion(cm_a)[1])
-    check(np.array_equal(cm_a, cm_b), "config 2: the checkpoint directory's confusion matrix "
+    check(np.array_equal(cm_a, cm_b), f"{label}: the checkpoint directory's confusion matrix "
           "differs from the trained state's")
-    check(bool(val) and val[0]["miou"] == miou, f"config 2: the val record's mIoU "
+    check(bool(val) and val[0]["miou"] == miou, f"{label}: the val record's mIoU "
           f"{val[0]['miou'] if val else None} is not the trained state's {miou}")
     t0 = time.time()
     second = Trainer(update_config(cfg, {"train.resume": "auto", "train.epochs": 2}))
     restore_s = time.time() - t0
     want, got = tensors(trainer.state), tensors(second.state)
     differ = [k for k in want if not torch.equal(want[k], got[k])]
-    check(not differ and set(want) == set(got), f"config 2 resume: tensors differ {differ[:5]}")
+    check(not differ and set(want) == set(got), f"{label} resume: tensors differ {differ[:5]}")
     check(second.state.step == trainer.state.step and second.start_epoch == 1,
-          f"config 2 resume: step {second.state.step} (saved {trainer.state.step}), "
+          f"{label} resume: step {second.state.step} (saved {trainer.state.step}), "
           f"start_epoch {second.start_epoch}")
     losses = []
     inner = second.train_step
@@ -1566,11 +1645,11 @@ def resume_on_card(torch, trainer, cfg) -> dict:
     second.train_step = record
     second.fit()
     check(len(losses) == second.iters_per_epoch and all(math.isfinite(v) for v in losses),
-          f"config 2 resume: epoch 1 losses {losses}")
+          f"{label} resume: epoch 1 losses {losses}")
 
-    print(f"[slice] config 2 resume on the card: rolling slot {rolling} ({slot_mb:.1f} MB), "
-          f"best slot {best}; a Trainer with train.resume=auto restored model, teacher, "
-          f"momentum and step {trainer.state.step} bit-equal "
+    print(f"[slice] {label} resume on the card: rolling slot {rolling} ({slot_mb:.1f} MB), "
+          f"best slot {best}; a Trainer with train.resume=auto restored "
+          f"{sorted({k.split('.')[0] for k in want})}, momentum and step {trainer.state.step} bit-equal "
           f"{not differ} in {restore_s:.2f} s (its construction), start_epoch "
           f"{second.start_epoch}; epoch 1 losses {[round(v, 4) for v in losses]}; the eval "
           f"entry point's loader on checkpoints/: confusion matrix equal "
@@ -1581,6 +1660,98 @@ def resume_on_card(torch, trainer, cfg) -> dict:
     return {"rolling": rolling, "best": best, "slot_mb": slot_mb, "bit_equal": not differ,
             "start_epoch": start_epoch, "epoch1_losses": losses, "cm_equal": bool(np.array_equal(cm_a, cm_b)),
             "miou": miou, "trainer_construction_s": restore_s}
+
+
+def staged_forwards(cfg) -> int:
+    """Model forwards (so kernel B's launches) of one val pass of the staged
+    path on ``cfg``'s synthetic square canvases: per val batch and scale,
+    every window of every view in one forward, chunked by
+    ``data.eval_window_batch``."""
+    from semi_supervised_semantic_segmentation_tpu_torch.engine.evaluator import (
+        _snap, _window_starts)
+
+    d = cfg.data
+    stride = d.eval_stride or d.crop_size * 2 // 3
+    per_batch = 0
+    for s in d.eval_scales:
+        side = d.synthetic_canvas if s == 1.0 else _snap(d.synthetic_canvas * s)
+        n = cfg.train.eval_batch_size * (2 if d.eval_flip else 1) * len(
+            _window_starts(side, d.crop_size, stride)) ** 2
+        wb = d.eval_window_batch
+        per_batch += math.ceil(n / wb) if 0 < wb < n else 1
+    return per_batch * math.ceil(max(d.synthetic_size // 2, 8) / cfg.train.eval_batch_size)
+
+
+STACKED_STEPS = 4
+
+
+def stacked_steps(torch, cfg, counters: dict, expected: dict, out: dict) -> dict:
+    """Config 4 in CPS's ``stacked`` form (``torch.func.vmap`` over the two
+    nets): a Trainer of the same config and seeds with
+    ``method.cps_impl=stacked`` runs :data:`STACKED_STEPS` steps (no eval).
+    Every counter is set to 0 just before and read just after; each step
+    must launch each kernel ``expected`` times (B and C once per net, from
+    the stem's vmap rule).  Losses finite; step 0 starts from the state,
+    batch and draws of the ``separate`` run's step 0, so its loss is held
+    to that run's within the phase-3 loss limit; the last two steps run
+    under the profiler.  The launches go to ``out["launches"]``."""
+    from semi_supervised_semantic_segmentation_tpu_torch.config import update_config
+    from semi_supervised_semantic_segmentation_tpu_torch.engine.trainer import Trainer
+
+    with open(os.path.join(cfg.train.work_dir, "metrics.jsonl")) as f:
+        separate0 = next(json.loads(line)["train"]["loss"] for line in f if '"train"' in line)
+    work = cfg.train.work_dir + "_stacked"
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = Trainer(update_config(cfg, {"method.cps_impl": "stacked", "train.work_dir": work}))
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    losses, times, per_step, window = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f, a in counters.values():
+        setattr(f, a, 0)
+    try:
+        for i, (lab, unlab) in enumerate(trainer.batches(0)):
+            if i == STACKED_STEPS:
+                break
+            before = {k: getattr(f, a) for k, (f, a) in counters.items()}
+            if i == STACKED_STEPS - 2:
+                prof.start()
+                window.append(time.time())
+            t0 = time.time()
+            m = trainer.train_step(trainer.state, lab, unlab)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            per_step.append({k: getattr(f, a) - before[k] for k, (f, a) in counters.items()})
+        window.append(time.time())
+        prof.stop()
+    finally:
+        trainer.close()
+    out["launches"] = {k: getattr(f, a) for k, (f, a) in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(losses) == STACKED_STEPS and all(math.isfinite(v) for v in losses),
+          f"config 4 stacked: losses {losses}")
+    for i, d in enumerate(per_step):
+        check(d == expected, f"config 4 stacked: step {i} launched {d}, expected {expected}")
+    lim = STEP_REF_LIMITS["cps_stacked_unet_r18"]["loss"]
+    rel = abs(losses[0] - separate0) / max(abs(separate0), 1e-3)
+    check(rel <= lim, f"config 4 stacked: step 0 loss {losses[0]} vs separate's {separate0} "
+          f"({rel:.4g}, limit {lim})")
+    ms = statistics.median(times[1:STACKED_STEPS - 2]) * 1e3
+    print(f"[slice] config 4 stacked (torch.func.vmap over both nets), {STACKED_STEPS} steps: "
+          f"losses {[round(v, 4) for v in losses]}; step 0 {losses[0]:.5f} vs separate's "
+          f"{separate0:.5f} (rel {rel:.3g}, limit {lim}); launches per step {per_step[-1]}; "
+          f"{ms:.1f} ms/step (median of steps 2-{STACKED_STEPS - 2}); peak memory "
+          f"{peak_gb:.2f} GB; step times s {[round(t, 3) for t in times]}", flush=True)
+    breakdown = device_breakdown(torch, prof, (window[1] - window[0]) * 1e3, 2)
+    shutil.rmtree(work, ignore_errors=True)
+    del trainer
+    return {"losses": losses, "step_s": times, "ms_per_step": ms, "peak_gb": peak_gb,
+            "separate_step0_loss": separate0, "step0_rel": rel, "per_step_launches": per_step,
+            "profile": breakdown}
 
 
 def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: dict,

@@ -4,7 +4,8 @@
 A slot is ``<directory>/<step>/`` and holds
 
 - ``checkpoint.pth``: :func:`compat.reference_checkpoint`'s dict (``model``,
-  ``ema_model``, ``optimizer``, ``epoch``, ``best_miou``, ``step``), which
+  ``ema_model`` or CPS's ``model2``, ``optimizer``, ``epoch``,
+  ``best_miou``, ``step``), which
   the JAX package's ``compat.import_reference_checkpoint`` also reads;
 - ``meta.json``: the caller's meta (``epoch``, ``best_miou``, ``miou``,
   ``config``);
@@ -122,7 +123,8 @@ class CheckpointManager:
 
     def restore(self, state, step: Optional[int] = None) -> dict:
         """Load slot ``step`` (default: the latest) into ``state`` in place:
-        weights, teacher, momentum, step and the generator states.  Returns
+        weights (teacher or second net included), momentum, step and the
+        generator states.  Returns
         the slot's meta."""
         self.wait()
         step = self.latest_step() if step is None else step
@@ -151,7 +153,8 @@ class CheckpointManager:
         """The missing and unexpected keys of each net of the slot against
         ``state``'s."""
         out = []
-        for part, net in (("model", state.model), ("ema_model", state.ema_model)):
+        for part, net in (("model", state.model), ("ema_model", state.ema_model),
+                          ("model2", state.model2)):
             if net is None or part not in obj:
                 if (net is None) != (part not in obj):
                     out.append(f"'{part}' is in the {'slot' if net is None else 'state'} only")

@@ -11,12 +11,12 @@ exactly these keys, so the reference checkpoint layout is the port's own
 port model.
 
 Reference-layout checkpoint files: ``export_reference_checkpoint`` writes
-``torch.save({'model', 'ema_model', 'optimizer', 'epoch', 'best_miou',
-'step'})`` (:func:`reference_checkpoint`, which the port's checkpoint
-manager also writes into its slots) with the optimizer in torch's
-``state_dict()`` layout (two param groups per net, backbone and head at
-``lr * head_lr_mult``, the momentum buffers indexed in the reference's
-parameter order);
+``torch.save({'model', 'ema_model' | 'model2', 'optimizer', 'epoch',
+'best_miou', 'step'})`` (:func:`reference_checkpoint`, which the port's
+checkpoint manager also writes into its slots) with the optimizer in
+torch's ``state_dict()`` layout (two param groups per net, backbone and
+head at ``lr * head_lr_mult``, the momentum buffers indexed in the
+reference's parameter order, CPS's net1 then net2);
 ``import_reference_checkpoint`` reads such a file back (a file without
 ``optimizer`` restarts momentum).  ``load_pretrained_encoder`` maps a
 torchvision ResNet or an official HRNet state dict onto the encoder.
@@ -280,31 +280,42 @@ def reference_param_order(model: nn.Module) -> List[str]:
     return sorted(names, key=lambda n: (n.split(".")[:-1], rank[n.rsplit(".", 1)[-1]]))
 
 
-def _named_buffers(state) -> Dict[str, torch.Tensor]:
-    """Parameter name -> the SGD momentum buffer of that parameter."""
+def _named_buffers(state, net: nn.Module = None) -> Dict[str, torch.Tensor]:
+    """Parameter name of ``net`` (default: the student, ``state.model``) ->
+    the SGD momentum buffer of that parameter."""
     opt = state.optimizer
     by_id = {id(p): b for (params, _), bufs in zip(opt.groups, opt.bufs)
              for p, b in zip(params, bufs)}
-    return {n: by_id[id(p)] for n, p in state.model.named_parameters()}
+    return {n: by_id[id(p)] for n, p in (state.model if net is None else net).named_parameters()}
+
+
+def _indexed_params(state) -> List[tuple]:
+    """(net, parameter name) in the reference's index space: each net's
+    parameters in :func:`reference_param_order`, net1's before net2's."""
+    return [(net, n) for net in state.nets() for n in reference_param_order(net)]
 
 
 def export_optimizer_state(state, optim) -> Dict[str, Any]:
     """The reference's ``state_dict(opt)``: ``{'state': {idx:
-    {'momentum_buffer'}}, 'param_groups': [backbone, head]}``, indexed in
-    :func:`reference_param_order`, with the group lrs at ``optim.lr`` and
-    ``optim.lr * head_lr_mult`` (``optim``: the run's ``cfg.optim``)."""
+    {'momentum_buffer'}}, 'param_groups': [backbone, head] per net}``,
+    indexed by :func:`_indexed_params` (CPS: both nets in one index space,
+    four groups), with the group lrs at ``optim.lr`` and ``optim.lr *
+    head_lr_mult`` (``optim``: the run's ``cfg.optim``)."""
     from semi_supervised_semantic_segmentation_tpu_torch.engine.state import is_head
 
-    bufs = _named_buffers(state)
-    out, groups = {}, {"backbone": [], "head": []}
-    for idx, name in enumerate(reference_param_order(state.model)):
-        out[idx] = {"momentum_buffer": bufs[name].detach().float().cpu().clone()}
-        groups["head" if is_head(name) else "backbone"].append(idx)
-    param_groups = [{
-        "params": groups[g], "lr": float(optim.lr) * mult, "momentum": float(optim.momentum),
-        "weight_decay": float(optim.weight_decay), "nesterov": bool(optim.nesterov),
-        "dampening": 0.0,
-    } for g, mult in (("backbone", 1.0), ("head", float(optim.head_lr_mult)))]
+    out, param_groups, idx = {}, [], 0
+    for net in state.nets():
+        bufs = _named_buffers(state, net)
+        groups = {"backbone": [], "head": []}
+        for name in reference_param_order(net):
+            out[idx] = {"momentum_buffer": bufs[name].detach().float().cpu().clone()}
+            groups["head" if is_head(name) else "backbone"].append(idx)
+            idx += 1
+        param_groups += [{
+            "params": groups[g], "lr": float(optim.lr) * mult,
+            "momentum": float(optim.momentum), "weight_decay": float(optim.weight_decay),
+            "nesterov": bool(optim.nesterov), "dampening": 0.0,
+        } for g, mult in (("backbone", 1.0), ("head", float(optim.head_lr_mult)))]
     return {"state": out, "param_groups": param_groups}
 
 
@@ -312,17 +323,17 @@ def import_optimizer_state(opt_dict: Dict[str, Any], state) -> None:
     """Inverse of :func:`export_optimizer_state`: copy the momentum buffers
     into the port's SGD in place."""
     raw = {int(k): v["momentum_buffer"] for k, v in opt_dict["state"].items()}
-    names = reference_param_order(state.model)
+    names = _indexed_params(state)
     if len(raw) != len(names):
         raise ValueError(f"optimizer state has {len(raw)} buffers but the model enumerates "
                          f"{len(names)} parameters")
-    bufs = _named_buffers(state)
+    bufs = {id(net): _named_buffers(state, net) for net in state.nets()}
     with torch.no_grad():
-        for idx, name in enumerate(names):
+        for idx, (net, name) in enumerate(names):
             if idx not in raw:
                 raise ValueError(f"optimizer state missing index {idx} (param {name!r})")
             src = torch.as_tensor(_to_numpy(raw[idx]))
-            dst = bufs[name]
+            dst = bufs[id(net)][name]
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"momentum of {name}: shape {tuple(src.shape)} != "
                                  f"{tuple(dst.shape)}")
@@ -339,9 +350,9 @@ def _cpu_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def reference_checkpoint(state, meta: dict, optim) -> Dict[str, Any]:
-    """``{'model', 'ema_model', 'optimizer', 'epoch', 'best_miou', 'step'}``
-    as CPU copies of the state (the optimizer's groups from ``optim``, the
-    run's ``cfg.optim``)."""
+    """``{'model', 'ema_model' | 'model2', 'optimizer', 'epoch',
+    'best_miou', 'step'}`` as CPU copies of the state (the optimizer's
+    groups from ``optim``, the run's ``cfg.optim``)."""
     out: Dict[str, Any] = {
         "epoch": int(meta.get("epoch", 0)),
         "best_miou": float(meta.get("best_miou", 0.0)),
@@ -350,6 +361,8 @@ def reference_checkpoint(state, meta: dict, optim) -> Dict[str, Any]:
     }
     if state.ema_model is not None:
         out["ema_model"] = _cpu_state_dict(state.ema_model)
+    if state.model2 is not None:
+        out["model2"] = _cpu_state_dict(state.model2)
     out["optimizer"] = export_optimizer_state(state, optim)
     return out
 
@@ -361,11 +374,14 @@ def export_reference_checkpoint(path: str, state, meta: dict, cfg) -> None:
 
 def load_reference_checkpoint(obj: Dict[str, Any], state) -> None:
     """Load a reference-layout checkpoint dict into ``state`` in place: the
-    model, the EMA teacher when both sides have one, the step and, when the
-    dict has ``optimizer``, the momentum buffers (else momentum restarts)."""
+    model, the EMA teacher or CPS's second net when both sides have one, the
+    step and, when the dict has ``optimizer``, the momentum buffers (else
+    momentum restarts)."""
     load_flat(state.model, obj["model"])
     if "ema_model" in obj and state.ema_model is not None:
         load_flat(state.ema_model, obj["ema_model"])
+    if "model2" in obj and state.model2 is not None:
+        load_flat(state.model2, obj["model2"])
     state.step = int(obj.get("step", 0))
     if "optimizer" in obj:
         import_optimizer_state(obj["optimizer"], state)

@@ -240,10 +240,8 @@ def make_evaluator(cfg: Config) -> EvalStep:
 
 
 def inference_model(state, method) -> nn.Module:
-    """The EMA teacher when the method has one, else the student."""
-    if getattr(method, "__name__", "").rsplit(".", 1)[-1] == "cps":
-        raise NotImplementedError("CPS's inference net (net1) comes with its port "
-                                  "(ROADMAP.md Queue 1 item 7)")
+    """The EMA teacher when the method has one, else the student (CPS:
+    net1, ``state.model``)."""
     if getattr(method, "uses_ema", False) and state.ema_model is not None:
         return state.ema_model
     return state.model

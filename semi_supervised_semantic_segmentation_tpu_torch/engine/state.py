@@ -3,14 +3,15 @@
 SGD in torch's update order -- grad += wd * param; buf = momentum * buf +
 grad; param -= lr * buf -- with poly LR driven by the step counter and a
 ``head_lr_mult`` group for every parameter under ``decoder``, exactly the
-reference's optax chain.  ``ema_update`` moves the teacher's parameters and
+reference's optax chain.  One SGD may hold several nets (CPS's two): each
+adds its backbone and head groups, in the nets' order.  ``ema_update`` moves the teacher's parameters and
 BatchNorm running statistics towards the student's.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -25,19 +26,21 @@ def is_head(name: str) -> bool:
 
 
 class SGD:
-    """Poly-LR momentum SGD with a backbone group and a 10x head group."""
+    """Poly-LR momentum SGD with a backbone group and a 10x head group per
+    net of ``models`` (one module, or a sequence of them)."""
 
-    def __init__(self, cfg: Config, model: nn.Module, total_steps: int):
+    def __init__(self, cfg: Config, models: Union[nn.Module, Sequence[nn.Module]],
+                 total_steps: int):
         o = cfg.optim
         if o.optimizer != "sgd":
             raise NotImplementedError(f"optim.optimizer={o.optimizer!r} is not yet ported")
         self.cfg = o
         self.total_steps = total_steps
-        named = list(model.named_parameters())
-        self.groups = [
-            ([p for n, p in named if not is_head(n)], 1.0),
-            ([p for n, p in named if is_head(n)], o.head_lr_mult),
-        ]
+        self.groups = []
+        for model in [models] if isinstance(models, nn.Module) else models:
+            named = list(model.named_parameters())
+            self.groups += [([p for n, p in named if not is_head(n)], 1.0),
+                            ([p for n, p in named if is_head(n)], o.head_lr_mult)]
         self.bufs: List[List[torch.Tensor]] = [
             [torch.zeros_like(p) for p in params] for params, _ in self.groups
         ]
@@ -86,7 +89,15 @@ def ema_update(teacher: nn.Module, student: nn.Module, alpha: float) -> None:
 
 @dataclass
 class TrainState:
+    """The student (CPS: net1), its optimizer and step; the EMA teacher of
+    Mean Teacher and FixMatch, or CPS's second net (``model2``)."""
+
     model: nn.Module
     optimizer: SGD
     step: int = 0
     ema_model: Optional[nn.Module] = None
+    model2: Optional[nn.Module] = None
+
+    def nets(self) -> List[nn.Module]:
+        """The trained nets, in the optimizer's order."""
+        return [self.model] + ([self.model2] if self.model2 is not None else [])

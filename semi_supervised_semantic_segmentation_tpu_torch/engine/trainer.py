@@ -15,7 +15,7 @@ and time in seconds since the logger was made.
 
 ``fit`` runs epochs ``start_epoch`` .. ``train.epochs - 1``, evaluates every
 ``train.eval_interval`` epochs and after the last one, on the EMA teacher
-where the method has one (``engine/evaluator.py``), writes a ``{"val":
+where the method has one and on net1 for CPS (``engine/evaluator.py``), writes a ``{"val":
 {"step": epoch, "time", "miou", "acc", "iou/<name>", ...}}`` record and
 returns the best mIoU.  Checkpoints (``engine/checkpoint.py``): a better
 mIoU writes the one slot of ``<work_dir>/checkpoints_best``; every
@@ -177,6 +177,7 @@ class Trainer:
         self.val_loader = val_loader(cfg)
         self.total_steps = self.iters_per_epoch * t.epochs
 
+        # CPS's init_state adds net2 on the model's device
         self.state = self.method.init_state(cfg, self.model, self.total_steps)
         self.train_step = self.method.make_train_step(cfg, self.total_steps)
         self.eval_step = make_evaluator(cfg)

@@ -48,8 +48,8 @@ from semi_supervised_semantic_segmentation_tpu_torch.ops.metrics import (
 
 
 def load_state(cfg: Config, checkpoint: str, device):
-    """A fresh train state of ``cfg`` on ``device`` with the checkpoint
-    loaded into it -> (state, method module, meta).  ``checkpoint``: a
+    """A fresh train state of ``cfg`` on ``device`` (CPS: both nets) with
+    the checkpoint loaded into it -> (state, method module, meta).  ``checkpoint``: a
     reference-layout file, or a checkpoint directory (its latest slot) or
     ``dir:step``."""
     method = get_method(cfg.method.name)

@@ -4,21 +4,18 @@ from __future__ import annotations
 
 from types import ModuleType
 
-_PORTED = ("supervised", "mean_teacher", "fixmatch_cutmix")
 _ALL = ("supervised", "mean_teacher", "fixmatch_cutmix", "cps")
 
 
 def get_method(name: str) -> ModuleType:
     if name not in _ALL:
         raise ValueError(f"unknown method {name!r}; valid: {list(_ALL)}")
-    if name not in _PORTED:
-        raise NotImplementedError(
-            f"method {name!r} is not yet ported (ROADMAP.md Queue 1); ported: {list(_PORTED)}")
     from semi_supervised_semantic_segmentation_tpu_torch.methods import (
+        cps,
         fixmatch,
         mean_teacher,
         supervised,
     )
 
     return {"supervised": supervised, "mean_teacher": mean_teacher,
-            "fixmatch_cutmix": fixmatch}[name]
+            "fixmatch_cutmix": fixmatch, "cps": cps}[name]

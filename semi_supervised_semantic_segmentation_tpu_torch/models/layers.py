@@ -22,6 +22,7 @@ from semi_supervised_semantic_segmentation_tpu_torch.ops import branch_conv
 from semi_supervised_semantic_segmentation_tpu_torch.ops.stem import stem_conv_bn
 
 _RECOMPUTE = threading.local()
+_VMAP = threading.local()
 
 
 def recomputing() -> bool:
@@ -36,6 +37,17 @@ def _recompute_scope():
         yield
     finally:
         _RECOMPUTE.on = prev
+
+
+@contextlib.contextmanager
+def vmapped():
+    """Marks a forward run under ``torch.func.vmap`` over stacked nets
+    (CPS's ``stacked`` form): :class:`BatchNorm` then normalizes in f32."""
+    prev, _VMAP.on = getattr(_VMAP, "on", False), True
+    try:
+        yield
+    finally:
+        _VMAP.on = prev
 
 
 def checkpoint(fn, *args):
@@ -78,7 +90,8 @@ class BatchNorm(nn.Module):
     stats identically and returns the f32 (mul, add) pair for the caller to
     apply; it is differentiable in the sums, so their cotangent reaches the
     kernel's backward.  Neither mode updates the running statistics while a
-    checkpointed forward is re-run (:func:`recomputing`)."""
+    checkpointed forward is re-run (:func:`recomputing`).  Under
+    :func:`vmapped` a bf16 input is normalized in f32 and rounded once."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -94,6 +107,11 @@ class BatchNorm(nn.Module):
         if self.training and recomputing():
             # a re-run updates copies (the same ops save the same tensors)
             rm, rv = rm.clone(), rv.clone()
+        if getattr(_VMAP, "on", False) and x.dtype != self.weight.dtype:
+            # vmap's batch_norm rule on the CPU refuses a bf16 input with
+            # f32 parameters: normalize in f32 and round the output once
+            return F.batch_norm(x.float(), rm, rv, self.weight, self.bias, self.training,
+                                1.0 - self.momentum, self.eps).to(x.dtype)
         return F.batch_norm(x, rm, rv, self.weight, self.bias, self.training,
                             1.0 - self.momentum, self.eps)
 
@@ -198,6 +216,12 @@ class StemSegment(nn.Module):
         return F.max_pool2d(c1, 3, 2, 1), c1
 
 
+def keep_mask(shape, p: float, g: torch.Generator, device=None) -> torch.Tensor:
+    """A dropout keep-mask of ``shape``: each element True with probability
+    1-p, drawn from ``g``."""
+    return torch.rand(shape, generator=g, device=device or g.device) < (1.0 - p)
+
+
 def dropout(x: torch.Tensor, p: float, training: bool,
             rng: Optional[object] = None) -> torch.Tensor:
     """Dropout that keeps each element with probability 1-p and scales by
@@ -208,7 +232,7 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     if rng is None:
         return F.dropout(x, p, True)
     if isinstance(rng, torch.Generator):
-        keep = torch.rand(x.shape, generator=rng, device=x.device) < (1.0 - p)
+        keep = keep_mask(x.shape, p, rng, x.device)
     else:
         keep = rng.to(device=x.device, dtype=torch.bool)
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))

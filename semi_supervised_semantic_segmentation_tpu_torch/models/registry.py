@@ -1,10 +1,9 @@
 """Model registry: (backbone, decoder) -> ``SegModel``.
 
 Counterpart of the reference's ``models/registry.py`` for the backbones
-ResNet-18, ResNet-50 and HRNet-W48 and the decoders DeepLabV3+, U-Net and
-the HRNetV2 head; ResNet-101 raises until its slice is ported (ROADMAP.md
-Queue 1 item 7).  ``model.hrnet_width`` / ``model.hrnet_modules`` (default
-48 and (1, 4, 3), the reference's fixed W48) size the HRNet.
+ResNet-18, ResNet-50, ResNet-101 and HRNet-W48 and the decoders DeepLabV3+,
+U-Net and the HRNetV2 head.  ``model.hrnet_width`` / ``model.hrnet_modules``
+(default 48 and (1, 4, 3), the reference's fixed W48) size the HRNet.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from semi_supervised_semantic_segmentation_tpu_torch.config import Config
 from semi_supervised_semantic_segmentation_tpu_torch.engine import compat
 from semi_supervised_semantic_segmentation_tpu_torch.models.deeplab import DeepLabV3Plus
 from semi_supervised_semantic_segmentation_tpu_torch.models.hrnet import HRNet, HRNetV2Head
+from semi_supervised_semantic_segmentation_tpu_torch.models.layers import keep_mask
 from semi_supervised_semantic_segmentation_tpu_torch.models.resnet import ResNet
 from semi_supervised_semantic_segmentation_tpu_torch.models.unet import UNetDecoder
 
@@ -52,7 +52,7 @@ class SegModel(nn.Module):
         super().__init__()
         self.compute_dtype = compute_dtype
         kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype)
-        if backbone in ("resnet18", "resnet50"):
+        if backbone in ("resnet18", "resnet50", "resnet101"):
             if remat not in ("", "none"):
                 raise NotImplementedError(f"model.remat={remat!r} is not yet ported for ResNet")
             self.encoder = ResNet(backbone, output_stride if decoder == "deeplabv3plus" else 32,
@@ -83,6 +83,19 @@ class SegModel(nn.Module):
 
     def forward(self, x: torch.Tensor, rng: Optional[object] = None) -> torch.Tensor:
         return self.decoder(self.encoder(x), (x.shape[1], x.shape[2]), rng)
+
+    def dropout_mask(self, n: int, h: int, w: int,
+                     g: torch.Generator) -> Optional[torch.Tensor]:
+        """The ASPP dropout's keep-mask for an [n, h, w, 3] input, drawn
+        from ``g`` (each stride-2 layer of the ResNet rounds its size up),
+        or None when the decoder draws no dropout."""
+        if not isinstance(self.decoder, DeepLabV3Plus):
+            return None
+        aspp = self.decoder.aspp
+        for _ in range(int(math.log2(self.encoder.output_stride))):
+            h, w = -(-h // 2), -(-w // 2)
+        return keep_mask((n, aspp.project_norm.BatchNorm_0.weight.shape[0], h, w),
+                         aspp.dropout_p, g)
 
 
 def init_weights(model: nn.Module, seed: int) -> None:

@@ -1,4 +1,4 @@
-"""ResNet-18/50 encoders (torchvision v1.5, dilated for DeepLab); the
+"""ResNet-18/50/101 encoders (torchvision v1.5, dilated for DeepLab); the
 BasicBlock also builds HRNet's branches.
 
 Counterpart of the reference's ``models/resnet.py``: stride on the 3x3
@@ -75,7 +75,8 @@ class Bottleneck(nn.Module):
         return F.relu(self.conv3(self.conv2(self.conv1(x))) + identity)
 
 
-_SPECS = {"resnet18": (BasicBlock, (2, 2, 2, 2)), "resnet50": (Bottleneck, (3, 4, 6, 3))}
+_SPECS = {"resnet18": (BasicBlock, (2, 2, 2, 2)), "resnet50": (Bottleneck, (3, 4, 6, 3)),
+          "resnet101": (Bottleneck, (3, 4, 23, 3))}
 
 
 class ResNet(nn.Module):
@@ -89,6 +90,7 @@ class ResNet(nn.Module):
             raise NotImplementedError(f"backbone {arch!r} is not yet ported")
         block, layers = _SPECS[arch]
         self.expansion = block.expansion
+        self.output_stride = output_stride
         kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype)
         self.stem = StemSegment(64, 7, impl=stem_impl, **kw)
         strides = [1, 2, 2, 2]

@@ -3,8 +3,8 @@
 Counterparts of the reference's ``ops/losses.py``: ``cross_entropy`` with
 ignore 255 (a masked mean that is 0, not NaN, when every pixel is ignored),
 ``ohem_cross_entropy``, ``pseudo_labels_from_logits``,
-``confidence_masked_ce`` with the "all" denominator and Mean Teacher's
-``mse_consistency``.
+``confidence_masked_ce`` with the "all" denominator, Mean Teacher's
+``mse_consistency`` and CPS's ``cps_loss``.
 """
 
 from __future__ import annotations
@@ -20,10 +20,14 @@ def _label_logp(logits: torch.Tensor, labels_safe: torch.Tensor) -> torch.Tensor
     return logp.gather(1, labels_safe.long().unsqueeze(1)).squeeze(1)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore_index: int = 255) -> torch.Tensor:
-    """Pixel CE averaged over non-ignored pixels: (N,C,H,W) x (N,H,W)."""
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = 255,
+                  extra_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pixel CE averaged over non-ignored pixels: (N,C,H,W) x (N,H,W).
+    ``extra_mask`` (N,H,W) bool, where given, also leaves its False pixels
+    out of the mean."""
     valid = labels != ignore_index
+    if extra_mask is not None:
+        valid = valid & extra_mask.bool()
     ll = _label_logp(logits, torch.where(valid, labels, torch.zeros_like(labels)))
     mask = valid.float()
     return -(ll * mask).sum() / mask.sum().clamp(min=1.0)
@@ -69,6 +73,17 @@ def mse_consistency(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
     m = valid_mask.float()[:, None]
     denom = m.sum() * sq.shape[1] if reduction == "mean" else m.sum()
     return (sq * m).sum() / denom.clamp(min=1.0)
+
+
+def cps_loss(logits1: torch.Tensor, logits2: torch.Tensor, ignore_index: int = 255,
+             valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-pseudo-supervision: each net's CE against the other's argmax
+    labels, which carry no gradient; ``valid_mask`` (N,H,W) keeps the
+    padding pixels out of both terms."""
+    y1 = logits1.detach().argmax(dim=1)
+    y2 = logits2.detach().argmax(dim=1)
+    return (cross_entropy(logits1, y2, ignore_index, extra_mask=valid_mask)
+            + cross_entropy(logits2, y1, ignore_index, extra_mask=valid_mask))
 
 
 def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = 255,

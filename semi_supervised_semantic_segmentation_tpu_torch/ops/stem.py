@@ -315,14 +315,22 @@ def stem_dw(x, dy, y, ds, k: int) -> torch.Tensor:
 
 
 class StemConvBN(torch.autograd.Function):
-    """(x, w) -> (y, stats); backward = kernel C, no gradient for x."""
+    """(x, w) -> (y, stats); backward = kernel C, no gradient for x.
+
+    Under ``torch.func.vmap`` (CPS's ``stacked`` form: w carries a leading
+    net axis) the :meth:`vmap` rule runs the function once per slice of
+    that axis, so the card launches B, and in the backward C, once per
+    net."""
 
     @staticmethod
-    def forward(ctx, x, w):
-        y, sums = stem_fwd(x, w)
-        ctx.save_for_backward(x, y)
+    def forward(x, w):
+        return stem_fwd(x, w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w = inputs
+        ctx.save_for_backward(x, output[0])
         ctx.k = w.shape[-1]
-        return y, sums
 
     @staticmethod
     def backward(ctx, dy, ds):
@@ -332,6 +340,14 @@ class StemConvBN(torch.autograd.Function):
         if ds is None:
             ds = torch.zeros((2, y.shape[1]), dtype=torch.float32, device=y.device)
         return None, stem_dw(x, dy, y, ds, ctx.k)
+
+    @staticmethod
+    def vmap(info, in_dims, x, w):
+        xd, wd = in_dims
+        outs = [StemConvBN.apply(x if xd is None else x.select(xd, i),
+                                 w if wd is None else w.select(wd, i))
+                for i in range(info.batch_size)]
+        return (torch.stack([y for y, _ in outs]), torch.stack([s for _, s in outs])), (0, 0)
 
 
 def stem_conv_bn(x: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

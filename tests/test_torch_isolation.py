@@ -42,7 +42,7 @@ def test_importing_every_module_loads_no_jax_or_reference_module():
     assert {f"{PKG}.ops.metrics", f"{PKG}.engine.evaluator", f"{PKG}.engine.compat",
             f"{PKG}.eval"} <= set(got["modules"])
     assert {f"{PKG}.engine.checkpoint", f"{PKG}.models.unet", f"{PKG}.methods.supervised",
-            f"{PKG}.methods.mean_teacher"} <= set(got["modules"])
+            f"{PKG}.methods.mean_teacher", f"{PKG}.methods.cps"} <= set(got["modules"])
     assert got["bad"] == []
 
 
