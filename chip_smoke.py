@@ -12,7 +12,8 @@ Phases; any failure exits non-zero and prints no result:
                 on the same inputs, at the shapes its path gives it (A at
                 config 3's; B at config 3's two batches [8|16,512^2], config
                 1's [8,128^2], config 2's [8|16,256^2], config 4's [8,768^2]
-                and its eval's [16,768^2], [64,768^2] and [144,768^2], C at
+                and its eval's [16|64|144,768^2] (1024^2 canvases) and
+                [32|48|128|160|288|336,768^2] (1024 x 2048), C at
                 [16,512^2], [8,128^2], [16,256^2] and [8,768^2], each twice
                 on the same inputs,
                 bit-equal, with their tile plan and registers; D, D's post
@@ -88,7 +89,14 @@ Phases; any failure exits non-zero and prints no result:
                 scales, B once per scale), its rolling slot resumed on the
                 card as config 2's, and 4 steps of the 'stacked' form (B and
                 C once per net, its step 0 against the separate run's) with
-                their device time.
+                their device time.  Then config 4 again at Cityscapes' own
+                1024 x 2048 canvas (the same synthetic blob world: the
+                card's machine has no libjpeg or libpng, so no Cityscapes
+                tree is decoded there), B and C once per net per step; its
+                eval tiles 62 windows per image and view (992 a pass; the
+                windows of H and W counted apart by ``staged_forwards``,
+                whose count on the square canvas stays B 6 a pass), and the
+                host loaders' batches per second alone, with no device work.
 Then it prints the card's name and power limit, one JSON line of kernel
 records (launches in the training runs, per val pass and per step of each
 config), and the ok line.  A longer report goes to
@@ -97,6 +105,7 @@ config), and the ok line.  A longer report goes to
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -385,8 +394,33 @@ def main() -> None:
             "stacked": stacked_steps(t, c, counters, {**none, "stem_fwd": 2, "stem_dw": 2},
                                      stacked4)})
 
+    # config 4 at Cityscapes' own 1024 x 2048 canvas: the same cut, the
+    # same synthetic blob world at that canvas (the card's machine has no
+    # libjpeg or libpng, so no Cityscapes tree is decoded there); B and C
+    # once per net per step; eval: 8 val canvases, the windows of H and W
+    # counted apart (62 per image and view, 992 a pass, against 28 and 448
+    # on the square canvas, whose count stays B 6 a pass)
+    check(staged_forwards(cfg4) == 6 and sum(staged_windows(cfg4, (1024, 1024))) == 28
+          and sum(staged_windows(cfg4, CITYSCAPES_HW)) == 62,
+          f"staged_forwards: config 4 square {staged_forwards(cfg4)} forwards, windows "
+          f"{staged_windows(cfg4, (1024, 1024))} / {staged_windows(cfg4, CITYSCAPES_HW)}")
+    cfg4w_over = {**cfg4_over, "data.eval_window_batch": WIDE_WINDOW_BATCH}
+    cfg4w = load_config(CONFIG4, {"data.dataset": "synthetic", **cfg4w_over})
+    report["slice_config4_1024x2048"], launches4w, eval4w = slice_phase(
+        torch, "config 4 1024x2048", CONFIG4, cfg4w_over, counters,
+        {**none, "stem_fwd": 2, "stem_dw": 2}, steps=8,
+        eval_expected={**none, "stem_fwd": staged_forwards(cfg4w, CITYSCAPES_HW)},
+        after_fit=host_loader_rates, canvas_hw=CITYSCAPES_HW)
+    windows = [8 * 2 * sum(staged_windows(c, hw)) for c, hw in ((cfg4, (1024, 1024)),
+                                                                (cfg4w, CITYSCAPES_HW))]
+    print(f"[slice] config 4 in this call: {report['slice_config4']['ms_per_step']:.1f} wall "
+          f"ms/step on 1024^2 canvases, {report['slice_config4_1024x2048']['ms_per_step']:.1f} on "
+          f"1024x2048; val pass windows {windows[0]} and {windows[1]}", flush=True)
+    report["slice_config4_1024x2048"]["eval_windows"] = windows[1]
+
     runs = {"config 1": (launches1, eval1, 8), "config 2": (launches2, eval2, 8),
             "config 3": (launches3, eval3, 8), "config 4": (launches4, eval4, 8),
+            "config 4 1024x2048": (launches4w, eval4w, 8),
             "config 4 stacked": (stacked4.get("launches", none), none, STACKED_STEPS),
             "config 5": (launches5, eval5, 8)}
     launches = {k: sum(r[0][k] for r in runs.values()) for k in counters}
@@ -473,9 +507,13 @@ def ptxas_usage(log: str) -> dict:
 # config 2 (256^2: teacher N = 8, student N = 16) and config 4 (768^2: each
 # net N = 8, B and C; its eval's windows of both views per scale, N = 16 at
 # 512^2 and 768^2, 64 and 144 at 768^2); C runs at the student's
+# (N, side, with C): config 3's step; configs 1 and 2's; config 4's step
+# and its eval's windows on 1024^2 canvases (16, 64, 144 a forward) and on
+# 1024 x 2048 ones (32, 48, 128, 160, 288, 336)
 STEM_SHAPES = [(8, 512, False), (16, 512, True), (8, 128, True), (8, 256, False),
                (16, 256, True), (8, 768, True), (16, 768, False), (64, 768, False),
-               (144, 768, False)]
+               (144, 768, False), (32, 768, False), (48, 768, False), (128, 768, False),
+               (160, 768, False), (288, 768, False), (336, 768, False)]
 
 
 def stem_kernels(torch, dev, stem, time_ms, bound, bf16_peak, ptxas) -> dict:
@@ -512,16 +550,24 @@ def stem_kernels(torch, dev, stem, time_ms, bound, bf16_peak, ptxas) -> dict:
         torch.cuda.synchronize()
         check(torch.equal(yk, yk2) and torch.equal(sk, sk2),
               f"B N={n} {h}^2: two launches on the same inputs differ")
+        del yk2, sk2
         yp, sp = stem.stem_fwd_plain(x, wt)
-        err_y = (yk.float() - yp.float()).abs()
         # about one bf16 ulp (2^-8 relative, rounding either way) plus f32
-        # summation-order noise near zero
-        check(bool((err_y <= 2.0 ** -7 * yp.float().abs() + 1e-4).all()),
-              f"B N={n} {h}^2: y differs from the plain version by {err_y.max().item()}")
+        # summation-order noise near zero; 64 images at a time (f32 copies
+        # of y at N = 336 would take 13 GB each)
+        err_y, within = 0.0, True
+        for i in range(0, n, 64):
+            a, b = yk[i:i + 64].float(), yp[i:i + 64].float()
+            e = (a - b).abs()
+            within &= bool((e <= 2.0 ** -7 * b.abs() + 1e-4).all())
+            err_y = max(err_y, e.max().item())
+            del a, b, e
+        check(within, f"B N={n} {h}^2: y differs from the plain version by {err_y}")
         err_s = (sk - sp).abs()
         check(bool((err_s <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all()),
               f"B N={n} {h}^2: stats differ by {err_s.max().item()} (rtol 1e-3 of each "
               f"row's max)")
+        del yp, sp
         x_nchw = x.permute(0, 3, 1, 2)
         k_b = {
             "shape": [n, h, w_, 3],
@@ -532,14 +578,13 @@ def stem_kernels(torch, dev, stem, time_ms, bound, bf16_peak, ptxas) -> dict:
         }
         nbytes = x.numel() * 2 + wt.numel() * 4 + yk.numel() * 2 + sk.numel() * 4
         k_b["bound_ms"], k_b["bound_by"] = bound(nbytes, flops_px * n * h2 * w2, bf16_peak)
-        k_b["max_abs_err"] = err_y.max().item()
+        k_b["max_abs_err"] = err_y
         rows[f"B N{n} {h}^2"] = k_b
         print(f"[kernel B stem_fwd] N={n} {h}x{w_}: max|dy|={k_b['max_abs_err']:.3g} "
               f"max|dstats|={err_s.max().item():.3g}, two launches bit-equal  kernel "
               f"{k_b['ms']:.4f} ms  plain {k_b['plain_ms']:.3f} ms  F.conv2d "
               f"{k_b['library_ms']:.4f} ms  bound {k_b['bound_ms']:.4f} ms ({k_b['bound_by']})",
               flush=True)
-        del yk2, sk2, yp, sp, err_y
         if not with_c:
             continue
         dy = (torch.randn(n, 64, h2, w2, generator=g, device=dev) * 1e-2).to(bf16)
@@ -1662,24 +1707,74 @@ def resume_on_card(torch, trainer, cfg, label: str) -> dict:
             "miou": miou, "trainer_construction_s": restore_s}
 
 
-def staged_forwards(cfg) -> int:
+def staged_forwards(cfg, canvas_hw=None) -> int:
     """Model forwards (so kernel B's launches) of one val pass of the staged
-    path on ``cfg``'s synthetic square canvases: per val batch and scale,
-    every window of every view in one forward, chunked by
-    ``data.eval_window_batch``."""
+    path over ``cfg``'s synthetic val set on ``canvas_hw`` canvases (the
+    square ``synthetic_canvas`` by default): per val batch and scale, every
+    window of every view in one forward, chunked by
+    ``data.eval_window_batch``.  The windows of H and of W are counted
+    apart."""
+    d = cfg.data
+    wb = d.eval_window_batch
+    per_batch = 0
+    for n in staged_windows(cfg, canvas_hw or (d.synthetic_canvas,) * 2):
+        n *= cfg.train.eval_batch_size * (2 if d.eval_flip else 1)
+        per_batch += math.ceil(n / wb) if 0 < wb < n else 1
+    return per_batch * math.ceil(max(d.synthetic_size // 2, 8) / cfg.train.eval_batch_size)
+
+
+def staged_windows(cfg, canvas_hw) -> list:
+    """Sliding windows per image and view at each of ``cfg``'s eval scales
+    on an (H, W) canvas: each scaled side snapped to the encoder stride as
+    the evaluator does, and tiled with its own window starts."""
     from semi_supervised_semantic_segmentation_tpu_torch.engine.evaluator import (
         _snap, _window_starts)
 
     d = cfg.data
     stride = d.eval_stride or d.crop_size * 2 // 3
-    per_batch = 0
+    out = []
     for s in d.eval_scales:
-        side = d.synthetic_canvas if s == 1.0 else _snap(d.synthetic_canvas * s)
-        n = cfg.train.eval_batch_size * (2 if d.eval_flip else 1) * len(
-            _window_starts(side, d.crop_size, stride)) ** 2
-        wb = d.eval_window_batch
-        per_batch += math.ceil(n / wb) if 0 < wb < n else 1
-    return per_batch * math.ceil(max(d.synthetic_size // 2, 8) / cfg.train.eval_batch_size)
+        sides = canvas_hw if s == 1.0 else [_snap(v * s) for v in canvas_hw]
+        out.append(math.prod(len(_window_starts(v, d.crop_size, stride)) for v in sides))
+    return out
+
+
+# Cityscapes' canvas, and the windows per forward of config 4's val pass
+# on it (0: every window of a scale in one forward, as shipped)
+CITYSCAPES_HW = (1024, 2048)
+WIDE_WINDOW_BATCH = 0
+
+
+def host_loader_rates(torch, trainer, cfg, min_batches: int = 8) -> dict:
+    """The host data layer alone, with no device work: batches per second
+    of a loader over the trainer's labeled and unlabeled datasets (its batch
+    size, seed and ``data.num_workers`` threads; ``fit`` closed the
+    trainer's own), over whole epochs from epoch 1 on, at least
+    ``min_batches`` batches.  Each batch is assembled from samples the run
+    already made (no decode: the synthetic datasets cache them)."""
+    from semi_supervised_semantic_segmentation_tpu_torch.data.pipeline import Loader
+
+    out = {}
+    for name, used in (("labeled", trainer.labeled_loader),
+                       ("unlabeled", trainer.unlabeled_loader)):
+        loader = Loader(used.dataset, used.batch_size, seed=used.seed,
+                        num_workers=cfg.data.num_workers)
+        n, epoch = 0, 1
+        t0 = time.time()
+        while n < min_batches:
+            got = sum(1 for _ in loader.epoch(epoch))
+            check(got == len(loader), f"host loader: epoch {epoch} gave {got} batches")
+            if not got:
+                break
+            n, epoch = n + got, epoch + 1
+        out[name] = {"batches": n, "batches_per_s": n / (time.time() - t0),
+                     "batch": loader.batch_size, "canvas_hw": list(loader.canvas_hw)}
+        loader.close()
+    print(f"[host] config 4 loaders alone at {'x'.join(map(str, out['labeled']['canvas_hw']))}, "
+          f"{cfg.data.num_workers} threads, no decode: labeled {out['labeled']['batches_per_s']:.1f} "
+          f"batches/s of {out['labeled']['batch']}, unlabeled "
+          f"{out['unlabeled']['batches_per_s']:.1f} of {out['unlabeled']['batch']}", flush=True)
+    return out
 
 
 STACKED_STEPS = 4
@@ -1755,8 +1850,10 @@ def stacked_steps(torch, cfg, counters: dict, expected: dict, out: dict) -> dict
 
 
 def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: dict,
-                expected: dict, steps: int, eval_expected: dict, after_fit=None):
-    """One config through the Trainer on synthetic data for ``steps`` steps.
+                expected: dict, steps: int, eval_expected: dict, after_fit=None,
+                canvas_hw=None):
+    """One config through the Trainer on synthetic data for ``steps`` steps
+    (on ``canvas_hw`` canvases where given: :func:`synthetic_canvas_hw`).
     Every launch counter is set to 0 just before and read just after; each
     step must launch each kernel ``expected`` times.  Steps 3..steps-2 are
     timed; the last two run under torch.profiler for the breakdown of device
@@ -1788,7 +1885,8 @@ def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: 
         "data.dataset": "synthetic", "data.num_workers": 8, "train.iters_per_epoch": steps,
         "train.epochs": 1, "train.log_interval": 1, "train.work_dir": work_dir, **overrides,
     })
-    trainer = Trainer(cfg)  # default device: CUDA
+    with synthetic_canvas_hw(canvas_hw):
+        trainer = Trainer(cfg)  # default device: CUDA
     inner = trainer.train_step
     per_step, losses, times = [], [], []
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -1872,7 +1970,8 @@ def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: 
                                             if trainer.method.uses_unlabeled else 0)
     batch = (f"{cfg.train.labeled_batch_size}+{cfg.train.unlabeled_batch_size}"
              if trainer.method.uses_unlabeled else f"{cfg.train.labeled_batch_size}")
-    print(f"[slice] {label} synthetic, {cfg.model.backbone}+{cfg.model.decoder}, "
+    print(f"[slice] {label} synthetic ({'x'.join(map(str, trainer.labeled_loader.canvas_hw))} "
+          f"canvases), {cfg.model.backbone}+{cfg.model.decoder}, "
           f"{cfg.method.name}, {batch} at "
           f"{cfg.data.crop_size}^2, {steps} steps: losses {[round(v, 4) for v in losses]}; "
           f"launches per step {per_step[-1]}; {ms:.1f} ms/step (median of steps "
@@ -1887,6 +1986,7 @@ def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: 
     # ---- the val pass
     eval_launches = ev.get("launches", {k: 0 for k in counters})
     n_val = len(trainer.val_loader.dataset)
+    vh, vw = trainer.val_loader.dataset.canvas_hw
     with open(os.path.join(cfg.train.work_dir, "metrics.jsonl")) as f:
         last = json.loads(f.read().strip().splitlines()[-1])
     val = last.get("val", {})
@@ -1899,7 +1999,7 @@ def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: 
               f"{label}: the warm val pass launched {ev['warm_launches']}, the first "
               f"{eval_launches}")
         print(f"[slice] {label} eval ({'staged' if use_staged(cfg) else 'fused'} path, "
-              f"{n_val} val images at {cfg.data.synthetic_canvas}^2, scales "
+              f"{n_val} val images at {vh}x{vw}, scales "
               f"{tuple(cfg.data.eval_scales)}, flip {cfg.data.eval_flip}, eval_batch_size "
               f"{cfg.train.eval_batch_size}): mIoU {ev['miou']:.4f}; warm pass "
               f"{ev['warm_seconds']:.3f} s = {n_val / ev['warm_seconds']:.2f} val img/s (the "
@@ -1917,6 +2017,30 @@ def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: 
     if after_fit is not None:
         record["after_fit"] = after_fit(torch, trainer, cfg)
     return record, launches, eval_launches
+
+
+@contextlib.contextmanager
+def synthetic_canvas_hw(hw):
+    """While active, ``build_dataset`` of the trainer and the evaluator
+    gives its synthetic datasets ``hw`` canvases in place of the config's
+    square ones: the same blob world, seeds and sizes.  ``None``: no change."""
+    from semi_supervised_semantic_segmentation_tpu_torch.data import datasets
+    from semi_supervised_semantic_segmentation_tpu_torch.engine import evaluator, trainer
+
+    build = datasets.build_dataset
+
+    def build_dataset(cfg, role):
+        ds = build(cfg, role)
+        return datasets.SyntheticDataset(ds.num_classes, ds.size, image_hw=tuple(hw), seed=ds.seed,
+                                         labeled=ds.labeled, appearance_range=ds.appearance_range)
+
+    for m in (trainer, evaluator):
+        m.build_dataset = build_dataset if hw else build
+    try:
+        yield
+    finally:
+        for m in (trainer, evaluator):
+            m.build_dataset = build
 
 
 # lower-cased kernel-name fragments -> group, first match wins

@@ -3,6 +3,8 @@
 Port-owned copy of the reference's numpy-only ``data/pipeline.py``: a
 background thread assembles uint8 canvas batches through a thread pool into
 a bounded queue; the same seed gives byte-equal batches on both sides.
+With ``process_count`` > 1 each process yields its own contiguous row block
+of every global batch, as the reference's multi-host loader does.
 """
 
 from __future__ import annotations
@@ -56,7 +58,15 @@ class Loader:
         prefetch: int = 4,
         canvas_hw: Optional[Tuple[int, int]] = None,
         pad_mode: str = "wrap",  # 'wrap' (train) | 'blank' (eval: exact count)
+        process_index: int = 0,
+        process_count: int = 1,
     ):
+        # Every process computes the same global order and assembles only
+        # its contiguous row block of each global batch.
+        assert batch_size % process_count == 0, (batch_size, process_count)
+        self.process_index = process_index
+        self.process_count = process_count
+        self.local_batch_size = batch_size // process_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
@@ -90,6 +100,8 @@ class Loader:
     def epoch(self, epoch: int) -> Iterator[Batch]:
         """Iterate one epoch with background prefetch."""
         batches = self._epoch_indices(epoch).reshape(-1, self.batch_size)
+        lo = self.process_index * self.local_batch_size
+        batches = batches[:, lo:lo + self.local_batch_size]
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
 

@@ -251,7 +251,8 @@ def val_loader(cfg: Config) -> Loader:
     """The val set in order, every sample once: the last batch is padded
     with blank slots (index -1, all labels ignored)."""
     return Loader(build_dataset(cfg, "val"), cfg.train.eval_batch_size, shuffle=False,
-                  drop_last=False, pad_mode="blank", num_workers=cfg.data.num_workers)
+                  drop_last=False, pad_mode="blank", num_workers=cfg.data.num_workers,
+                  process_index=0, process_count=1)
 
 
 def eval_confusion(eval_step: EvalStep, model: nn.Module, loader, device,

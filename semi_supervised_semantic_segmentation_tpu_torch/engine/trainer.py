@@ -163,12 +163,15 @@ class Trainer:
         self.model = build_model(cfg).to(self.device)
 
         t = cfg.train
+        # one process holds the whole batch until data parallelism lands
         self.labeled_loader = Loader(build_dataset(cfg, "labeled"), t.labeled_batch_size,
-                                     seed=t.seed, num_workers=cfg.data.num_workers)
+                                     seed=t.seed, num_workers=cfg.data.num_workers,
+                                     process_index=0, process_count=1)
         if self.method.uses_unlabeled:
             self.unlabeled_loader = Loader(build_dataset(cfg, "unlabeled"),
                                            t.unlabeled_batch_size, seed=t.seed + 17,
-                                           num_workers=cfg.data.num_workers)
+                                           num_workers=cfg.data.num_workers,
+                                           process_index=0, process_count=1)
             self.dual = DualLoader(self.labeled_loader, self.unlabeled_loader)
             self.iters_per_epoch = t.iters_per_epoch or len(self.dual)
         else:

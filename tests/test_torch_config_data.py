@@ -99,7 +99,7 @@ def test_synthetic_samples_byte_equal(gapped):
         assert sa.size == sb.size
 
 
-def test_split_and_dataset_roles_equal():
+def test_split_and_dataset_roles_equal(tmp_path):
     ids = [f"img_{i:03d}" for i in range(50)]
     for split in ("1_16", "1_8", "1_4", "full"):
         assert datasets.deterministic_split(ids, split) == jdatasets.deterministic_split(ids, split)
@@ -109,8 +109,13 @@ def test_split_and_dataset_roles_equal():
     for role in ("labeled", "unlabeled", "val"):
         a, b = datasets.build_dataset(ours, role), jdatasets.build_dataset(theirs, role)
         assert a.ids == b.ids and a.canvas_hw == b.canvas_hw and a.labeled == b.labeled
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        datasets.build_dataset(config.config_from_dict({"data": {"dataset": "voc"}}), "labeled")
+    # a real dataset (tests/test_torch_datasets.py) whose root is missing:
+    # both raise, as the reference does
+    missing = {"data": {"dataset": "voc", "data_root": str(tmp_path / "voc")}}
+    for build, cfg in ((datasets.build_dataset, config.config_from_dict(missing)),
+                       (jdatasets.build_dataset, jconfig.config_from_dict(missing))):
+        with pytest.raises(FileNotFoundError):
+            build(cfg, "labeled")
 
 
 def _loaders(mod_ds, mod_pipe):
