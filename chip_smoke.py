@@ -4,6 +4,9 @@
     python3 chip_smoke.py                 (from the repository root; needs one CUDA card)
     python3 chip_smoke.py --kernels-only  (phases 1 and 2 for kernels B, C, D and E
                                            only: their checks and times, no ok line)
+    python3 chip_smoke.py --ddp           (phase 1 and phase 5 only, no ok line)
+    python3 chip_smoke.py --kernel-a-ab DIR  (kernel A of the checkout at DIR, e.g. a
+                                           parent's, against this one's, in turns)
 
 Phases; any failure exits non-zero and prints no result:
  1. build    -- compile ``csrc/*.cu`` with nvcc for sm_90a (one nvcc per
@@ -97,6 +100,30 @@ Phases; any failure exits non-zero and prints no result:
                 windows of H and W counted apart by ``staged_forwards``,
                 whose count on the square canvas stays B 6 a pass), and the
                 host loaders' batches per second alone, with no device work.
+ 5. ddp      -- data parallelism (``…_torch/parallel/``).  Step 0: the
+                card's compute mode, NCCL's and gloo's availability, and a
+                two-process gloo ``all_reduce`` (f32, uint8) and
+                ``broadcast`` of CUDA tensors on ``cuda:0``.  (a) config 3
+                for 8 steps under a one-rank NCCL group (every collective
+                through NCCL) against the run with no group, twice (the
+                card's run-to-run control).  (b) config 3 (8 + 8, each rank
+                4 + 4) and (c) config 5 (4 + 4, each rank 2 + 2; OHEM,
+                branch_conv pallas, remat stages:3) through ``Trainer.fit``
+                on two ranks that share the card over gloo, started as
+                ``chip_smoke.py --ddp-rank`` subprocesses under
+                ``torch.distributed.run``'s environment, against one
+                process on the gathered batch from the same weights over 2
+                steps: loss and update distances within ``DDP_LIMITS`` (2x
+                the one-process bf16-vs-f32 control, measured beside them),
+                the ranks' states bit-equal (sha256), A 1 / B 2 / C 1
+                (config 3) and D 448 / E 128 (config 5) per rank and step,
+                collectives and bytes reduced, stream, kernel and wall ms
+                per step, kernel A with the other rank's partner row
+                against its plain version, the val pass's confusion matrix
+                (its total, and the pixels classified differently), the
+                OHEM threshold, and rank 0's records alone in
+                ``metrics.jsonl``.  (d) (b)'s rolling slot, written by rank 0,
+                restored by a one-process Trainer bit-equal.
 Then it prints the card's name and power limit, one JSON line of kernel
 records (launches in the training runs, per val pass and per step of each
 config), and the ok line.  A longer report goes to
@@ -201,6 +228,14 @@ def main() -> None:
 
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     kernels_only = "--kernels-only" in sys.argv[1:]
+    ddp_only = "--ddp" in sys.argv[1:]
+    if "--kernel-a-ab" in sys.argv[1:]:
+        report["kernel_a_ab"] = kernel_a_ab(torch, sys.argv[sys.argv.index("--kernel-a-ab") + 1])
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_kernel_a_ab.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        print(f"card: {smi_line}", flush=True)
+        sys.exit(1 if FAILURES else 0)
 
     def time_ms(fn, reps: int = 10) -> float:
         """Median of ``reps`` single calls, each after an L2 flush."""
@@ -224,6 +259,14 @@ def main() -> None:
     kernels = {}
     g = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
+    if ddp_only:
+        report["ddp"] = ddp_phase(torch, ddp_counters(stem, branch_conv, cmn))
+        report["failures"] = FAILURES
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_ddp.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        print(f"card: {smi_line}", flush=True)
+        sys.exit(1 if FAILURES else 0)
     if kernels_only:
         report["stem_kernels"] = stem_kernels(torch, dev, stem, time_ms, bound, bf16_peak, ptxas)
         rows = branch_kernels(torch, dev, branch_conv, time_ms, bound, bf16_peak, ptxas)
@@ -260,13 +303,29 @@ def main() -> None:
     check(bool((err_i <= 2.0 ** -7 * pi.float().abs() + 1e-6).all()),
           f"A: image differs by {err_i.max().item()} (about one bf16 ulp allowed)")
     check(torch.equal(ol, pl) and torch.equal(oc, pc), "A: labels or conf differ")
+    # row 0's partner from outside the batch (another rank's last row under
+    # data parallelism): a row of fresh inputs
+    partner = (torch.rand(h, w_, 3, generator=g, device=dev),
+               torch.randint(0, 21, (h, w_), generator=g, device=dev, dtype=torch.int32),
+               torch.rand(h, w_, generator=g, device=dev) > 0.5)
+    qi, ql, qc = cmn.cutmix_normalize_triton(imgs, labs, conf, boxes, mean, std, bf16, partner)
+    ri, rl, rc = cmn.cutmix_normalize_plain(imgs, labs, conf, boxes, mean, std, bf16, partner)
+    err_q = (qi.float() - ri.float()).abs()
+    check(bool((err_q <= 2.0 ** -7 * ri.float().abs() + 1e-6).all()) and torch.equal(ql, rl)
+          and torch.equal(qc, rc) and int(boxes[0, 1] - boxes[0, 0]) > 0
+          and not torch.equal(qi[0], oi[0]),
+          f"A with a partner row from outside the batch differs from its plain version "
+          f"(max |dimg| {err_q.max().item()})")
+    print(f"[kernel A cutmix_normalize] row 0's partner from outside the batch: max|dimg| "
+          f"{err_q.max().item():.3g}, labels/conf exact", flush=True)
     k_a = {
         "ms": time_ms(lambda: cmn.cutmix_normalize_triton(imgs, labs, conf, boxes, mean, std, bf16)),
         "plain_ms": time_ms(lambda: cmn.cutmix_normalize_plain(imgs, labs, conf, boxes, mean, std, bf16)),
         "library_ms": None,
     }
     nbytes = imgs.numel() * 4 + labs.numel() * 4 + conf.numel() + boxes.numel() * 4 \
-        + oi.numel() * 2 + ol.numel() * 4 + oc.numel()
+        + oi.numel() * 2 + ol.numel() * 4 + oc.numel() \
+        + (imgs[-1].numel() * 4 + labs[-1].numel() * 4 + conf[-1].numel())  # the partner row
     k_a["bound_ms"], k_a["bound_by"] = bound(nbytes, 2.0 * imgs.numel(), f32_peak)
     k_a["max_abs_err"] = err_i.max().item()
     kernels["cutmix_normalize"] = k_a
@@ -274,7 +333,7 @@ def main() -> None:
           f"{triton_s:.1f} s  max|dimg|={k_a['max_abs_err']:.3g} labels/conf exact  kernel "
           f"{k_a['ms']:.3f} ms  plain {k_a['plain_ms']:.3f} ms  bound {k_a['bound_ms']:.4f} ms "
           f"({k_a['bound_by']})", flush=True)
-    del imgs, labs, conf, oi, ol, oc, pi, pl, pc
+    del imgs, labs, conf, oi, ol, oc, pi, pl, pc, partner, qi, ql, qc, ri, rl, rc
     report["triton_first_launch_s"] = triton_s
 
     # ------------------------------------------ 2. kernels: D, E (config 5)
@@ -306,21 +365,7 @@ def main() -> None:
     report["reference"]["unet_steps"] = unet_step_reference(torch, dev)
 
     # ------------------------------------------------------ 4. the slices
-    # name -> (wrapper, counter attribute); "branch_conv_dx_post" counts D's
-    # post-mode launches (also in D's "launches"), "..._c96" / "..._c48"
-    # those of them on D96 / D48, "branch_conv_dw_async" E's launches on its
-    # asynchronous ring
-    counters = {"cutmix_normalize": (cmn.cutmix_normalize_triton, "launches"),
-                "stem_fwd": (stem.stem_fwd_cuda, "launches"),
-                "stem_dw": (stem.stem_dw_cuda, "launches"),
-                "branch_conv_fwd": (branch_conv.conv3x3_fwd_cuda, "launches"),
-                "branch_conv_dx_post": (branch_conv.conv3x3_fwd_cuda, "launches_post"),
-                "branch_conv_fwd_c96": (branch_conv.conv3x3_fwd_cuda, "launches_c96"),
-                "branch_conv_dx_post_c96": (branch_conv.conv3x3_fwd_cuda, "launches_c96_post"),
-                "branch_conv_fwd_c48": (branch_conv.conv3x3_fwd_cuda, "launches_c48"),
-                "branch_conv_dx_post_c48": (branch_conv.conv3x3_fwd_cuda, "launches_c48_post"),
-                "branch_conv_dw": (branch_conv.conv3x3_dw_cuda, "launches"),
-                "branch_conv_dw_async": (branch_conv.conv3x3_dw_cuda, "launches_async")}
+    counters = ddp_counters(stem, branch_conv, cmn)
     none = {k: 0 for k in counters}
     # eval: config 3's 24 synthetic val images in 3 batches of 8, two
     # forwards each (the image and its mirror), one stem each: B 2 x 3
@@ -418,11 +463,23 @@ def main() -> None:
           f"1024x2048; val pass windows {windows[0]} and {windows[1]}", flush=True)
     report["slice_config4_1024x2048"]["eval_windows"] = windows[1]
 
+    # --------------------------------------------------------------- 5. ddp
+    report["ddp"] = ddp = ddp_phase(torch, counters)
+
     runs = {"config 1": (launches1, eval1, 8), "config 2": (launches2, eval2, 8),
             "config 3": (launches3, eval3, 8), "config 4": (launches4, eval4, 8),
             "config 4 1024x2048": (launches4w, eval4w, 8),
             "config 4 stacked": (stacked4.get("launches", none), none, STACKED_STEPS),
             "config 5": (launches5, eval5, 8)}
+    # ddp: (a)'s NCCL run, and rank 0 of (b) and (c) (each rank launches as
+    # many; their val passes are counted in the phase's own checks)
+    if "a" in ddp:
+        runs["ddp (a) config 3, one NCCL rank"] = (ddp["a"]["launches"], none, NCCL_STEPS)
+    for label in ("config 3", "config 5"):
+        ranks = ddp.get(label, {}).get("ranks")
+        if ranks and ranks[0] is not None:
+            run = {k: sum(s["launches"].get(k, 0) for s in ranks[0]["steps"]) for k in counters}
+            runs[f"ddp {label}, rank 0 of 2"] = (run, none, DDP_STEPS)
     launches = {k: sum(r[0][k] for r in runs.values()) for k in counters}
     by_config = {k: {c: {"per_step": r[0][k] / r[2], "run": r[0][k], "per_val_pass": r[1][k]}
                      for c, r in runs.items() if r[0][k] or r[1][k]} for k in counters}
@@ -2096,5 +2153,650 @@ def device_breakdown(torch, prof, wall_ms: float, nsteps: int, unit: str = "step
     return out
 
 
+# ---------------------------------------------------------------------------
+# 5. ddp: data parallelism on two ranks that share the card
+# ---------------------------------------------------------------------------
+
+# Limits of the 2-rank run against one process on the gathered batch, over
+# the 2 steps of phases (b) and (c): the largest relative distance of a
+# step's loss, and the relative distance of the update of every parameter
+# as one vector.  Fixed at 2x the card's bf16-versus-f32 reading of the same
+# one-process run (PERF.md, PR 14).
+# one-process run (the same 2 steps) on NVIDIA H100 80GB HBM3, 700.00 W:
+# config 3 loss 0.00486, update 0.733; config 5 loss 0.0643, update 0.518.
+DDP_LIMITS = {"config 3": {"loss": 0.0097, "update": 1.47},
+              "config 5": {"loss": 0.129, "update": 1.04}}
+DDP_STEPS = 2
+DDP_TIMEOUT_S = 420
+# (a): config 3's steps with and without a one-rank NCCL group
+NCCL_STEPS = 8
+
+
+def kernel_a_ab(torch, parent_dir: str) -> dict:
+    """Kernel A of the checkout at ``parent_dir`` (its
+    ``ops/cutmix_normalize.py``, no partner input) against this checkout's
+    (row 0's partner an input) at config 3's shape [8,512^2], in turns
+    parent, change, change, parent, twice: the median of 20 single calls,
+    each after an L2 flush.  Both hold the plain version's labels and conf
+    exactly."""
+    import importlib.util
+
+    from semi_supervised_semantic_segmentation_tpu_torch.ops import augment
+    from semi_supervised_semantic_segmentation_tpu_torch.ops import cutmix_normalize as cmn
+
+    rel = os.path.join("semi_supervised_semantic_segmentation_tpu_torch", "ops",
+                       "cutmix_normalize.py")
+    spec = importlib.util.spec_from_file_location("parent_cutmix_normalize",
+                                                  os.path.join(parent_dir, rel))
+    old = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(old)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, h, w = 8, 512, 512
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    imgs = torch.rand(b, h, w, 3, generator=g, device=dev)
+    labs = torch.randint(0, 21, (b, h, w), generator=g, device=dev, dtype=torch.int32)
+    conf = torch.rand(b, h, w, generator=g, device=dev) > 0.5
+    boxes = augment.cutmix_boxes(torch.rand(b, 4, generator=g, device=dev), h, w, 1.0)
+    runs = {"parent": lambda: old.cutmix_normalize_triton(imgs, labs, conf, boxes, mean, std),
+            "change": lambda: cmn.cutmix_normalize_triton(imgs, labs, conf, boxes, mean, std)}
+    want = cmn.cutmix_normalize_plain(imgs, labs, conf, boxes, mean, std)
+    for name, fn in runs.items():
+        got = fn()
+        check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+              and torch.equal(got[0], runs["parent"]()[0]),
+              f"kernel A A/B: the {name} kernel differs from the plain version or the parent")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def median_ms(fn, reps=20):
+        times = []
+        for _ in range(reps):
+            flush.zero_()
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            torch.cuda.synchronize()
+            times.append(s.elapsed_time(e))
+        return statistics.median(times)
+
+    out = {"parent": [], "change": []}
+    for name in ("parent", "change", "change", "parent") * 2:
+        out[name].append(median_ms(runs[name]))
+    print(f"[kernel A A/B] [8,512^2], median of 20 calls each, in turns parent, change, change, "
+          f"parent (x2): parent {[round(v, 4) for v in out['parent']]} ms, change "
+          f"{[round(v, 4) for v in out['change']]} ms", flush=True)
+    return out
+
+
+def ddp_counters(stem, branch_conv, cmn) -> dict:
+    """name -> (wrapper, counter attribute); "branch_conv_dx_post" counts D's
+    post-mode launches (also in D's "launches"), "..._c96" / "..._c48" those
+    of them on D96 / D48, "branch_conv_dw_async" E's launches on its
+    asynchronous ring."""
+    return {"cutmix_normalize": (cmn.cutmix_normalize_triton, "launches"),
+            "stem_fwd": (stem.stem_fwd_cuda, "launches"),
+            "stem_dw": (stem.stem_dw_cuda, "launches"),
+            "branch_conv_fwd": (branch_conv.conv3x3_fwd_cuda, "launches"),
+            "branch_conv_dx_post": (branch_conv.conv3x3_fwd_cuda, "launches_post"),
+            "branch_conv_fwd_c96": (branch_conv.conv3x3_fwd_cuda, "launches_c96"),
+            "branch_conv_dx_post_c96": (branch_conv.conv3x3_fwd_cuda, "launches_c96_post"),
+            "branch_conv_fwd_c48": (branch_conv.conv3x3_fwd_cuda, "launches_c48"),
+            "branch_conv_dx_post_c48": (branch_conv.conv3x3_fwd_cuda, "launches_c48_post"),
+            "branch_conv_dw": (branch_conv.conv3x3_dw_cuda, "launches"),
+            "branch_conv_dw_async": (branch_conv.conv3x3_dw_cuda, "launches_async")}
+
+
+# expected launches per training step of each slice the ddp phase runs
+# (each rank launches as many as one process, each launch on its rows)
+DDP_EXPECTED = {
+    "config 3": {"cutmix_normalize": 1, "stem_fwd": 2, "stem_dw": 1},
+    "config 5": {"branch_conv_fwd": 448, "branch_conv_dx_post": 64, "branch_conv_fwd_c96": 224,
+                 "branch_conv_dx_post_c96": 32, "branch_conv_fwd_c48": 224,
+                 "branch_conv_dx_post_c48": 32, "branch_conv_dw": 128,
+                 "branch_conv_dw_async": 128},
+}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(job: str, world: int = 2, timeout: float = DDP_TIMEOUT_S) -> list:
+    """Run ``chip_smoke.py --ddp-rank <job>`` as ``world`` processes with the
+    environment ``torch.distributed.run`` gives its workers (every rank on
+    the card, so the port picks gloo); each writes a JSON result.  A rank
+    that exits non-zero, or outlives ``timeout``, fails the phase; the
+    others are then killed.  Returns the results in rank order (None for a
+    rank that failed)."""
+    port = _free_port()
+    procs, logs, outs = [], [], []
+    for r in range(world):
+        env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+               "WORLD_SIZE": str(world), "RANK": str(r), "LOCAL_RANK": str(r),
+               "LOCAL_WORLD_SIZE": str(world)}
+        out = os.path.join(REPO, "build", f"ddp_{job}_rank{r}.json")
+        log = os.path.join(OUT_DIR, f"ddp_{job}_rank{r}.log")
+        if os.path.exists(out):
+            os.remove(out)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        f = open(log, "w")
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-rank",
+                                       job, out], env=env, stdout=f, stderr=subprocess.STDOUT,
+                                      cwd=REPO))
+        logs.append((f, log))
+        outs.append(out)
+    deadline = time.time() + timeout
+    codes = [None] * world
+    while any(c is None for c in codes):
+        for i, p in enumerate(procs):
+            if codes[i] is None:
+                codes[i] = p.poll()
+        failed = any(c not in (None, 0) for c in codes)
+        if failed or time.time() > deadline:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            codes = [p.wait() for p in procs]
+            break
+        time.sleep(0.5)
+    results = []
+    for r, ((f, log), out) in enumerate(zip(logs, outs)):
+        f.close()
+        ok = codes[r] == 0 and os.path.exists(out)
+        check(ok, f"ddp {job}: rank {r} exited with {codes[r]} (timeout {timeout} s); log "
+              f"chiprun_out/{os.path.basename(log)}")
+        if not ok:
+            with open(log) as lf:
+                tail = lf.read()[-3000:]
+            print(f"[ddp] {job} rank {r} log tail:\n{tail}", flush=True)
+            results.append(None)
+            continue
+        with open(out) as jf:
+            results.append(json.load(jf))
+    return results
+
+
+def _ddp_cfg(config_path: str, overrides: dict, work_dir: str):
+    from semi_supervised_semantic_segmentation_tpu_torch.config import load_config
+
+    return load_config(config_path, {
+        "data.dataset": "synthetic", "data.num_workers": 8, "train.iters_per_epoch": DDP_STEPS,
+        "train.epochs": 1, "train.log_interval": 1, "train.checkpoint_interval": 1,
+        "train.work_dir": work_dir, **overrides})
+
+
+# the card's bf16 run and the control's f32 run of each slice: the kernels
+# take bf16 only, so the f32 control runs the plain convs (cuDNN)
+DDP_SLICES = {
+    "config 3": (CONFIG3, {"data.synthetic_canvas": 512, "data.synthetic_size": 48,
+                           "data.cutmix_impl": "pallas", "model.stem_impl": "pallas"},
+                 {"model.compute_dtype": "float32", "model.stem_impl": "conv"}),
+    "config 5": (CONFIG5, {"data.synthetic_canvas": 1024, "data.synthetic_size": 8,
+                           "train.labeled_batch_size": 4, "train.unlabeled_batch_size": 4},
+                 {"model.compute_dtype": "float32", "model.branch_conv": "xla"}),
+}
+
+
+def _state_vector(torch, state):
+    """Every trained net's parameters (CPS: both), then the buffers and the
+    teacher's tensors, as one f32 CPU vector (the update is read from the
+    parameters' part)."""
+    nets = state.nets()
+    params = [p for n in nets for p in n.parameters()]
+    rest = [b for n in nets for b in n.buffers()]
+    if state.ema_model is not None:
+        rest += list(state.ema_model.parameters()) + list(state.ema_model.buffers())
+    flat = lambda ts: torch.cat([t.detach().float().reshape(-1).cpu() for t in ts])  # noqa: E731
+    return flat(params), flat(rest)
+
+
+def _state_checksum(torch, state) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for net in state.nets() + [n for n in (state.ema_model,) if n is not None]:
+        for t in list(net.parameters()) + list(net.buffers()):
+            h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    for bufs in state.optimizer.bufs:
+        for t in bufs:
+            h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def ddp_run(torch, label: str, overrides: dict, work_dir: str, counters: dict,
+            mesh_ranks: int, evaluate: bool = True):
+    """``Trainer.fit`` of slice ``label`` for ``DDP_STEPS`` steps (one val pass,
+    one rolling slot) in this process -- one rank of a group, or the whole
+    batch with no group -- with per-step launches of each kernel counter,
+    collectives and bytes reduced, device ms (CUDA events) and wall ms, each
+    step's OHEM order statistic, the state before and after, and the
+    confusion matrix of a second val pass.  ``evaluate`` false: the steps
+    alone, no val pass and no slot.  -> (record, state vectors)."""
+    import numpy as np
+
+    from semi_supervised_semantic_segmentation_tpu_torch.engine import evaluator
+    from semi_supervised_semantic_segmentation_tpu_torch.engine.trainer import Trainer
+    from semi_supervised_semantic_segmentation_tpu_torch.ops import losses
+    from semi_supervised_semantic_segmentation_tpu_torch.parallel import mesh as mesh_lib
+
+    config_path, base, _ = DDP_SLICES[label]
+    cfg = _ddp_cfg(config_path, {**base, **overrides}, work_dir)
+    trainer = Trainer(cfg)
+    check(trainer.mesh.size == mesh_ranks, f"ddp {label}: mesh {trainer.mesh.shape}, expected "
+          f"{mesh_ranks} rank(s)")
+    p0, _ = _state_vector(torch, trainer.state)
+    inner, steps = trainer.train_step, []
+    kth = losses.kth_smallest_nonneg_f32
+    kths = []
+
+    def recorded_kth(*a, **k):
+        v = kth(*a, **k)
+        kths.append(float(v))
+        return v
+
+    losses.kth_smallest_nonneg_f32 = recorded_kth
+
+    def counted(state, lab, unlab):
+        torch.cuda.synchronize()
+        before = {k: getattr(f, a) for k, (f, a) in counters.items()}
+        coll = dict(mesh_lib.COUNTS)
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        # the last step under the profiler: its kernels' device time
+        prof = None
+        if len(steps) == DDP_STEPS - 1:
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+            prof.start()
+        t0 = time.time()
+        s.record()
+        m = inner(state, lab, unlab)
+        e.record()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        kernel_ms = None
+        if prof is not None:
+            prof.stop()
+            from torch.autograd import DeviceType
+
+            kernel_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
+                            if ev.device_type == DeviceType.CUDA) / 1e3
+        steps.append({"wall_ms": wall, "stream_ms": s.elapsed_time(e), "kernel_ms": kernel_ms,
+                      "launches": {k: getattr(f, a) - before[k] for k, (f, a) in counters.items()},
+                      "collectives": mesh_lib.COUNTS["collectives"] - coll["collectives"],
+                      "bytes": mesh_lib.COUNTS["bytes"] - coll["bytes"],
+                      "loss": float(m["loss"]), "rows": int(lab["image"].shape[0])})
+        return m
+
+    trainer.train_step = counted
+    try:
+        if evaluate:
+            trainer.fit()
+        else:
+            try:
+                for lab, unlab in trainer.batches(0):
+                    counted(trainer.state, lab, unlab)
+            finally:
+                trainer.close()
+    finally:
+        losses.kth_smallest_nonneg_f32 = kth
+    p1, rest = _state_vector(torch, trainer.state)
+    cm = np.zeros((1, 1), np.int64)
+    if evaluate:
+        loader = evaluator.val_loader(cfg, trainer.mesh)
+        try:
+            cm = evaluator.eval_confusion(
+                trainer.eval_step, evaluator.inference_model(trainer.state, trainer.method),
+                loader, trainer.device, mesh=trainer.mesh)
+        finally:
+            loader.close()
+    out = {"steps": steps, "kth": kths, "cm": np.asarray(cm).tolist(),
+           "checksum": _state_checksum(torch, trainer.state), "step": trainer.state.step,
+           "rank": trainer.mesh.rank, "mesh": trainer.mesh.shape,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    vec = {"before": p0, "after": p1, "rest": rest}
+    del trainer
+    return out, vec
+
+
+def ddp_rank_main(job: str, out_path: str) -> None:
+    """One rank of the ddp phase (``--ddp-rank``): the environment of
+    ``torch.distributed.run``; writes its result as JSON to ``out_path``
+    (rank 0 also writes its state vectors beside it)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from semi_supervised_semantic_segmentation_tpu_torch.parallel import distributed
+    from semi_supervised_semantic_segmentation_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.time()
+    started = distributed.maybe_initialize()
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    backend = dist.get_backend()
+    dev = distributed.rank_device()
+    res = {"rank": rank, "backend": backend, "device": str(dev), "init_s": time.time() - t0,
+           "started": started}
+    if job == "probe":
+        x = torch.full((4,), float(rank + 1), device=dev)
+        dist.all_reduce(x)
+        b = torch.full((3,), float(rank * 7 + 1), device=dev)
+        dist.broadcast(b, src=0)
+        u = torch.zeros(2, 3, dtype=torch.uint8, device=dev)
+        u[rank] = torch.tensor([250, 3, rank], dtype=torch.uint8)
+        dist.all_reduce(u)
+        res.update({"all_reduce": x.tolist(), "broadcast": b.tolist(), "uint8": u.tolist()})
+    else:
+        from semi_supervised_semantic_segmentation_tpu_torch.ops import (
+            branch_conv, cutmix_normalize as cmn, stem)
+
+        counters = ddp_counters(stem, branch_conv, cmn)
+        label = {"config3": "config 3", "config5": "config 5"}[job]
+        work = os.path.join(REPO, "build", f"chip_smoke_ddp_{job}")
+        if rank == 0:
+            shutil.rmtree(work, ignore_errors=True)
+        dist.barrier()
+        run, vec = ddp_run(torch, label, {}, work, counters, dist.get_world_size())
+        res.update(run)
+        # kernel A with row 0's partner from the other rank, against its
+        # plain version on the same inputs
+        g = torch.Generator(device=dev).manual_seed(100 + rank)
+        h = w = 512
+        imgs = torch.rand(4, h, w, 3, generator=g, device=dev)
+        labs = torch.randint(0, 21, (4, h, w), generator=g, device=dev, dtype=torch.int32)
+        conf = torch.rand(4, h, w, generator=g, device=dev) > 0.5
+        from semi_supervised_semantic_segmentation_tpu_torch.ops import augment
+
+        boxes = augment.cutmix_boxes(torch.rand(4, 4, generator=g, device=dev), h, w, 1.0)
+        partner = mesh_lib.partner_rows((imgs, labs, conf), mesh_lib.make_mesh())
+        rows = mesh_lib.gather_rows(imgs[-1], mesh_lib.make_mesh())
+        ki = cmn.cutmix_normalize_triton(imgs, labs, conf, boxes, (0.485, 0.456, 0.406),
+                                         (0.229, 0.224, 0.225), torch.bfloat16, partner)
+        pi = cmn.cutmix_normalize_plain(imgs, labs, conf, boxes, (0.485, 0.456, 0.406),
+                                        (0.229, 0.224, 0.225), torch.bfloat16, partner)
+        res["A_partner"] = {
+            "partner_is_other_rank": bool(torch.equal(partner[0], rows[(rank - 1) % 2])
+                                          and not torch.equal(partner[0], imgs[-1])),
+            "labels_conf_equal": bool(torch.equal(ki[1], pi[1]) and torch.equal(ki[2], pi[2])),
+            "max_abs_err": float((ki[0].float() - pi[0].float()).abs().max())}
+        if rank == 0:
+            torch.save(vec, out_path + ".pt")
+    dist.barrier()
+    distributed.finalize()
+    if FAILURES:
+        fail(f"rank {rank}: {len(FAILURES)} check(s) failed: {FAILURES}")
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def ddp_phase(torch, counters: dict) -> dict:
+    """Step 0 (the card's compute mode, the backends, a two-process gloo
+    ``all_reduce``/``broadcast`` of CUDA tensors), then (a) config 3 under a
+    one-rank NCCL group against no group, (b) config 3 and (c) config 5 on
+    two ranks (gloo, one card) against one process on the gathered batch,
+    and (d) (b)'s rolling slot restored by one process."""
+    import numpy as np
+    import torch.distributed as dist
+
+    report = {}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,compute_mode",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    mode_line = smi.stdout.strip()
+    print(f"[ddp] step 0: nvidia-smi name,power.limit,compute_mode: {mode_line}", flush=True)
+    print(f"[ddp] step 0: torch.distributed.is_nccl_available() {dist.is_nccl_available()}, "
+          f"is_gloo_available() {dist.is_gloo_available()}", flush=True)
+    probe = launch_ranks("probe", timeout=180)
+    report["step0"] = {"compute_mode": mode_line, "nccl": dist.is_nccl_available(),
+                       "gloo": dist.is_gloo_available(), "probe": probe}
+    if all(p is not None for p in probe):
+        good = all(p["all_reduce"] == [3.0] * 4 and p["broadcast"] == [1.0] * 3
+                   and p["uint8"] == [[250, 3, 0], [250, 3, 1]] and p["backend"] == "gloo"
+                   for p in probe)
+        check(good, f"ddp step 0: gloo collectives of CUDA tensors gave {probe}")
+        print(f"[ddp] step 0: two ranks on {probe[0]['device']}, backend {probe[0]['backend']}: "
+              f"all_reduce {probe[0]['all_reduce']}, broadcast {probe[0]['broadcast']}, uint8 "
+              f"all_reduce {probe[0]['uint8']} (init {probe[0]['init_s']:.1f} s)", flush=True)
+    exclusive = "Exclusive_Process" in mode_line
+
+    # (a) config 3 with a one-rank NCCL group: every collective through
+    # NCCL, bit-equal to the run with no group (twice: the control of the
+    # card's own run-to-run reproducibility)
+    report["a"] = nccl_one_rank(torch, counters)
+    if exclusive:
+        print("[ddp] the card is in Exclusive_Process mode: two ranks cannot share it, "
+              "(b)-(d) are left out", flush=True)
+        report["left_out"] = "Exclusive_Process"
+        return report
+
+    for job, label in (("config3", "config 3"), ("config5", "config 5")):
+        report[label] = ddp_compare(torch, job, label, counters)
+    report["d"] = cross_world_resume(torch)
+    return report
+
+
+def nccl_one_rank(torch, counters: dict) -> dict:
+    import torch.distributed as dist
+
+    from semi_supervised_semantic_segmentation_tpu_torch.engine.trainer import Trainer
+    from semi_supervised_semantic_segmentation_tpu_torch.parallel import mesh as mesh_lib
+
+    def run(tag):
+        cfg = _ddp_cfg(CONFIG3, {**DDP_SLICES["config 3"][1], "train.iters_per_epoch": NCCL_STEPS},
+                       os.path.join(REPO, "build", f"chip_smoke_ddp_nccl_{tag}"))
+        trainer = Trainer(cfg)
+        coll = dict(mesh_lib.COUNTS)
+        before = {k: getattr(f, a) for k, (f, a) in counters.items()}
+        losses = []
+        try:
+            for lab, unlab in trainer.batches(0):
+                losses.append(float(trainer.train_step(trainer.state, lab, unlab)["loss"]))
+        finally:
+            trainer.close()
+        p, rest = _state_vector(torch, trainer.state)
+        out = {"losses": losses, "state": torch.cat([p, rest]), "mesh": trainer.mesh.shape,
+               "group": trainer.mesh.group is not None,
+               "launches": {k: getattr(f, a) - before[k] for k, (f, a) in counters.items()},
+               "collectives": mesh_lib.COUNTS["collectives"] - coll["collectives"],
+               "bytes": mesh_lib.COUNTS["bytes"] - coll["bytes"]}
+        del trainer
+        return out
+
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        plain = run("plain")
+        again = run("again")
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                                world_size=1, rank=0)
+        try:
+            backend = dist.get_backend()
+            nccl = run("nccl")
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    reproducible = plain["losses"] == again["losses"] and torch.equal(plain["state"],
+                                                                      again["state"])
+    equal = plain["losses"] == nccl["losses"] and torch.equal(plain["state"], nccl["state"])
+    dist_again = float((again["state"] - plain["state"]).abs().max())
+    dist_nccl = float((nccl["state"] - plain["state"]).abs().max())
+    check(not plain["group"] and nccl["group"] and nccl["mesh"] == {"data": 1, "model": 1}
+          and backend == "nccl" and nccl["collectives"] > 0 and plain["collectives"] == 0,
+          f"ddp (a): the NCCL run's mesh {nccl['mesh']} / backend {backend} / collectives "
+          f"{nccl['collectives']} (without a group {plain['collectives']})")
+    # the card's run is not bit-reproducible where the step accumulates with
+    # atomics (F.interpolate's bilinear backward has no deterministic CUDA
+    # version): then the forward of step 0 is bit-equal and the NCCL run is
+    # held to twice the distance between two runs without a group
+    first = plain["losses"][0] == nccl["losses"][0]
+    check(equal if reproducible else first and dist_nccl <= 2 * dist_again,
+          f"ddp (a): {NCCL_STEPS} steps under one NCCL rank differ from the run without "
+          f"torch.distributed (step-0 loss equal {first}; max |dstate| {dist_nccl}; two runs "
+          f"without it: {dist_again})")
+    print(f"[ddp] (a) config 3, {NCCL_STEPS} steps, torch.distributed nccl world size 1 "
+          f"({nccl['collectives']} collectives, {nccl['bytes'] / 1e6:.1f} MB reduced through "
+          f"NCCL): losses and final state bit-equal to the run without torch.distributed "
+          f"{equal} (two runs without it bit-equal {reproducible}; step-0 loss bit-equal "
+          f"{first}; max |dstate| nccl {dist_nccl}, control {dist_again}); losses "
+          f"{[round(v, 5) for v in nccl['losses']]}", flush=True)
+    want = {k: NCCL_STEPS * DDP_EXPECTED["config 3"].get(k, 0) for k in counters}
+    check(nccl["launches"] == want, f"ddp (a): launches {nccl['launches']}, expected {want}")
+    return {"bit_equal": equal, "reproducible": reproducible, "step0_loss_equal": first,
+            "max_dstate": dist_nccl, "launches": nccl["launches"],
+            "control_max_dstate": dist_again, "collectives": nccl["collectives"],
+            "bytes": nccl["bytes"], "losses": nccl["losses"], "plain_losses": plain["losses"]}
+
+
+def _rel(torch, a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def ddp_compare(torch, job: str, label: str, counters: dict) -> dict:
+    """Phases (b) and (c): ``label`` on two ranks (gloo on one card, each rank
+    half of every global batch) against one process on the whole batch from
+    the same weights, and the f32 control that fixed the limits."""
+    import numpy as np
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = launch_ranks(job)
+    ranks_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    one, one_vec = ddp_run(torch, label, {},
+                           os.path.join(REPO, "build", f"chip_smoke_ddp_{job}_one"), counters, 1)
+    ctrl, ctrl_vec = ddp_run(torch, label, DDP_SLICES[label][2],
+                             os.path.join(REPO, "build", f"chip_smoke_ddp_{job}_f32"),
+                             counters, 1, evaluate=False)
+    again, again_vec = ddp_run(torch, label, {},
+                               os.path.join(REPO, "build", f"chip_smoke_ddp_{job}_again"),
+                               counters, 1, evaluate=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"one": one, "control_f32": {k: ctrl[k] for k in ("steps", "kth")},
+           "again": {k: again[k] for k in ("steps", "kth")}, "ranks_seconds": ranks_s}
+    if any(r is None for r in ranks):
+        return out
+    vec = torch.load(os.path.join(REPO, "build", f"ddp_{job}_rank0.json.pt"))
+    upd = lambda v: v["after"] - v["before"]  # noqa: E731
+    loss_rel = lambda a, b: max(abs(x["loss"] - y["loss"]) / abs(y["loss"])  # noqa: E731
+                                for x, y in zip(a["steps"], b["steps"]))
+    reading = {"loss": loss_rel(ranks[0], one), "update": _rel(torch, upd(vec), upd(one_vec))}
+    control = {"loss": loss_rel(ctrl, one), "update": _rel(torch, upd(ctrl_vec), upd(one_vec))}
+    again_reading = {"loss": loss_rel(again, one),
+                     "update": _rel(torch, upd(again_vec), upd(one_vec))}
+    lim = DDP_LIMITS[label]
+    expected = {k: DDP_EXPECTED[label].get(k, 0) for k in counters}
+    for r in ranks:
+        for i, s in enumerate(r["steps"]):
+            got = {k: s["launches"].get(k, 0) for k in counters}
+            check(got == expected, f"ddp {label}: rank {r['rank']} step {i} launched {got}, "
+                  f"expected {expected}")
+            check(s["rows"] * 2 == one["steps"][i]["rows"],
+                  f"ddp {label}: rank {r['rank']} ran {s['rows']} rows, one process "
+                  f"{one['steps'][i]['rows']}")
+        check(r["A_partner"]["partner_is_other_rank"] and r["A_partner"]["labels_conf_equal"]
+              and r["A_partner"]["max_abs_err"] <= 0.05,
+              f"ddp {label}: kernel A with the other rank's partner row: {r['A_partner']}")
+    for i, s in enumerate(one["steps"]):
+        got = {k: s["launches"].get(k, 0) for k in counters}
+        check(got == expected, f"ddp {label}: one process step {i} launched {got}")
+    same = ranks[0]["checksum"] == ranks[1]["checksum"]
+    check(same, f"ddp {label}: the ranks' parameters and buffers differ "
+          f"({ranks[0]['checksum'][:16]} / {ranks[1]['checksum'][:16]})")
+    check(all(r["step"] == DDP_STEPS for r in ranks), f"ddp {label}: steps {[r['step'] for r in ranks]}")
+    for k in ("loss", "update"):
+        check(reading[k] <= lim[k], f"ddp {label}: {k} distance {reading[k]:.3g} > limit "
+              f"{lim[k]:.3g}")
+    cm2, cm1 = np.asarray(ranks[0]["cm"]), np.asarray(one["cm"])
+    check(np.array_equal(cm2, np.asarray(ranks[1]["cm"])), f"ddp {label}: the ranks' confusion "
+          "matrices differ")
+    check(int(cm2.sum()) == int(cm1.sum()), f"ddp {label}: val pass totals {cm2.sum()} (2 ranks) "
+          f"/ {cm1.sum()} (one process)")
+    differ = int(np.abs(cm2 - cm1).sum()) // 2
+    kth_equal = ranks[0]["kth"] == ranks[1]["kth"]
+    if label == "config 5":
+        from semi_supervised_semantic_segmentation_tpu_torch.config import load_config
+
+        thresh = load_config(CONFIG5).method.ohem_thresh
+        t2 = [max(k, thresh) for k in ranks[0]["kth"]]
+        t1 = [max(k, thresh) for k in one["kth"]]
+        check(kth_equal and t2 == t1, f"ddp {label}: OHEM thresholds {t2} (2 ranks, "
+              f"{ranks[1]['kth']} on rank 1) / {t1} (one process)")
+    with open(os.path.join(REPO, "build", f"chip_smoke_ddp_{job}", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    train_recs = [r["train"]["step"] for r in recs if "train" in r]
+    check(train_recs == list(range(DDP_STEPS)) and sum("val" in r for r in recs) == 1,
+          f"ddp {label}: metrics.jsonl holds train steps {train_recs} and "
+          f"{sum('val' in r for r in recs)} val records (rank 0 alone writes them)")
+    for r in ranks:
+        for i, s in enumerate(r["steps"]):
+            kms = "" if s["kernel_ms"] is None else f", kernels {s['kernel_ms']:.1f} ms"
+            print(f"[ddp] {label} rank {r['rank']} step {i}: {s['rows']} rows, launches "
+                  f"{ {k: v for k, v in s['launches'].items() if v} }, {s['collectives']} "
+                  f"collectives, {s['bytes'] / 1e6:.2f} MB reduced, stream {s['stream_ms']:.1f} "
+                  f"ms{kms}, wall {s['wall_ms']:.1f} ms", flush=True)
+    print(f"[ddp] {label}: 2 ranks (gloo, one card; {ranks_s:.1f} s with process start) vs one "
+          f"process on the gathered batch over {DDP_STEPS} steps: loss distance "
+          f"{reading['loss']:.3g} (limit {lim['loss']:.3g}), update distance "
+          f"{reading['update']:.3g} (limit {lim['update']:.3g}); control (one process, f32 vs "
+          f"bf16): loss {control['loss']:.3g}, update {control['update']:.3g}; ranks bit-equal "
+          f"{same} (sha256 {ranks[0]['checksum'][:16]}); losses 2 ranks "
+          f"{[round(s['loss'], 5) for s in ranks[0]['steps']]}, one process "
+          f"{[round(s['loss'], 5) for s in one['steps']]}; one-process step stream ms "
+          f"{[round(s['stream_ms'], 1) for s in one['steps']]} wall ms "
+          f"{[round(s['wall_ms'], 1) for s in one['steps']]}; val pass: {int(cm2.sum())} pixels "
+          f"on both, {differ} classified differently; OHEM order statistics 2 ranks "
+          f"{ranks[0]['kth']} one process {one['kth']}; peak GB per rank "
+          f"{[round(r['peak_gb'], 2) for r in ranks]} (one process {one['peak_gb']:.2f})",
+          flush=True)
+    print(f"[ddp] {label}: one process against itself (run-to-run, the card's atomics): loss "
+          f"{again_reading['loss']:.3g}, update {again_reading['update']:.3g}; kernel ms of the "
+          f"last step per rank {[r['steps'][-1]['kernel_ms'] for r in ranks]}, one process "
+          f"{one['steps'][-1]['kernel_ms']}", flush=True)
+    return {**out, "ranks": ranks, "reading": reading, "control": control, "limits": lim,
+            "run_to_run": again_reading,
+            "bit_equal_ranks": same, "cm_total": int(cm2.sum()), "cm_differ": differ}
+
+
+def cross_world_resume(torch) -> dict:
+    """(d): the rolling slot (b) wrote from rank 0 alone, restored by one
+    process's Trainer: the state of (b)'s ranks, bit for bit."""
+    from semi_supervised_semantic_segmentation_tpu_torch.config import update_config
+    from semi_supervised_semantic_segmentation_tpu_torch.engine.trainer import Trainer
+
+    work = os.path.join(REPO, "build", "chip_smoke_ddp_config3")
+    path = os.path.join(REPO, "build", "ddp_config3_rank0.json.pt")
+    if not os.path.exists(path):
+        check(False, "ddp (d): (b) left no state to resume")
+        return {}
+    vec = torch.load(path)
+    cfg = _ddp_cfg(CONFIG3, DDP_SLICES["config 3"][1], work)
+    t0 = time.time()
+    trainer = Trainer(update_config(cfg, {"train.resume": "auto", "train.epochs": 2}))
+    restore_s = time.time() - t0
+    p, rest = _state_vector(torch, trainer.state)
+    equal = torch.equal(p, vec["after"]) and torch.equal(rest, vec["rest"])
+    step, start = trainer.state.step, trainer.start_epoch
+    trainer.close()
+    check(equal and step == DDP_STEPS and start == 1,
+          f"ddp (d): the 2-rank slot restored in one process: bit-equal {equal}, step {step}, "
+          f"start_epoch {start}")
+    print(f"[ddp] (d) the rolling slot written by rank 0 of (b) restored by a one-process "
+          f"Trainer in {restore_s:.2f} s: parameters, buffers and teacher bit-equal to the "
+          f"ranks' {equal}, step {step}, start_epoch {start}", flush=True)
+    return {"bit_equal": equal, "step": step, "start_epoch": start, "restore_s": restore_s}
+
+
 if __name__ == "__main__":
-    main()
+    if "--ddp-rank" in sys.argv[1:]:
+        at = sys.argv.index("--ddp-rank")
+        ddp_rank_main(sys.argv[at + 1], sys.argv[at + 2])
+    else:
+        main()

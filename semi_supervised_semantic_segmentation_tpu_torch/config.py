@@ -475,6 +475,26 @@ _VALID = {
 }
 
 
+def data_parallel_size(parallel: ParallelConfig, world_size: int) -> int:
+    """``parallel.*`` against the number of processes: the data axis's size.
+
+    ``data_parallel: -1`` is the world size; any other value must equal it
+    (one process per data shard).  ``model_parallel > 1`` is the reference's
+    spatial H-sharding (``parallel/spatial.py``), not yet ported."""
+    if parallel.model_parallel > 1:
+        raise ValueError(
+            f"parallel.model_parallel={parallel.model_parallel}: spatial H-sharding "
+            "(parallel/spatial.py) is not yet ported (ROADMAP Queue 1 item 11); use 1")
+    dp = parallel.data_parallel
+    if dp == -1:
+        return world_size
+    if dp != world_size:
+        raise ValueError(
+            f"parallel.data_parallel={dp} but {world_size} process(es) run: set it to "
+            f"{world_size} or -1 (the world size)")
+    return dp
+
+
 def validate(cfg: Config) -> None:
     if not cfg.data.eval_scales or any(
         not isinstance(s, (int, float)) or s <= 0 for s in cfg.data.eval_scales

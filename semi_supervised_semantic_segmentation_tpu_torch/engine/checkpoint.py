@@ -19,6 +19,12 @@ a slot half written at a crash is never :meth:`CheckpointManager.latest_step`.
 The newest ``max_to_keep`` slots are kept.  With ``async_save`` the state
 is copied to the CPU at once and the files are written on a thread;
 :meth:`CheckpointManager.wait` joins it and raises its error, if any.
+
+Under data parallelism (``mesh``) the state is the same on every rank, so
+rank 0 alone writes and prunes; every rank waits at a barrier in
+:meth:`CheckpointManager.wait` after a save, so that no rank reads a slot
+before it is complete.  Every rank can restore, and a slot written by R
+ranks restores in one process and the other way round.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from semi_supervised_semantic_segmentation_tpu_torch.engine import compat
+from semi_supervised_semantic_segmentation_tpu_torch.parallel.mesh import Mesh, barrier
 
 CKPT_FILE = "checkpoint.pth"
 META_FILE = "meta.json"
@@ -56,13 +63,17 @@ def parse_checkpoint_arg(arg: str) -> Tuple[str, Optional[int]]:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 3, async_save: bool = True):
+    def __init__(self, directory: str, max_to_keep: int = 3, async_save: bool = True,
+                 mesh: Optional[Mesh] = None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.async_save = async_save
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.rank == 0
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._saved = False
 
     def steps(self) -> List[int]:
         """Steps of the complete slots, ascending."""
@@ -78,6 +89,9 @@ class CheckpointManager:
         ``force`` is the reference's signature: the port has no save
         interval, so every call writes."""
         self.wait()
+        self._saved = True
+        if not self.writer:
+            return
         payload = compat.reference_checkpoint(state, meta, state.optimizer.cfg)
         args = (step, payload, _rng_state(), json.loads(json.dumps(meta)))
         if self.async_save:
@@ -109,10 +123,14 @@ class CheckpointManager:
                 shutil.rmtree(os.path.join(self.directory, str(old)))
 
     def wait(self) -> None:
-        """Join the save in flight; raise its error, if it failed."""
+        """Join the save in flight (after a save, every rank meets the others
+        here); raise its error, if it failed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._saved:
+            self._saved = False
+            barrier(self.mesh)
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError(f"saving a checkpoint to {self.directory} failed: "

@@ -4,7 +4,9 @@ An eval step maps (model, device batch) to a (C, C) int64 confusion matrix
 on the device; ``eval_confusion`` sums them over the val loader and fetches
 one matrix per pass, and ``run_eval`` turns it into IoUs.  The model runs
 in eval mode (running BatchNorm statistics, no dropout) under
-``torch.no_grad``.
+``torch.no_grad``.  Under data parallelism (``mesh``) each rank runs its
+rows of every val batch (``val_loader``) and the pass's confusion matrix
+is summed over ranks (int64, exact) before it is fetched.
 
 Protocols, as the reference's: whole-image forwards (optionally at
 ``data.eval_size`` with the logits resized back), sliding windows of
@@ -28,7 +30,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +42,7 @@ from semi_supervised_semantic_segmentation_tpu_torch.data.pipeline import Loader
 from semi_supervised_semantic_segmentation_tpu_torch.methods import common
 from semi_supervised_semantic_segmentation_tpu_torch.ops import augment, metrics
 from semi_supervised_semantic_segmentation_tpu_torch.ops.resize import resize_bilinear
+from semi_supervised_semantic_segmentation_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 
 EvalStep = Callable[[nn.Module, Dict[str, torch.Tensor]], torch.Tensor]
 
@@ -247,19 +250,22 @@ def inference_model(state, method) -> nn.Module:
     return state.model
 
 
-def val_loader(cfg: Config) -> Loader:
+def val_loader(cfg: Config, mesh: Optional[Mesh] = None) -> Loader:
     """The val set in order, every sample once: the last batch is padded
-    with blank slots (index -1, all labels ignored)."""
+    with blank slots (index -1, all labels ignored).  Under ``mesh`` each
+    rank gets its row block of every batch of ``train.eval_batch_size``."""
     return Loader(build_dataset(cfg, "val"), cfg.train.eval_batch_size, shuffle=False,
                   drop_last=False, pad_mode="blank", num_workers=cfg.data.num_workers,
-                  process_index=0, process_count=1)
+                  process_index=0 if mesh is None else mesh.rank,
+                  process_count=1 if mesh is None else mesh.size)
 
 
 def eval_confusion(eval_step: EvalStep, model: nn.Module, loader, device,
-                   epoch: int = 0) -> np.ndarray:
+                   epoch: int = 0, mesh: Optional[Mesh] = None) -> np.ndarray:
     """The (C, C) confusion matrix of one pass over the val loader, summed
-    on the device and fetched once.  The model runs in eval mode under
-    ``torch.no_grad``; its train mode is restored afterwards."""
+    on the device (and over the ranks of ``mesh``) and fetched once.  The
+    model runs in eval mode under ``torch.no_grad``; its train mode is
+    restored afterwards."""
     was_training = model.training
     model.eval()
     total = None
@@ -270,12 +276,14 @@ def eval_confusion(eval_step: EvalStep, model: nn.Module, loader, device,
                 total = cm if total is None else total + cm
     finally:
         model.train(was_training)
-    return total.cpu().numpy()
+    return all_reduce_sum(total, mesh).cpu().numpy()
 
 
-def run_eval(eval_step: EvalStep, model: nn.Module, loader, device, epoch: int = 0):
-    """(per-class IoU, mIoU, pixel accuracy) of one pass over the val loader."""
-    cm = eval_confusion(eval_step, model, loader, device, epoch)
+def run_eval(eval_step: EvalStep, model: nn.Module, loader, device, epoch: int = 0,
+             mesh: Optional[Mesh] = None):
+    """(per-class IoU, mIoU, pixel accuracy) of one pass over the val loader
+    (this rank's rows of it under ``mesh``; the matrix is global)."""
+    cm = eval_confusion(eval_step, model, loader, device, epoch, mesh)
     iou, miou = metrics.iou_from_confusion(cm)
     return iou, miou, metrics.pixel_accuracy(cm)
 

@@ -6,6 +6,13 @@ grad; param -= lr * buf -- with poly LR driven by the step counter and a
 reference's optax chain.  One SGD may hold several nets (CPS's two): each
 adds its backbone and head groups, in the nets' order.  ``ema_update`` moves the teacher's parameters and
 BatchNorm running statistics towards the student's.
+
+Under data parallelism (``step(..., mesh)``) the gradients are summed over
+ranks before clipping and the update, in one flat buffer per dtype
+(``parallel.mesh.all_reduce_grads``): a sum, because each rank's loss
+already divides by the global counts.  That explicit bucket, rather than
+the ``DistributedDataParallel`` wrapper, keeps one collective order on every
+rank under activation checkpointing and ``torch.func.vmap`` too.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch.nn as nn
 
 from semi_supervised_semantic_segmentation_tpu_torch.config import Config
 from semi_supervised_semantic_segmentation_tpu_torch.ops.schedules import poly_lr
+from semi_supervised_semantic_segmentation_tpu_torch.parallel.mesh import Mesh, all_reduce_grads
 
 
 def is_head(name: str) -> bool:
@@ -49,10 +57,12 @@ class SGD:
         return poly_lr(step, self.cfg.lr, self.total_steps, self.cfg.poly_power)
 
     @torch.no_grad()
-    def step(self, step: int) -> float:
-        """Apply one update with the LR of ``step``; returns that LR."""
+    def step(self, step: int, mesh: Optional[Mesh] = None) -> float:
+        """Apply one update with the LR of ``step``, after summing the
+        gradients over the ranks of ``mesh``; returns that LR."""
         o = self.cfg
         lr = self.lr(step)
+        all_reduce_grads([p for ps, _ in self.groups for p in ps], mesh)
         if o.grad_clip_norm > 0:
             params = [p for ps, _ in self.groups for p in ps if p.grad is not None]
             torch.nn.utils.clip_grad_norm_(params, o.grad_clip_norm)

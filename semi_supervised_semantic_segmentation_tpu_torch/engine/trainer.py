@@ -27,6 +27,17 @@ training starts at its epoch + 1 with its best mIoU, and the batch stream at
 that data epoch.  ``train.init_from_torch`` starts from a reference-layout
 checkpoint file (``engine/compat.py``).
 
+Data parallelism: under an initialized process group (``python -m
+torch.distributed.run``; ``parallel.distributed.maybe_initialize``) the
+trainer builds the data mesh of ``parallel.*`` (``parallel/mesh.py``).
+Each rank computes on its card (``parallel.distributed.rank_device``),
+loads its row block of every global batch (the batch sizes are global),
+starts from rank 0's parameters and buffers (broadcast after
+construction, ``init_from_torch`` and resume) and runs the method's step
+with the mesh, which makes every reduction global and keeps the ranks'
+states bit-equal.  Rank 0 alone writes ``config.yaml``, ``metrics.jsonl``,
+``train.log`` and the checkpoints; the eval's confusion matrix is global.
+
 ``train.profile_steps = n`` traces the first epoch's steps 2 .. 2 + n with
 ``torch.profiler`` into ``<work_dir>/profile/`` (a Chrome trace).
 ``train.debug_nans`` runs each step under autograd's anomaly mode (a
@@ -48,7 +59,6 @@ from typing import Dict, Iterator, Optional
 
 import torch
 
-from semi_supervised_semantic_segmentation_tpu_torch import resolve_device
 from semi_supervised_semantic_segmentation_tpu_torch.config import Config, save_config
 from semi_supervised_semantic_segmentation_tpu_torch.data.datasets import build_dataset
 from semi_supervised_semantic_segmentation_tpu_torch.data.pipeline import DualLoader, Loader
@@ -68,6 +78,11 @@ from semi_supervised_semantic_segmentation_tpu_torch.models import build_model
 from semi_supervised_semantic_segmentation_tpu_torch.ops.metrics import (
     class_names,
     format_iou_table,
+)
+from semi_supervised_semantic_segmentation_tpu_torch.parallel.distributed import rank_device
+from semi_supervised_semantic_segmentation_tpu_torch.parallel.mesh import (
+    broadcast_from_rank0,
+    make_mesh,
 )
 
 log = logging.getLogger("sstpu_torch")
@@ -139,72 +154,86 @@ class _Prefetcher:
 
 class MetricLogger:
     """The JSON-lines half of the reference's ``utils/logging.py``
-    ``MetricLogger`` (the card's machine has no tensorboardX)."""
+    ``MetricLogger`` (the card's machine has no tensorboardX).  With
+    ``write`` false (a rank other than 0) it builds the records and writes
+    nothing."""
 
-    def __init__(self, work_dir: str):
+    def __init__(self, work_dir: str, write: bool = True):
         os.makedirs(work_dir, exist_ok=True)
         self.path = os.path.join(work_dir, "metrics.jsonl")
+        self.write = write
         self._t0 = time.time()
 
     def log_scalars(self, step: int, scalars: Dict[str, float], prefix: str = "train") -> dict:
         rec = {"step": step, "time": round(time.time() - self._t0, 3)}
         rec.update({k: float(v) for k, v in scalars.items()})
-        with open(self.path, "a") as f:
-            f.write(json.dumps({prefix: rec}) + "\n")
+        if self.write:
+            with open(self.path, "a") as f:
+                f.write(json.dumps({prefix: rec}) + "\n")
         return rec
 
 
 class Trainer:
     def __init__(self, cfg: Config, device=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh = make_mesh(cfg.parallel.data_parallel, cfg.parallel.model_parallel)
+        self.rank0 = mesh.rank == 0
+        self.device = rank_device(device)
         torch.manual_seed(cfg.train.seed)
         self.method = get_method(cfg.method.name)
-        self.model = build_model(cfg).to(self.device)
+        self.model = build_model(cfg, mesh=mesh).to(self.device)
 
         t = cfg.train
-        # one process holds the whole batch until data parallelism lands
+        # the batch sizes are global: each process loads its row block
         self.labeled_loader = Loader(build_dataset(cfg, "labeled"), t.labeled_batch_size,
                                      seed=t.seed, num_workers=cfg.data.num_workers,
-                                     process_index=0, process_count=1)
+                                     process_index=mesh.rank, process_count=mesh.size)
         if self.method.uses_unlabeled:
             self.unlabeled_loader = Loader(build_dataset(cfg, "unlabeled"),
                                            t.unlabeled_batch_size, seed=t.seed + 17,
                                            num_workers=cfg.data.num_workers,
-                                           process_index=0, process_count=1)
+                                           process_index=mesh.rank, process_count=mesh.size)
             self.dual = DualLoader(self.labeled_loader, self.unlabeled_loader)
             self.iters_per_epoch = t.iters_per_epoch or len(self.dual)
         else:
             self.unlabeled_loader = self.dual = None
             self.iters_per_epoch = t.iters_per_epoch or len(self.labeled_loader)
-        self.val_loader = val_loader(cfg)
+        self.val_loader = val_loader(cfg, mesh)
         self.total_steps = self.iters_per_epoch * t.epochs
 
         # CPS's init_state adds net2 on the model's device
         self.state = self.method.init_state(cfg, self.model, self.total_steps)
-        self.train_step = self.method.make_train_step(cfg, self.total_steps)
+        self.train_step = self.method.make_train_step(cfg, self.total_steps, mesh)
         self.eval_step = make_evaluator(cfg)
         self.start_epoch = 0
         self.best_miou = 0.0
         self.last: Dict[str, float] = {}
         self._prefetch: Optional[_Prefetcher] = None
         os.makedirs(t.work_dir, exist_ok=True)
-        save_config(cfg, os.path.join(t.work_dir, "config.yaml"))
-        self.metrics = MetricLogger(t.work_dir)
+        self._log_file = None
+        if self.rank0:
+            save_config(cfg, os.path.join(t.work_dir, "config.yaml"))
+            # the reference's setup_logging: the log also goes to train.log
+            self._log_file = logging.FileHandler(os.path.join(t.work_dir, "train.log"))
+            self._log_file.setFormatter(logging.Formatter("[%(asctime)s] %(message)s",
+                                                          datefmt="%H:%M:%S"))
+            log.addHandler(self._log_file)
+        self.metrics = MetricLogger(t.work_dir, write=self.rank0)
         self.ckpt = CheckpointManager(os.path.join(t.work_dir, "checkpoints"),
                                       max_to_keep=t.keep_checkpoints,
-                                      async_save=t.async_checkpoint)
+                                      async_save=t.async_checkpoint, mesh=mesh)
         # the best-mIoU snapshot: one slot, written only on improvement, so
         # the best model outlives the rolling window
         self.ckpt_best = CheckpointManager(os.path.join(t.work_dir, "checkpoints_best"),
-                                           max_to_keep=1, async_save=t.async_checkpoint)
+                                           max_to_keep=1, async_save=t.async_checkpoint,
+                                           mesh=mesh)
         log.info("device=%s (%s) model=%s/%s stem_impl=%s branch_conv=%s remat=%s "
-                 "cutmix_impl=%s sup_loss=%s steps=%d",
+                 "cutmix_impl=%s sup_loss=%s steps=%d mesh=%s rank=%d",
                  self.device, torch.cuda.get_device_name(self.device)
                  if self.device.type == "cuda" else "cpu",
                  cfg.model.backbone, cfg.model.decoder, cfg.model.stem_impl,
                  cfg.model.branch_conv, cfg.model.remat, cfg.data.cutmix_impl,
-                 cfg.method.sup_loss, self.total_steps)
+                 cfg.method.sup_loss, self.total_steps, mesh.shape, mesh.rank)
         if t.init_from_torch:
             # reference-layout interop: weights, EMA teacher and momentum
             # from a torch.save checkpoint file
@@ -213,6 +242,13 @@ class Trainer:
                      t.init_from_torch, self.state.step)
         if t.resume:
             self._resume(t.resume)
+        # every rank starts from rank 0's state, bit for bit
+        broadcast_from_rank0(self._state_tensors(), mesh)
+
+    def _state_tensors(self):
+        """The nets (teacher included) and the optimizer's momentum."""
+        nets = self.state.nets() + [n for n in (self.state.ema_model,) if n is not None]
+        return nets + [b for bufs in self.state.optimizer.bufs for b in bufs]
 
     def _resume(self, resume: str) -> None:
         """resume: 'auto' (the latest slot of ``<work_dir>/checkpoints``), a
@@ -220,7 +256,7 @@ class Trainer:
         directory, step = parse_checkpoint_arg(
             os.path.join(self.cfg.train.work_dir, "checkpoints") if resume == "auto" else resume)
         mgr = (self.ckpt if os.path.abspath(directory) == self.ckpt.directory
-               else CheckpointManager(directory))
+               else CheckpointManager(directory, mesh=self.mesh))
         if mgr.latest_step() is None:
             log.info("resume requested but no checkpoint found in %s", directory)
             return
@@ -273,7 +309,7 @@ class Trainer:
                 prof = None
             if (i + 1) % cfg.train.log_interval == 0 or i + 1 == self.iters_per_epoch:
                 host = {k: float(v) for k, v in last.items()}  # syncs the device
-                host["images_per_sec"] = n_img / (time.time() - t0)
+                host["images_per_sec"] = n_img * self.mesh.size / (time.time() - t0)
                 t0, n_img = time.time(), 0
                 rec = self.metrics.log_scalars(i + epoch * self.iters_per_epoch, host, "train")
                 log.info("epoch %d iter %d/%d %s", epoch, i + 1, self.iters_per_epoch,
@@ -306,7 +342,7 @@ class Trainer:
         cfg = self.cfg
         t0 = time.time()
         iou, miou, acc = run_eval(self.eval_step, inference_model(self.state, self.method),
-                                  self.val_loader, self.device)
+                                  self.val_loader, self.device, mesh=self.mesh)
         names = class_names(cfg.data.dataset, cfg.data.num_classes)
         log.info("eval epoch %d: mIoU=%.4f acc=%.4f (%.1fs)\n%s", epoch, miou, acc,
                  time.time() - t0, format_iou_table(iou, names))
@@ -354,3 +390,7 @@ class Trainer:
                 loader.close()
         self.ckpt.close()
         self.ckpt_best.close()
+        if self._log_file is not None:
+            log.removeHandler(self._log_file)
+            self._log_file.close()
+            self._log_file = None

@@ -13,6 +13,10 @@ as the JAX package's ``eval.py --export_torch`` writes it, or a directory
 of the port's checkpoint manager (``<work_dir>/checkpoints``, its latest
 slot) or ``dir:step``.  An Orbax directory of the JAX package crosses over
 as a file written by its ``eval.py --export_torch``.
+
+Under ``python -m torch.distributed.run --nproc_per_node R`` each process
+scores its rows of every val batch, the confusion matrix is summed over
+them, and process 0 prints the result and writes ``--export_torch``.
 """
 
 from __future__ import annotations
@@ -20,7 +24,6 @@ from __future__ import annotations
 import argparse
 import os
 
-from semi_supervised_semantic_segmentation_tpu_torch import resolve_device
 from semi_supervised_semantic_segmentation_tpu_torch.config import (
     Config,
     load_config,
@@ -45,15 +48,17 @@ from semi_supervised_semantic_segmentation_tpu_torch.ops.metrics import (
     class_names,
     format_iou_table,
 )
+from semi_supervised_semantic_segmentation_tpu_torch.parallel import distributed
+from semi_supervised_semantic_segmentation_tpu_torch.parallel.mesh import make_mesh
 
 
-def load_state(cfg: Config, checkpoint: str, device):
+def load_state(cfg: Config, checkpoint: str, device, mesh=None):
     """A fresh train state of ``cfg`` on ``device`` (CPS: both nets) with
     the checkpoint loaded into it -> (state, method module, meta).  ``checkpoint``: a
     reference-layout file, or a checkpoint directory (its latest slot) or
-    ``dir:step``."""
+    ``dir:step``.  ``mesh``: the data mesh of the model's layers."""
     method = get_method(cfg.method.name)
-    model = build_model(cfg).to(device)
+    model = build_model(cfg, mesh=mesh).to(device)
     state = method.init_state(cfg, model, max(cfg.train.epochs, 1))
     if checkpoint.endswith((".pth", ".pt")):
         if not os.path.isfile(checkpoint):
@@ -62,7 +67,7 @@ def load_state(cfg: Config, checkpoint: str, device):
     directory, step = parse_checkpoint_arg(checkpoint)
     if not os.path.isdir(directory):
         raise FileNotFoundError(directory)
-    return state, method, CheckpointManager(directory).restore(state, step)
+    return state, method, CheckpointManager(directory, mesh=mesh).restore(state, step)
 
 
 def main(argv=None):
@@ -83,13 +88,15 @@ def main(argv=None):
     except ValueError as e:
         raise SystemExit(str(e))
     cfg = load_config(args.config, overrides)
-    device = resolve_device(args.device)
-    state, method, meta = load_state(cfg, args.checkpoint, device)
-    if args.export_torch:
+    started = distributed.maybe_initialize(args.device)
+    mesh = make_mesh(cfg.parallel.data_parallel, cfg.parallel.model_parallel)
+    device = distributed.rank_device(args.device)
+    state, method, meta = load_state(cfg, args.checkpoint, device, mesh)
+    if args.export_torch and mesh.rank == 0:
         compat.export_reference_checkpoint(args.export_torch, state, meta, cfg)
         print(f"reference-layout checkpoint written to {args.export_torch}")
 
-    val = val_loader(cfg)
+    val = val_loader(cfg, mesh)
     model = inference_model(state, method)
     try:
         if args.save_preds:
@@ -99,11 +106,14 @@ def main(argv=None):
                 preds = predict(model, common.to_device(batch, device))
                 save_predictions(preds, batch, val.dataset, args.save_preds)
             print(f"predictions written to {args.save_preds}")
-        iou, miou, acc = run_eval(make_evaluator(cfg), model, val, device)
+        iou, miou, acc = run_eval(make_evaluator(cfg), model, val, device, mesh=mesh)
     finally:
         val.close()
-    print(format_iou_table(iou, class_names(cfg.data.dataset, cfg.data.num_classes)))
-    print(f"mIoU: {miou:.4f}  pixel-acc: {acc:.4f}")
+    if mesh.rank == 0:
+        print(format_iou_table(iou, class_names(cfg.data.dataset, cfg.data.num_classes)))
+        print(f"mIoU: {miou:.4f}  pixel-acc: {acc:.4f}")
+    if started:
+        distributed.finalize()
     return iou, miou, acc
 
 

@@ -45,6 +45,7 @@ from semi_supervised_semantic_segmentation_tpu_torch.engine.state import SGD, Tr
 from semi_supervised_semantic_segmentation_tpu_torch.methods import common
 from semi_supervised_semantic_segmentation_tpu_torch.models import build_model, layers
 from semi_supervised_semantic_segmentation_tpu_torch.ops import augment, losses
+from semi_supervised_semantic_segmentation_tpu_torch.parallel.mesh import Mesh
 
 uses_unlabeled = True
 uses_ema = False
@@ -59,16 +60,21 @@ class Draws:
 
 
 def draw(cfg: Config, model, labeled: common.Batch, unlabeled: common.Batch,
-         g: torch.Generator) -> Draws:
-    weak_l = common.sample_weak(cfg, labeled, g)
-    weak_u = common.sample_weak(cfg, unlabeled, g)
-    n, crop = labeled["image"].shape[0] + unlabeled["image"].shape[0], cfg.data.crop_size
-    return Draws(weak_l=weak_l, weak_u=weak_u, dropout1=model.dropout_mask(n, crop, crop, g),
-                 dropout2=model.dropout_mask(n, crop, crop, g))
+         g: torch.Generator, mesh: Optional[Mesh] = None) -> Draws:
+    """The step's draws; under ``mesh`` the global batch's, each rank
+    keeping its rows (``common``; the keep-masks' rows of the global
+    ``[labeled; unlabeled]``)."""
+    weak_l = common.sample_weak(cfg, labeled, g, mesh)
+    weak_u = common.sample_weak(cfg, unlabeled, g, mesh)
+    rows = (cfg.data.crop_size, labeled["image"].shape[0], unlabeled["image"].shape[0])
+    return Draws(weak_l=weak_l, weak_u=weak_u,
+                 dropout1=common.dropout_keep(model, g, *rows, mesh=mesh),
+                 dropout2=common.dropout_keep(model, g, *rows, mesh=mesh))
 
 
 def init_state(cfg: Config, model: torch.nn.Module, total_steps: int) -> TrainState:
-    model2 = build_model(cfg, seed=cfg.train.seed + 1).to(next(model.parameters()).device)
+    model2 = build_model(cfg, seed=cfg.train.seed + 1,
+                         mesh=model.mesh).to(next(model.parameters()).device)
     return TrainState(model=model, optimizer=SGD(cfg, [model, model2], total_steps),
                       model2=model2)
 
@@ -103,10 +109,12 @@ def stacked_forward(net1: torch.nn.Module, net2: torch.nn.Module, x: torch.Tenso
     return logits[0], logits[1]
 
 
-def make_train_step(cfg: Config, total_steps: int):
+def make_train_step(cfg: Config, total_steps: int, mesh: Optional[Mesh] = None):
+    """The step on this rank's rows of both global batches under ``mesh``
+    (``fixmatch`` docstring); the returned losses are global."""
     m = cfg.method
     ignore = cfg.data.ignore_index
-    sup_fn = common.sup_loss_fn(cfg)
+    sup_fn = common.sup_loss_fn(cfg, mesh)
     stacked = m.cps_impl == "stacked"
 
     def train_step(state: TrainState, labeled: common.Batch, unlabeled: common.Batch,
@@ -115,7 +123,7 @@ def make_train_step(cfg: Config, total_steps: int):
         dtype = net1.compute_dtype
         if draws is None:
             g = common.step_generator(cfg.train.seed, state.step, unlabeled["image"].device)
-            draws = draw(cfg, net1, labeled, unlabeled, g)
+            draws = draw(cfg, net1, labeled, unlabeled, g, mesh)
         xl01, y, lvalid = common.weak_view(cfg, labeled, draws.weak_l)
         xu01, _, uvalid = common.weak_view(cfg, unlabeled, draws.weak_u)
         x = torch.cat([common.normalize(cfg, xl01, dtype), common.normalize(cfg, xu01, dtype)])
@@ -128,14 +136,15 @@ def make_train_step(cfg: Config, total_steps: int):
         else:
             logits1, logits2 = net1(x, draws.dropout1), net2(x, draws.dropout2)
         sup = sup_fn(logits1[:nl], y) + sup_fn(logits2[:nl], y)
-        cps = (losses.cps_loss(logits1[:nl], logits2[:nl], ignore, lvalid)
-               + losses.cps_loss(logits1[nl:], logits2[nl:], ignore, uvalid))
+        cps = (losses.cps_loss(logits1[:nl], logits2[:nl], ignore, lvalid, mesh)
+               + losses.cps_loss(logits1[nl:], logits2[nl:], ignore, uvalid, mesh))
         loss = sup + m.cps_weight * cps
         state.optimizer.zero_grad()
         loss.backward()
-        lr = state.optimizer.step(state.step)
+        lr = state.optimizer.step(state.step, mesh)
         state.step += 1
-        return {"loss": loss.detach(), "sup_loss": sup.detach(), "cps_loss": cps.detach(),
-                "lr": lr}
+        return common.global_scalars(
+            {"loss": loss.detach(), "sup_loss": sup.detach(), "cps_loss": cps.detach(),
+             "lr": lr}, ("loss", "sup_loss", "cps_loss"), mesh)
 
     return train_step

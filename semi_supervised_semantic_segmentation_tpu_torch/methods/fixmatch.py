@@ -13,6 +13,12 @@ Every random parameter of a step is drawn up front (:func:`draw`) from a
 generator seeded by (``train.seed``, step); a caller may pass its own
 :class:`Draws` instead, which is how tests inject a CutMix box and a
 dropout mask.
+
+Under data parallelism (``mesh``: each rank holds its rows of both global
+batches) the draws are the global batch's rows (``common``), row 0's CutMix
+partner is the previous rank's last row (``parallel.mesh.partner_rows``),
+BatchNorm and the losses reduce over the global batch, the gradients are
+summed over ranks before SGD, and the returned scalars are global.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from semi_supervised_semantic_segmentation_tpu_torch.methods import common
 from semi_supervised_semantic_segmentation_tpu_torch.ops import augment, losses
 from semi_supervised_semantic_segmentation_tpu_torch.ops.cutmix_normalize import cutmix_normalize
 from semi_supervised_semantic_segmentation_tpu_torch.ops.schedules import consistency_weight
+from semi_supervised_semantic_segmentation_tpu_torch.parallel.mesh import Mesh, partner_rows
 
 uses_unlabeled = True
 uses_ema = True
@@ -43,17 +50,17 @@ class Draws:
 
 
 def draw(cfg: Config, labeled: common.Batch, unlabeled: common.Batch,
-         g: torch.Generator) -> Draws:
+         g: torch.Generator, model=None, mesh: Optional[Mesh] = None) -> Draws:
+    """The step's draws; under a mesh of R > 1 ranks the dropout keep-mask
+    is drawn here from ``model`` (``common.dropout_draw``)."""
     dev = unlabeled["image"].device
-    b = unlabeled["image"].shape[0]
-    c = cfg.data.crop_size
+    nl, b = labeled["image"].shape[0], unlabeled["image"].shape[0]
     return Draws(
-        weak_l=common.sample_weak(cfg, labeled, g),
-        weak_u=common.sample_weak(cfg, unlabeled, g),
-        strong=common.sample_strong(cfg, b, g, dev),
-        boxes=augment.cutmix_boxes(torch.rand(b, 4, generator=g, device=dev), c, c,
-                                   cfg.method.cutmix_prob),
-        dropout=g,
+        weak_l=common.sample_weak(cfg, labeled, g, mesh),
+        weak_u=common.sample_weak(cfg, unlabeled, g, mesh),
+        strong=common.sample_strong(cfg, b, g, dev, mesh),
+        boxes=common.sample_boxes(cfg, b, g, dev, mesh),
+        dropout=common.dropout_draw(model, g, cfg.data.crop_size, nl, b, mesh=mesh),
     )
 
 
@@ -61,9 +68,9 @@ def init_state(cfg: Config, model: torch.nn.Module, total_steps: int) -> TrainSt
     return common.state_with_teacher(cfg, model, total_steps)
 
 
-def make_train_step(cfg: Config, total_steps: int):
+def make_train_step(cfg: Config, total_steps: int, mesh: Optional[Mesh] = None):
     m = cfg.method
-    sup_fn = common.sup_loss_fn(cfg)
+    sup_fn = common.sup_loss_fn(cfg, mesh)
     ignore = cfg.data.ignore_index
     mean, std = tuple(cfg.data.mean), tuple(cfg.data.std)
 
@@ -73,7 +80,7 @@ def make_train_step(cfg: Config, total_steps: int):
         dtype = model.compute_dtype
         if draws is None:
             g = common.step_generator(cfg.train.seed, state.step, unlabeled["image"].device)
-            draws = draw(cfg, labeled, unlabeled, g)
+            draws = draw(cfg, labeled, unlabeled, g, model, mesh)
         xl01, y, _ = common.weak_view(cfg, labeled, draws.weak_l)
         xu01, _, uvalid = common.weak_view(cfg, unlabeled, draws.weak_u)
         xu_strong01 = common.strong_view(cfg, xu01, draws.strong)
@@ -87,12 +94,14 @@ def make_train_step(cfg: Config, total_steps: int):
         pseudo = torch.where(uvalid, pseudo, torch.full_like(pseudo, ignore))
 
         xl = common.normalize(cfg, xl01, dtype)
+        xu_strong01, pseudo, conf = (t.contiguous() for t in (xu_strong01, pseudo, conf))
+        partner = partner_rows((xu_strong01, pseudo, conf), mesh)
         if cfg.data.cutmix_impl == "pallas":
             xu_s, pseudo, conf = cutmix_normalize(
-                xu_strong01.contiguous(), pseudo.contiguous(), conf.contiguous(),
-                draws.boxes.contiguous(), mean, std, dtype)
+                xu_strong01, pseudo, conf, draws.boxes.contiguous(), mean, std, dtype, partner)
         else:
-            mixed, pseudo, conf = augment.cutmix_batch(xu_strong01, pseudo, conf, draws.boxes)
+            mixed, pseudo, conf = augment.cutmix_batch(xu_strong01, pseudo, conf, draws.boxes,
+                                                       partner)
             xu_s = common.normalize(cfg, mixed, dtype)
         nl = xl.shape[0]
         lam = consistency_weight(state.step, m.consistency_weight, m.rampup_iters, m.rampup_kind)
@@ -100,20 +109,21 @@ def make_train_step(cfg: Config, total_steps: int):
         model.train()
         logits = model(torch.cat([xl, xu_s], dim=0), draws.dropout)
         sup = sup_fn(logits[:nl], y)
-        unsup = losses.confidence_masked_ce(logits[nl:], pseudo, conf, ignore, normalize="all")
+        unsup = losses.confidence_masked_ce(logits[nl:], pseudo, conf, ignore, normalize="all",
+                                            mesh=mesh)
         loss = sup + lam * unsup
         state.optimizer.zero_grad()
         loss.backward()
-        lr = state.optimizer.step(state.step)
+        lr = state.optimizer.step(state.step, mesh)
         ema_update(teacher, model, m.ema_alpha)
         state.step += 1
-        return {
+        return common.global_scalars({
             "loss": loss.detach(),
             "sup_loss": sup.detach(),
             "unsup_loss": unsup.detach(),
-            "mask_ratio": conf.float().mean(),
+            "mask_ratio": common.fraction(conf, mesh),
             "consistency_weight": lam,
             "lr": lr,
-        }
+        }, ("loss", "sup_loss", "unsup_loss", "mask_ratio"), mesh)
 
     return train_step

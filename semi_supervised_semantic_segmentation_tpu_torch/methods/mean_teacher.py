@@ -23,6 +23,7 @@ from semi_supervised_semantic_segmentation_tpu_torch.engine.state import TrainSt
 from semi_supervised_semantic_segmentation_tpu_torch.methods import common
 from semi_supervised_semantic_segmentation_tpu_torch.ops import augment, losses
 from semi_supervised_semantic_segmentation_tpu_torch.ops.schedules import consistency_weight
+from semi_supervised_semantic_segmentation_tpu_torch.parallel.mesh import Mesh
 
 uses_unlabeled = True
 uses_ema = True
@@ -37,21 +38,26 @@ class Draws:
 
 
 def draw(cfg: Config, labeled: common.Batch, unlabeled: common.Batch,
-         g: torch.Generator) -> Draws:
+         g: torch.Generator, model=None, mesh: Optional[Mesh] = None) -> Draws:
+    """The step's draws (the global batch's rows under ``mesh``;
+    ``common``)."""
     dev = unlabeled["image"].device
-    return Draws(weak_l=common.sample_weak(cfg, labeled, g),
-                 weak_u=common.sample_weak(cfg, unlabeled, g),
-                 strong=common.sample_strong(cfg, unlabeled["image"].shape[0], g, dev),
-                 dropout=g)
+    nl, nu = labeled["image"].shape[0], unlabeled["image"].shape[0]
+    return Draws(weak_l=common.sample_weak(cfg, labeled, g, mesh),
+                 weak_u=common.sample_weak(cfg, unlabeled, g, mesh),
+                 strong=common.sample_strong(cfg, nu, g, dev, mesh),
+                 dropout=common.dropout_draw(model, g, cfg.data.crop_size, nl, nu, mesh=mesh))
 
 
 def init_state(cfg: Config, model: torch.nn.Module, total_steps: int) -> TrainState:
     return common.state_with_teacher(cfg, model, total_steps)
 
 
-def make_train_step(cfg: Config, total_steps: int):
+def make_train_step(cfg: Config, total_steps: int, mesh: Optional[Mesh] = None):
+    """The step on this rank's rows of both global batches under ``mesh``
+    (``fixmatch`` docstring); the returned losses are global."""
     m = cfg.method
-    sup_fn = common.sup_loss_fn(cfg)
+    sup_fn = common.sup_loss_fn(cfg, mesh)
 
     def train_step(state: TrainState, labeled: common.Batch, unlabeled: common.Batch,
                    draws: Optional[Draws] = None) -> Dict[str, object]:
@@ -59,7 +65,7 @@ def make_train_step(cfg: Config, total_steps: int):
         dtype = model.compute_dtype
         if draws is None:
             g = common.step_generator(cfg.train.seed, state.step, unlabeled["image"].device)
-            draws = draw(cfg, labeled, unlabeled, g)
+            draws = draw(cfg, labeled, unlabeled, g, model, mesh)
         xl01, y, _ = common.weak_view(cfg, labeled, draws.weak_l)
         xu01, _, uvalid = common.weak_view(cfg, unlabeled, draws.weak_u)
         xu_strong01 = common.strong_view(cfg, xu01, draws.strong)
@@ -78,19 +84,19 @@ def make_train_step(cfg: Config, total_steps: int):
         # padding pixels (mean fill outside the scaled content) carry no
         # signal: the valid mask keeps them out of the consistency
         unsup = losses.mse_consistency(logits[nl:], teacher_logits, valid_mask=uvalid,
-                                       reduction=m.consistency_reduction)
+                                       reduction=m.consistency_reduction, mesh=mesh)
         loss = sup + lam * unsup
         state.optimizer.zero_grad()
         loss.backward()
-        lr = state.optimizer.step(state.step)
+        lr = state.optimizer.step(state.step, mesh)
         ema_update(teacher, model, m.ema_alpha)
         state.step += 1
-        return {
+        return common.global_scalars({
             "loss": loss.detach(),
             "sup_loss": sup.detach(),
             "unsup_loss": unsup.detach(),
             "consistency_weight": lam,
             "lr": lr,
-        }
+        }, ("loss", "sup_loss", "unsup_loss"), mesh)
 
     return train_step

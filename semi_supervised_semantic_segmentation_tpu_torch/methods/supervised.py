@@ -18,6 +18,7 @@ from semi_supervised_semantic_segmentation_tpu_torch.config import Config
 from semi_supervised_semantic_segmentation_tpu_torch.engine.state import SGD, TrainState
 from semi_supervised_semantic_segmentation_tpu_torch.methods import common
 from semi_supervised_semantic_segmentation_tpu_torch.ops import augment
+from semi_supervised_semantic_segmentation_tpu_torch.parallel.mesh import Mesh
 
 uses_unlabeled = False
 uses_ema = False
@@ -29,16 +30,23 @@ class Draws:
     dropout: object  # torch.Generator, or a bool keep-mask of the ASPP output
 
 
-def draw(cfg: Config, labeled: common.Batch, g: torch.Generator) -> Draws:
-    return Draws(weak_l=common.sample_weak(cfg, labeled, g), dropout=g)
+def draw(cfg: Config, labeled: common.Batch, g: torch.Generator, model=None,
+         mesh: Optional[Mesh] = None) -> Draws:
+    """The step's draws (the global batch's rows under ``mesh``;
+    ``common``)."""
+    return Draws(weak_l=common.sample_weak(cfg, labeled, g, mesh),
+                 dropout=common.dropout_draw(model, g, cfg.data.crop_size,
+                                             labeled["image"].shape[0], mesh=mesh))
 
 
 def init_state(cfg: Config, model: torch.nn.Module, total_steps: int) -> TrainState:
     return TrainState(model=model, optimizer=SGD(cfg, model, total_steps))
 
 
-def make_train_step(cfg: Config, total_steps: int):
-    sup_fn = common.sup_loss_fn(cfg)
+def make_train_step(cfg: Config, total_steps: int, mesh: Optional[Mesh] = None):
+    """The step on this rank's rows of the global batch under ``mesh``: the
+    loss is global (``fixmatch`` docstring) and so is the returned loss."""
+    sup_fn = common.sup_loss_fn(cfg, mesh)
 
     def train_step(state: TrainState, labeled: common.Batch,
                    unlabeled: Optional[common.Batch] = None,
@@ -46,15 +54,15 @@ def make_train_step(cfg: Config, total_steps: int):
         model = state.model
         if draws is None:
             g = common.step_generator(cfg.train.seed, state.step, labeled["image"].device)
-            draws = draw(cfg, labeled, g)
+            draws = draw(cfg, labeled, g, model, mesh)
         x01, y, _ = common.weak_view(cfg, labeled, draws.weak_l)
         model.train()
         loss = sup_fn(model(common.normalize(cfg, x01, model.compute_dtype), draws.dropout), y)
         state.optimizer.zero_grad()
         loss.backward()
-        lr = state.optimizer.step(state.step)
+        lr = state.optimizer.step(state.step, mesh)
         state.step += 1
-        loss = loss.detach()
-        return {"loss": loss, "sup_loss": loss, "lr": lr}
+        out = common.global_scalars({"loss": loss.detach(), "lr": lr}, ("loss",), mesh)
+        return {**out, "sup_loss": out["loss"]}
 
     return train_step

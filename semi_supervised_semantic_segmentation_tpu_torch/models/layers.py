@@ -20,6 +20,7 @@ import torch.utils.checkpoint
 
 from semi_supervised_semantic_segmentation_tpu_torch.ops import branch_conv
 from semi_supervised_semantic_segmentation_tpu_torch.ops.stem import stem_conv_bn
+from semi_supervised_semantic_segmentation_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, size
 
 _RECOMPUTE = threading.local()
 _VMAP = threading.local()
@@ -91,7 +92,16 @@ class BatchNorm(nn.Module):
     apply; it is differentiable in the sums, so their cotangent reaches the
     kernel's backward.  Neither mode updates the running statistics while a
     checkpointed forward is re-run (:func:`recomputing`).  Under
-    :func:`vmapped` a bf16 input is normalized in f32 and rounded once."""
+    :func:`vmapped` a bf16 input is normalized in f32 and rounded once.
+
+    With a ``mesh`` of R > 1 ranks (:func:`use_mesh`) training mode is
+    SyncBN, the reference's one-pass statistics over the global batch: the
+    per-channel (sum, sum of squares) of this rank's rows in f32 (or x's
+    wider dtype), summed over ranks (``all_reduce_sum``, whose backward sums
+    the cotangent over ranks too), folded with the global count, and
+    applied as ``x * mul + add`` in that dtype, rounded once.  With R = 1 it stays ``F.batch_norm``."""
+
+    mesh: Optional[Mesh] = None
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -107,6 +117,12 @@ class BatchNorm(nn.Module):
         if self.training and recomputing():
             # a re-run updates copies (the same ops save the same tensors)
             rm, rv = rm.clone(), rv.clone()
+        if self.training and self.mesh is not None and self.mesh.size > 1:
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            sums = all_reduce_sum(torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))]),
+                                  self.mesh)
+            mul, add = self.fold(sums, x.numel() // x.shape[1] * self.mesh.size)
+            return (xf * mul[None, :, None, None] + add[None, :, None, None]).to(x.dtype)
         if getattr(_VMAP, "on", False) and x.dtype != self.weight.dtype:
             # vmap's batch_norm rule on the CPU refuses a bf16 input with
             # f32 parameters: normalize in f32 and round the output once
@@ -160,6 +176,8 @@ class ConvNormAct(nn.Module):
         x = self.Norm_0(self.Conv_0(x))
         return F.relu(x) if self.act else x
 
+    mesh: Optional[Mesh] = None
+
     def raw(self, x: torch.Tensor, fold: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         """The fused branch-chain flow (the reference's NCHW
         ``ConvNormAct(raw_out=True)`` over ``PallasConvBN``): a stride-1 3x3
@@ -175,9 +193,10 @@ class ConvNormAct(nn.Module):
                 and branch_conv.supported(x.shape, x.shape[1], conv.out_channels)):
             raise ValueError(f"fused branch conv needs a stride-1 3x3 conv with C_in == C_out "
                              f"<= 128 and H % 32 == 0, got {tuple(x.shape)} -> {conv.out_channels}")
-        y, sums = branch_conv.conv3x3_bn_nchw(x, conv.weight, *(fold or ()))
+        mesh = _train_mesh(self)
+        y, sums = branch_conv.conv3x3_bn_nchw(x, conv.weight, *(fold or (None, None)), mesh=mesh)
         n, _, h, w = y.shape
-        return y, self.Norm_0.BatchNorm_0.fold(sums, n * h * w)
+        return y, self.Norm_0.BatchNorm_0.fold(sums, n * h * w * size(mesh))
 
 
 class StemSegment(nn.Module):
@@ -190,7 +209,10 @@ class StemSegment(nn.Module):
     kernel's own statistics (so the statistics' cotangent reaches kernel
     C), then ReLU and the max-pool with -inf padding.  Any other impl runs
     the plain conv + BatchNorm on the same parameters.  Same math either
-    way."""
+    way.  With a data ``mesh`` (:func:`use_mesh`) the kernel's statistics
+    are summed over ranks in training (``stem_conv_bn``'s mesh form)."""
+
+    mesh: Optional[Mesh] = None
 
     def __init__(self, features: int = 64, kernel: int = 7, bn_momentum: float = 0.9,
                  compute_dtype: torch.dtype = torch.bfloat16, impl: str = "conv"):
@@ -202,9 +224,10 @@ class StemSegment(nn.Module):
     def forward(self, x_nhwc: torch.Tensor):
         dtype = self.Conv_0.compute_dtype
         if self.impl == "pallas":
-            y, sums = stem_conv_bn(x_nhwc.to(dtype), self.Conv_0.weight)
+            mesh = _train_mesh(self)
+            y, sums = stem_conv_bn(x_nhwc.to(dtype), self.Conv_0.weight, mesh)
             n, _, h2, w2 = y.shape
-            mul, add = self.Norm_0.BatchNorm_0.fold(sums, n * h2 * w2)
+            mul, add = self.Norm_0.BatchNorm_0.fold(sums, n * h2 * w2 * size(mesh))
             # the reference's fma: mul and add rounded to the compute dtype,
             # the product and sum in f32, one rounding
             mul = mul.to(dtype).float()[None, :, None, None]
@@ -214,6 +237,20 @@ class StemSegment(nn.Module):
             y = self.Norm_0(self.Conv_0(x_nhwc.permute(0, 3, 1, 2)))
         c1 = F.relu(y)
         return F.max_pool2d(c1, 3, 2, 1), c1
+
+
+def _train_mesh(module: nn.Module) -> Optional[Mesh]:
+    """The module's data mesh in training; None in eval, where the batch
+    statistics go unused."""
+    return module.mesh if module.training else None
+
+
+def use_mesh(model: nn.Module, mesh: Optional[Mesh]) -> None:
+    """Put every BatchNorm, stem segment and branch conv of ``model`` on the
+    data ``mesh`` (None: one process)."""
+    for m in model.modules():
+        if isinstance(m, (BatchNorm, StemSegment, ConvNormAct)):
+            m.mesh = mesh
 
 
 def keep_mask(shape, p: float, g: torch.Generator, device=None) -> torch.Tensor:

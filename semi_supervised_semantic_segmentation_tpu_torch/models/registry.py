@@ -18,7 +18,7 @@ from semi_supervised_semantic_segmentation_tpu_torch.config import Config
 from semi_supervised_semantic_segmentation_tpu_torch.engine import compat
 from semi_supervised_semantic_segmentation_tpu_torch.models.deeplab import DeepLabV3Plus
 from semi_supervised_semantic_segmentation_tpu_torch.models.hrnet import HRNet, HRNetV2Head
-from semi_supervised_semantic_segmentation_tpu_torch.models.layers import keep_mask
+from semi_supervised_semantic_segmentation_tpu_torch.models.layers import keep_mask, use_mesh
 from semi_supervised_semantic_segmentation_tpu_torch.models.resnet import ResNet
 from semi_supervised_semantic_segmentation_tpu_torch.models.unet import UNetDecoder
 
@@ -40,7 +40,11 @@ def remat_stages(remat: str) -> Tuple[int, ...]:
 class SegModel(nn.Module):
     """Encoder + decoder: NHWC image (N,H,W,3) -> NCHW logits (N,C,H,W) in
     the compute dtype.  Train mode updates BN running stats and applies the
-    ASPP dropout, whose mask comes from ``rng`` (see ``layers.dropout``)."""
+    ASPP dropout, whose mask comes from ``rng`` (see ``layers.dropout``).
+    ``mesh``: the data mesh its layers sum their batch statistics over
+    (``layers.use_mesh``; None in one process)."""
+
+    mesh = None
 
     def __init__(self, backbone: str = "resnet50", decoder: str = "deeplabv3plus",
                  num_classes: int = 21, output_stride: int = 16, bn_momentum: float = 0.9,
@@ -112,7 +116,9 @@ def init_weights(model: nn.Module, seed: int) -> None:
                     mod.bias.zero_()
 
 
-def build_model(cfg: Config, seed: Optional[int] = None) -> SegModel:
+def build_model(cfg: Config, seed: Optional[int] = None, mesh=None) -> SegModel:
+    """The model of ``cfg`` with random weights from ``seed`` (default
+    ``train.seed``), its layers on the data ``mesh`` (``parallel.mesh``)."""
     m = cfg.model
     if m.norm != "batchnorm":
         raise NotImplementedError(f"model.norm={m.norm!r} is not yet ported")
@@ -128,6 +134,8 @@ def build_model(cfg: Config, seed: Optional[int] = None) -> SegModel:
         head_fuse=m.head_fuse, hrnet_width=m.hrnet_width, hrnet_modules=tuple(m.hrnet_modules),
     )
     init_weights(model, cfg.train.seed if seed is None else seed)
+    use_mesh(model, mesh)
+    model.mesh = mesh
     if m.pretrained:
         # ImageNet-pretrained encoder from a torchvision / official HRNet state dict
         compat.load_pretrained_encoder(m.pretrained, model)

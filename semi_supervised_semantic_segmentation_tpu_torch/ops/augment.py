@@ -19,7 +19,7 @@ CutMix box).  Tests drive the cores with the same parameters on both sides.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -232,10 +232,15 @@ def _scaled_hw(sizes: torch.Tensor, scale: torch.Tensor):
 
 
 def sample_weak_params(g: torch.Generator, sizes: torch.Tensor, crop_size: int, *,
-                       scale_min=0.5, scale_max=2.0, hflip_prob=0.5) -> WeakParams:
+                       scale_min=0.5, scale_max=2.0, hflip_prob=0.5,
+                       rows: Optional[Tuple[int, slice]] = None) -> WeakParams:
     """scale U(min, max); integer crop offsets uniform over the valid
-    range of the scaled frame (0 when it is smaller than the crop)."""
-    u = torch.rand(sizes.shape[0], 4, generator=g, device=sizes.device)
+    range of the scaled frame (0 when it is smaller than the crop).
+    ``rows`` (data parallelism): (the global batch's row count, this rank's
+    slice of it): the uniforms are drawn for the global batch, and this
+    rank's rows are mapped with this rank's ``sizes``."""
+    n, sl = rows if rows is not None else (sizes.shape[0], slice(None))
+    u = torch.rand(n, 4, generator=g, device=sizes.device)[sl]
     s = scale_min + (scale_max - scale_min) * u[:, 0]
     _, _, sh, sw = _scaled_hw(sizes, s)
     oy = torch.floor(u[:, 1] * (torch.clamp(sh - crop_size, min=0.0) + 1.0))
@@ -328,14 +333,23 @@ def box_mask(boxes: torch.Tensor, height: int, width: int) -> torch.Tensor:
     return (yy >= y1) & (yy < y2) & (xx >= x1) & (xx < x2)
 
 
-def cutmix_batch(images, labels, conf, boxes):
+def cutmix_batch(images, labels, conf, boxes, partner=None):
     """Mix each sample with its roll-by-1 partner inside its box; the same
-    box cuts image (B,H,W,3), labels (B,H,W) and confidence (B,H,W)."""
+    box cuts image (B,H,W,3), labels (B,H,W) and confidence (B,H,W).
+    ``partner``: (image, label, conf) of row 0's partner -- under data
+    parallelism the previous rank's last row; by default the batch's own
+    last row, which is the roll."""
     m = box_mask(boxes, images.shape[1], images.shape[2])
+    if partner is None:
+        partner = (images[-1], labels[-1], conf[-1])
+
+    def rolled(t, p):
+        return torch.cat([p[None].to(t.dtype), t[:-1]])
+
     return (
-        torch.where(m[..., None], images.roll(1, 0), images),
-        torch.where(m, labels.roll(1, 0), labels),
-        torch.where(m, conf.roll(1, 0), conf),
+        torch.where(m[..., None], rolled(images, partner[0]), images),
+        torch.where(m, rolled(labels, partner[1]), labels),
+        torch.where(m, rolled(conf, partner[2]), conf),
     )
 
 

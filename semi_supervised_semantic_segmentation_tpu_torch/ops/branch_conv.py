@@ -62,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from semi_supervised_semantic_segmentation_tpu_torch.ops import cuda_build
+from semi_supervised_semantic_segmentation_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 from semi_supervised_semantic_segmentation_tpu_torch.ops.stem import fold_stats_cotangent
 
 SOURCE = "branch_conv.cu"
@@ -546,11 +547,22 @@ def conv3x3_nchw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def conv3x3_bn_nchw(x: torch.Tensor, w: torch.Tensor, mul: Optional[torch.Tensor] = None,
-                    add: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                    add: Optional[torch.Tensor] = None,
+                    mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused branch-chain conv: y = conv3x3(t, w) with t = relu(x*mul + add)
     when (mul, add) (f32 [C], the previous folded BatchNorm) are given, else
     t = x.  Returns (y, [2,C] f32 (sum, sum of squares) of y): the next
-    BatchNorm's batch statistics.  Differentiable in x, w, mul and add."""
+    BatchNorm's batch statistics.  Differentiable in x, w, mul and add.
+
+    ``mesh`` (data parallelism; the counterpart of the reference's
+    ``shard_map`` form): x is this rank's rows; D runs on them and one
+    ``all_reduce`` of the [2,C] sums gives every rank the global statistics.
+    The backward hands E the global stats cotangent (that collective's
+    adjoint), which it folds into this rank's dY; dk, and (dmul, dadd) from
+    D's post mode, stay this rank's: the gradient sum over ranks adds them
+    once (a second sum here would count them R times)."""
     if mul is None:
-        return _ConvBN.apply(x, w)
-    return _ConvBNPre.apply(x, w, mul, add)
+        y, s = _ConvBN.apply(x, w)
+    else:
+        y, s = _ConvBNPre.apply(x, w, mul, add)
+    return y, all_reduce_sum(s, mesh)

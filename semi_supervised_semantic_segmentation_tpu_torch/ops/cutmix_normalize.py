@@ -2,9 +2,12 @@
 
 Replaces ``semi_supervised_semantic_segmentation_tpu/ops/pallas_aug.py``
 (``cutmix_normalize_pallas`` -> ``_kernel``).  One pass: inside sample b's
-box, image, pseudo-label and confidence come from partner (b-1) mod B; the
-image is then normalized per channel, (x - mean) / std, and written in the
-model dtype.
+box, image, pseudo-label and confidence come from partner b-1; the image is
+then normalized per channel, (x - mean) / std, and written in the model
+dtype.  Row 0's partner is an input of its own (``partner``): the batch's
+last row in one process, which makes it the reference's roll-by-1 partner
+(b-1) mod B; under data parallelism the last row of the previous rank
+(``parallel.mesh.partner_rows``), which is the global batch's roll.
 
 The TPU kernel draws each box on chip from ``seed + b`` so that all row
 tiles of a sample agree without talking to each other.  Here the step
@@ -39,12 +42,21 @@ _KERNEL = None
 
 def _cutmix_normalize_kernel(
     img_ptr, lab_ptr, conf_ptr, box_ptr, out_img_ptr, out_lab_ptr, out_conf_ptr,
-    B, H, W, m0, m1, m2, s0, s1, s2,
+    pimg_delta, plab_delta, pconf_delta,
+    H, W, m0, m1, m2, s0, s1, s2,
     ROWS: "tl.constexpr", BLOCK_C: "tl.constexpr", BLOCK_W: "tl.constexpr",
 ):
     b = tl.program_id(0)
     r0 = tl.program_id(1) * ROWS
-    pb = (b + B - 1) % B
+    # where the partner's rows start, in elements from each tensor's start:
+    # sample b-1, or for b = 0 the partner row (``p*_delta``, its distance
+    # from the tensor in elements) -- one scalar per program, so every load
+    # keeps its contiguous, aligned offsets
+    first = b == 0
+    prev = (b - 1).to(tl.int64) * H * W
+    pimg_off = tl.where(first, pimg_delta, prev * 3)
+    plab_off = tl.where(first, plab_delta, prev)
+    pconf_off = tl.where(first, pconf_delta, prev)
     y1 = tl.load(box_ptr + b * 4)
     y2 = tl.load(box_ptr + b * 4 + 1)
     x1 = tl.load(box_ptr + b * 4 + 2)
@@ -61,9 +73,8 @@ def _cutmix_normalize_kernel(
     ch = cols - px * 3
     inbox = row_in & (px >= x1) & (px < x2)
     off = (b * H + rows) * w3 + cols
-    poff = (pb * H + rows) * w3 + cols
     v = tl.load(img_ptr + off, mask=m & (inbox == 0), other=0.0)
-    pv = tl.load(img_ptr + poff, mask=m & inbox, other=0.0)
+    pv = tl.load(img_ptr + pimg_off + rows * w3 + cols, mask=m & inbox, other=0.0)
     v = tl.where(inbox, pv, v)
     mean = tl.where(ch == 0, m0, tl.where(ch == 1, m1, m2))
     std = tl.where(ch == 0, s0, tl.where(ch == 1, s1, s2))
@@ -74,13 +85,13 @@ def _cutmix_normalize_kernel(
     mw = row_ok & (xs < W)
     inbox_w = row_in & (xs >= x1) & (xs < x2)
     offw = (b * H + rows) * W + xs
-    poffw = (pb * H + rows) * W + xs
+    prow = rows * W + xs
     lab = tl.where(inbox_w,
-                   tl.load(lab_ptr + poffw, mask=mw & inbox_w, other=0),
+                   tl.load(lab_ptr + plab_off + prow, mask=mw & inbox_w, other=0),
                    tl.load(lab_ptr + offw, mask=mw & (inbox_w == 0), other=0))
     tl.store(out_lab_ptr + offw, lab, mask=mw)
     conf = tl.where(inbox_w,
-                    tl.load(conf_ptr + poffw, mask=mw & inbox_w, other=0),
+                    tl.load(conf_ptr + pconf_off + prow, mask=mw & inbox_w, other=0),
                     tl.load(conf_ptr + offw, mask=mw & (inbox_w == 0), other=0))
     tl.store(out_conf_ptr + offw, conf, mask=mw)
 
@@ -97,10 +108,10 @@ def _kernel():
 
 
 def cutmix_normalize_plain(images01, labels, conf, boxes, mean: Sequence[float],
-                           std: Sequence[float], out_dtype=torch.bfloat16):
+                           std: Sequence[float], out_dtype=torch.bfloat16, partner=None):
     """The kernel's specification: ``augment.cutmix_batch`` then
     ``augment.normalize_images``."""
-    mixed, lab, cf = augment.cutmix_batch(images01, labels, conf, boxes)
+    mixed, lab, cf = augment.cutmix_batch(images01, labels, conf, boxes, partner)
     return augment.normalize_images(mixed, mean, std, out_dtype), lab, cf
 
 
@@ -108,12 +119,25 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
+def _elements_from(base: torch.Tensor, t: torch.Tensor) -> int:
+    """``t``'s start as an element offset from ``base``'s (same dtype; any
+    sign): the kernel reads the partner row through ``base``'s pointer."""
+    delta = t.data_ptr() - base.data_ptr()
+    assert delta % base.element_size() == 0, "the partner row is not element-aligned"
+    return delta // base.element_size()
+
+
 def cutmix_normalize_triton(images01, labels, conf, boxes, mean: Sequence[float],
-                            std: Sequence[float], out_dtype=torch.bfloat16):
+                            std: Sequence[float], out_dtype=torch.bfloat16, partner=None):
     """Kernel A on CUDA tensors: images (B,H,W,3) f32, labels (B,H,W) i32,
-    conf (B,H,W) bool, boxes (B,4) i32 -> (images in out_dtype, i32, bool)."""
+    conf (B,H,W) bool, boxes (B,4) i32, ``partner`` row 0's partner (image
+    (H,W,3) f32, label (H,W) i32, conf (H,W) bool; default: the batch's
+    last row) -> (images in out_dtype, i32, bool)."""
     b, h, w, c = images01.shape
     dev = images01.device
+    if partner is None:
+        partner = (images01[-1], labels[-1], conf[-1])
+    pimg, plab, pconf = partner
     ok = (
         images01.is_cuda and c == 3 and images01.dtype == torch.float32
         and images01.is_contiguous()
@@ -122,15 +146,21 @@ def cutmix_normalize_triton(images01, labels, conf, boxes, mean: Sequence[float]
         and boxes.dtype == torch.int32 and boxes.is_contiguous()
         and tuple(labels.shape) == (b, h, w) and tuple(conf.shape) == (b, h, w)
         and tuple(boxes.shape) == (b, 4)
-        and all(t.device == dev for t in (labels, conf, boxes))
+        and pimg.dtype == torch.float32 and tuple(pimg.shape) == (h, w, 3)
+        and plab.dtype == torch.int32 and tuple(plab.shape) == (h, w)
+        and pconf.dtype == torch.bool and tuple(pconf.shape) == (h, w)
+        and all(t.is_contiguous() for t in (pimg, plab, pconf))
+        and all(t.device == dev for t in (labels, conf, boxes, pimg, plab, pconf))
         and b * h * w * 3 < 2 ** 31
     )
     if not ok:
         raise ValueError(
             "cutmix_normalize kernel takes contiguous CUDA tensors: images f32 "
-            "(B,H,W,3), labels i32 (B,H,W), conf bool (B,H,W), boxes i32 (B,4); got "
+            "(B,H,W,3), labels i32 (B,H,W), conf bool (B,H,W), boxes i32 (B,4) and a "
+            "partner row of each; got "
             f"{images01.dtype}{tuple(images01.shape)}, {labels.dtype}{tuple(labels.shape)}, "
-            f"{conf.dtype}{tuple(conf.shape)}, {boxes.dtype}{tuple(boxes.shape)}"
+            f"{conf.dtype}{tuple(conf.shape)}, {boxes.dtype}{tuple(boxes.shape)}, partner "
+            f"{[(t.dtype, tuple(t.shape)) for t in partner]}"
         )
     kern = _kernel()
     out_img = torch.empty((b, h, w, 3), dtype=out_dtype, device=dev)
@@ -139,7 +169,8 @@ def cutmix_normalize_triton(images01, labels, conf, boxes, mean: Sequence[float]
     grid = (b, (h + ROWS - 1) // ROWS)
     kern[grid](
         images01, labels, conf.view(torch.uint8), boxes, out_img, out_lab,
-        out_conf.view(torch.uint8), b, h, w,
+        out_conf.view(torch.uint8), _elements_from(images01, pimg), _elements_from(labels, plab),
+        _elements_from(conf, pconf), h, w,
         float(mean[0]), float(mean[1]), float(mean[2]),
         float(std[0]), float(std[1]), float(std[2]),
         ROWS=ROWS, BLOCK_C=_next_pow2(3 * w), BLOCK_W=_next_pow2(w), num_warps=4,
@@ -152,10 +183,13 @@ cutmix_normalize_triton.launches = 0
 
 
 def cutmix_normalize(images01, labels, conf, boxes, mean: Sequence[float],
-                     std: Sequence[float], out_dtype=torch.bfloat16):
-    """CUDA -> kernel A (raises on what it does not take), CPU -> plain."""
+                     std: Sequence[float], out_dtype=torch.bfloat16, partner=None):
+    """CUDA -> kernel A (raises on what it does not take), CPU -> plain.
+    ``partner``: row 0's partner (image, label, conf); by default the
+    batch's own last row."""
     if images01.is_cuda:
-        return cutmix_normalize_triton(images01, labels, conf, boxes, mean, std, out_dtype)
+        return cutmix_normalize_triton(images01, labels, conf, boxes, mean, std, out_dtype,
+                                       partner)
     if images01.device.type != "cpu":
         raise ValueError(f"cutmix_normalize: unsupported device {images01.device}")
-    return cutmix_normalize_plain(images01, labels, conf, boxes, mean, std, out_dtype)
+    return cutmix_normalize_plain(images01, labels, conf, boxes, mean, std, out_dtype, partner)

@@ -30,12 +30,13 @@ launch, ``.launches_vec`` those on the 16-byte copy path (``stem_vec``).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from semi_supervised_semantic_segmentation_tpu_torch.ops import cuda_build
+from semi_supervised_semantic_segmentation_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 
 SOURCE = "stem.cu"
 CO = 64
@@ -350,7 +351,16 @@ class StemConvBN(torch.autograd.Function):
         return (torch.stack([y for y, _ in outs]), torch.stack([s for _, s in outs])), (0, 0)
 
 
-def stem_conv_bn(x: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def stem_conv_bn(x: torch.Tensor, w: torch.Tensor,
+                 mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable stem: x NHWC [N,H,W,3], w OIHW [64,3,k,k] f32 ->
-    (y NCHW in x's dtype, [2,64] f32 (sum, sum of squares) of y)."""
-    return StemConvBN.apply(x, w)
+    (y NCHW in x's dtype, [2,64] f32 (sum, sum of squares) of y).
+
+    ``mesh`` (data parallelism; the counterpart of ``stem_conv_bn_s2(...,
+    mesh)``): x is this rank's rows; kernel B runs on them and one
+    ``all_reduce`` of the [2,64] sums gives every rank the global batch
+    statistics.  In the backward that collective's adjoint hands kernel C
+    the global stats cotangent, which it folds into this rank's dY; dW
+    stays this rank's (the gradient sum over ranks adds it once)."""
+    y, s = StemConvBN.apply(x, w)
+    return y, all_reduce_sum(s, mesh)

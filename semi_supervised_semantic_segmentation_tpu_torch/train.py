@@ -6,6 +6,12 @@ Usage:
       --set data.dataset=synthetic data.cutmix_impl=pallas model.stem_impl=pallas
   ... --device cpu   (explicit CPU run; the default is CUDA, which must exist)
   ... --resume auto  (the latest slot of <work_dir>/checkpoints; or DIR, DIR:STEP)
+
+Data parallelism over R processes (the batch sizes stay global; NCCL when
+each process has a card of its own, gloo when they share one or run on the
+CPU):
+  python -m torch.distributed.run --nproc_per_node R \
+      -m semi_supervised_semantic_segmentation_tpu_torch.train --config ...
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import logging
 
 from semi_supervised_semantic_segmentation_tpu_torch.config import load_config, parse_overrides
 from semi_supervised_semantic_segmentation_tpu_torch.engine.trainer import Trainer
+from semi_supervised_semantic_segmentation_tpu_torch.parallel import distributed
 
 
 def main(argv=None) -> None:
@@ -31,6 +38,7 @@ def main(argv=None) -> None:
                    help="initialize from a reference-layout torch checkpoint")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    started = distributed.maybe_initialize(args.device)
     try:
         overrides = parse_overrides(args.set)
     except ValueError as e:
@@ -44,8 +52,11 @@ def main(argv=None) -> None:
     cfg = load_config(args.config, overrides)
     trainer = Trainer(cfg, device=args.device)
     best = trainer.fit()
-    print(f"best mIoU: {best:.4f}")
-    print(json.dumps({**trainer.last, "best_miou": best}))
+    if trainer.rank0:
+        print(f"best mIoU: {best:.4f}")
+        print(json.dumps({**trainer.last, "best_miou": best}))
+    if started:
+        distributed.finalize()
 
 
 if __name__ == "__main__":
