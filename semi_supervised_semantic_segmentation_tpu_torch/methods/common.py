@@ -95,19 +95,14 @@ def dropout_keep(model, g: torch.Generator, crop: int, *local: int,
     """The ASPP dropout's keep-mask for a forward of the concatenated
     batches of ``local`` rows each: drawn from ``g`` for the global
     concatenation and cut to this rank's rows (``parallel.mesh.concat_rows``);
-    None where the decoder has no dropout."""
+    None where the decoder has no dropout, or where no ``model`` is given
+    (the caller then sets the mask itself)."""
+    if model is None:
+        return None
     keep = model.dropout_mask(sum(local) * size(mesh), crop, crop, g)
     if keep is None or size(mesh) == 1:
         return keep
     return keep[concat_rows(mesh, *local).to(keep.device)]
-
-
-def dropout_draw(model, g: torch.Generator, crop: int, *local: int,
-                 mesh: Optional[Mesh] = None):
-    """The ASPP dropout's draw: with one rank the generator, from which the
-    model draws the keep-mask at the forward; with R > 1 the keep-mask of
-    :func:`dropout_keep`, drawn now (the next draw from ``g`` either way)."""
-    return g if size(mesh) == 1 else dropout_keep(model, g, crop, *local, mesh=mesh)
 
 
 def global_scalars(out: Dict[str, object], keys: Iterable[str],

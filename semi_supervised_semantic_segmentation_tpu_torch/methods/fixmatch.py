@@ -51,8 +51,8 @@ class Draws:
 
 def draw(cfg: Config, labeled: common.Batch, unlabeled: common.Batch,
          g: torch.Generator, model=None, mesh: Optional[Mesh] = None) -> Draws:
-    """The step's draws; under a mesh of R > 1 ranks the dropout keep-mask
-    is drawn here from ``model`` (``common.dropout_draw``)."""
+    """The step's draws (the global batch's rows under ``mesh``;
+    ``common``)."""
     dev = unlabeled["image"].device
     nl, b = labeled["image"].shape[0], unlabeled["image"].shape[0]
     return Draws(
@@ -60,7 +60,7 @@ def draw(cfg: Config, labeled: common.Batch, unlabeled: common.Batch,
         weak_u=common.sample_weak(cfg, unlabeled, g, mesh),
         strong=common.sample_strong(cfg, b, g, dev, mesh),
         boxes=common.sample_boxes(cfg, b, g, dev, mesh),
-        dropout=common.dropout_draw(model, g, cfg.data.crop_size, nl, b, mesh=mesh),
+        dropout=common.dropout_keep(model, g, cfg.data.crop_size, nl, b, mesh=mesh),
     )
 
 

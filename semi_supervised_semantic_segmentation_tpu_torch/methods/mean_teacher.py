@@ -46,7 +46,7 @@ def draw(cfg: Config, labeled: common.Batch, unlabeled: common.Batch,
     return Draws(weak_l=common.sample_weak(cfg, labeled, g, mesh),
                  weak_u=common.sample_weak(cfg, unlabeled, g, mesh),
                  strong=common.sample_strong(cfg, nu, g, dev, mesh),
-                 dropout=common.dropout_draw(model, g, cfg.data.crop_size, nl, nu, mesh=mesh))
+                 dropout=common.dropout_keep(model, g, cfg.data.crop_size, nl, nu, mesh=mesh))
 
 
 def init_state(cfg: Config, model: torch.nn.Module, total_steps: int) -> TrainState:

@@ -35,7 +35,7 @@ def draw(cfg: Config, labeled: common.Batch, g: torch.Generator, model=None,
     """The step's draws (the global batch's rows under ``mesh``;
     ``common``)."""
     return Draws(weak_l=common.sample_weak(cfg, labeled, g, mesh),
-                 dropout=common.dropout_draw(model, g, cfg.data.crop_size,
+                 dropout=common.dropout_keep(model, g, cfg.data.crop_size,
                                              labeled["image"].shape[0], mesh=mesh))
 
 

@@ -121,7 +121,13 @@ def _next_pow2(n: int) -> int:
 
 def _elements_from(base: torch.Tensor, t: torch.Tensor) -> int:
     """``t``'s start as an element offset from ``base``'s (same dtype; any
-    sign): the kernel reads the partner row through ``base``'s pointer."""
+    sign): the kernel reads the partner row through ``base``'s pointer.
+
+    This needs what CUDA gives on a 64-bit host: both tensors on the same
+    device, in one flat (unified virtual) address space, so the difference
+    of two allocations' addresses is itself an address offset; the kernel
+    adds it in 64 bits (it is promoted against an int64 row offset), and
+    ``t`` starts on a whole element of ``base``'s dtype."""
     delta = t.data_ptr() - base.data_ptr()
     assert delta % base.element_size() == 0, "the partner row is not element-aligned"
     return delta // base.element_size()
