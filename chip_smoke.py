@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only  (phases 1 and 2 for kernels B, C, D and E
                                            only: their checks and times, no ok line)
     python3 chip_smoke.py --ddp           (phase 1 and phase 5 only, no ok line)
+    python3 chip_smoke.py --spatial       (phase 1 and phase 6 only, no ok line)
 
 Phases; any failure exits non-zero and prints no result:
  1. build    -- compile ``csrc/*.cu`` with nvcc for sm_90a (one nvcc per
@@ -128,9 +129,28 @@ Phases; any failure exits non-zero and prints no result:
                 OHEM threshold, and rank 0's records alone in
                 ``metrics.jsonl``.  (d) (b)'s rolling slot, written by rank 0,
                 restored by a one-process Trainer bit-equal.
+ 6. spatial  -- HRNet's stem H-sharded over a model axis
+                (``…_torch/parallel/spatial.py``), ranks started as in
+                phase 5 on the one card.  (e) config 5 (4 + 4, OHEM,
+                branch_conv pallas, remat stages:3) with
+                ``parallel.model_parallel: 2`` on D = 1 x M = 2 and (f) on
+                D = 2 x M = 2 through ``Trainer`` for 2 steps ((e) with its
+                val pass and rolling slot; (f) the steps alone), against one
+                process on the whole batch from the same weights: the loss
+                within ``DDP_LIMITS["config 5"]``, the ranks' states
+                bit-equal, D 448 / E 128 per rank and step, the collectives
+                and bytes with the halo and ``gather_h`` launches apart (5
+                and 2 per step), the val pass's matrix, the OHEM threshold,
+                world rank 0's records alone, the peak memory per rank.
+                (g) config 5's step 0 through its f32 path at crop 512 on
+                D = 2 x M = 2 against one process: the gradient, its stem
+                part and the gathered stem output within ``SPATIAL_LIMITS``,
+                and each of four planted faults (``spatial_faults``)
+                outside one of them.  (h) (e)'s slot restored by a
+                one-process Trainer bit-equal.
 Then it prints the card's name and power limit, one JSON line of kernel
 records (launches in the training runs, per val pass and per step of each
-config), and the ok line.  A longer report goes to
+config; the ranks of phases 5 and 6 per rank), and the ok line.  A longer report goes to
 ``chiprun_out/chip_smoke_report.json``.
 """
 
@@ -151,6 +171,10 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# the config 4 val pass at 1024 x 2048 (62.4 GB) ran out of the card's 79
+# GB with 16.5 GB cached but unallocated after the earlier phases: grow
+# segments instead of caching fixed blocks (the ranks inherit it)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 CONFIG1 = os.path.join(REPO, "configs", "1_supervised_unet_r18_128.yaml")
 CONFIG2 = os.path.join(REPO, "configs", "2_mean_teacher_unet_voc_256.yaml")
 CONFIG3 = os.path.join(REPO, "configs", "3_fixmatch_dlv3p_r50_voc_512.yaml")
@@ -233,6 +257,7 @@ def main() -> None:
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     kernels_only = "--kernels-only" in sys.argv[1:]
     ddp_only = "--ddp" in sys.argv[1:]
+    spatial_only = "--spatial" in sys.argv[1:]
 
     def time_ms(fn, reps: int = 10) -> float:
         """Median of ``reps`` single calls, each after an L2 flush."""
@@ -256,11 +281,14 @@ def main() -> None:
     kernels = {}
     g = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
-    if ddp_only:
-        report["ddp"] = ddp_phase(torch, ddp_counters(stem, branch_conv, cmn))
+    if ddp_only or spatial_only:
+        tag, phase = ("ddp", ddp_phase) if ddp_only else ("spatial", spatial_phase)
+        report[tag] = phase(torch, ddp_counters(stem, branch_conv, cmn))
+        for label in DDP_SLICES if ddp_only else ():
+            report[tag].get(label, {}).pop("one_vec", None)
         report["failures"] = FAILURES
         os.makedirs(OUT_DIR, exist_ok=True)
-        with open(os.path.join(OUT_DIR, "chip_smoke_ddp.json"), "w") as f:
+        with open(os.path.join(OUT_DIR, f"chip_smoke_{tag}.json"), "w") as f:
             json.dump(report, f, indent=1, default=str)
         print(f"card: {smi_line}", flush=True)
         sys.exit(1 if FAILURES else 0)
@@ -462,6 +490,12 @@ def main() -> None:
 
     # --------------------------------------------------------------- 5. ddp
     report["ddp"] = ddp = ddp_phase(torch, counters)
+    # ----------------------------------------------------------- 6. spatial
+    # (c)'s one-process config 5 run is (e)'s and (f)'s reference too
+    vecs = {label: ddp.get(label, {}).pop("one_vec", None) for label in DDP_SLICES}
+    one5 = (ddp["config 5"]["one"], vecs["config 5"]) if vecs["config 5"] is not None else None
+    report["spatial"] = spatial = spatial_phase(torch, counters, one5)
+    del vecs, one5
 
     runs = {"config 1": (launches1, eval1, 8), "config 2": (launches2, eval2, 8),
             "config 3": (launches3, eval3, 8), "config 4": (launches4, eval4, 8),
@@ -477,6 +511,13 @@ def main() -> None:
         if ranks and ranks[0] is not None:
             run = {k: sum(s["launches"].get(k, 0) for s in ranks[0]["steps"]) for k in counters}
             runs[f"ddp {label}, rank 0 of 2"] = (run, none, DDP_STEPS)
+    # spatial: world rank 0 of (e) and (f) (each rank launches as many)
+    for job, (world, _) in SPATIAL_JOBS.items():
+        ranks = spatial.get(job, {}).get("ranks")
+        if ranks and ranks[0] is not None:
+            run = {k: sum(s["launches"].get(k, 0) for s in ranks[0]["steps"]) for k in counters}
+            runs[f"spatial ({job[-1]}) config 5 D={world // 2} x M=2, rank 0 of {world}"] = (
+                run, none, DDP_STEPS)
     launches = {k: sum(r[0][k] for r in runs.values()) for k in counters}
     by_config = {k: {c: {"per_step": r[0][k] / r[2], "run": r[0][k], "per_val_pass": r[1][k]}
                      for c, r in runs.items() if r[0][k] or r[1][k]} for k in counters}
@@ -2352,19 +2393,24 @@ def planted(patches):
 
 
 @contextlib.contextmanager
-def recording_grad0(torch):
+def recording_grad0(torch, part=frozenset()):
     """While active, the first gradient summed over the ranks (the first
     step's, read between the sum and clipping) is kept as one f32 CPU
-    vector: the list it yields holds it."""
+    vector, and the gradient of the parameters whose ids are in ``part``
+    as a second one: the list it yields holds them."""
     from semi_supervised_semantic_segmentation_tpu_torch.engine import state as state_mod
 
     summed, grad0 = state_mod.all_reduce_grads, []
 
     def recorded(params, mesh):
+        params = list(params)
         summed(params, mesh)
         if not grad0:
-            grad0.append(torch.cat([p.grad.detach().float().reshape(-1).cpu()
-                                    for p in params if p.grad is not None]))
+            flat = lambda ps: torch.cat([p.grad.detach().float().reshape(-1).cpu()  # noqa: E731
+                                         for p in ps if p.grad is not None])
+            grad0.append(flat(params))
+            if part:
+                grad0.append(flat([p for p in params if id(p) in part]))
 
     state_mod.all_reduce_grads = recorded
     try:
@@ -2373,22 +2419,66 @@ def recording_grad0(torch):
         state_mod.all_reduce_grads = summed
 
 
+@contextlib.contextmanager
+def recording_stem(torch, trainer, calls: int = 2):
+    """While active, the output of HRNet's stem (after the gather over the
+    model axis, if any) in each of the first ``calls`` forwards is kept as
+    an f32 CPU tensor (step 0's teacher forward, then the student's on
+    [labeled; mixed]): the dict it yields holds them ("outs") and the global
+    rows of the student's batch that this rank holds ("rows")."""
+    from semi_supervised_semantic_segmentation_tpu_torch.parallel import mesh as mesh_lib
+    from semi_supervised_semantic_segmentation_tpu_torch.parallel import spatial
+
+    t, mesh = trainer.cfg.train, trainer.mesh
+    rec = {"outs": [], "rows": mesh_lib.concat_rows(mesh, t.labeled_batch_size // mesh.size,
+                                                    t.unlabeled_batch_size // mesh.size)}
+    gather = spatial.gather_h
+
+    def keep(y):
+        if len(rec["outs"]) < calls:
+            rec["outs"].append(y.detach().float().cpu())
+
+    def gathered(x, m):
+        y = gather(x, m)
+        keep(y)
+        return y
+
+    # the teacher (a copy) and the student: hooks on both stems, or the gather
+    nets = trainer.state.nets() + [n for n in (trainer.state.ema_model,) if n is not None]
+    hooks = []
+    if trainer.model.encoder.stem2.spatial is None:
+        hooks = [n.encoder.stem2.register_forward_hook(lambda mod, inp, out: keep(out))
+                 for n in nets]
+    else:
+        spatial.gather_h = gathered
+    try:
+        yield rec
+    finally:
+        spatial.gather_h = gather
+        for hook in hooks:
+            hook.remove()
+
+
 def ddp_run(torch, label: str, overrides: dict, work_dir: str, counters: dict,
-            mesh_ranks: int, evaluate: bool = True):
+            mesh_ranks: int, evaluate: bool = True, stem: bool = False):
     """``Trainer.fit`` of slice ``label`` for ``DDP_STEPS`` steps (one val pass,
     one rolling slot) in this process -- one rank of a group, or the whole
     batch with no group -- with per-step launches of each kernel counter,
-    collectives and bytes reduced, device ms (CUDA events) and wall ms, each
-    step's OHEM order statistic, the state before and after, step 0's
-    gradient summed over the ranks (``grad0``), and the confusion matrix of
-    a second val pass.  ``evaluate`` false: the steps alone, no val pass and
-    no slot.  -> (record, state vectors)."""
+    collectives and bytes reduced (the spatial stem's halo and gather
+    launches apart), device ms (CUDA events) and wall ms, each step's OHEM
+    order statistic, the state before and after, step 0's gradient summed
+    over the ranks (``grad0``; the stem's parameters' part ``grad0_stem``),
+    and the confusion matrix of a second val pass.  ``evaluate`` false: the
+    epoch's steps alone (``Trainer.train_epoch``, its records written), no
+    val pass and no slot.  ``stem``: HRNet's stem output of step 0's
+    forwards kept (``recording_stem``).  -> (record, state vectors)."""
     import numpy as np
 
     from semi_supervised_semantic_segmentation_tpu_torch.engine import evaluator
     from semi_supervised_semantic_segmentation_tpu_torch.engine.trainer import Trainer
     from semi_supervised_semantic_segmentation_tpu_torch.ops import losses
     from semi_supervised_semantic_segmentation_tpu_torch.parallel import mesh as mesh_lib
+    from semi_supervised_semantic_segmentation_tpu_torch.parallel import spatial
 
     config_path, base, _ = DDP_SLICES[label]
     cfg = _ddp_cfg(config_path, {**base, **overrides}, work_dir)
@@ -2410,7 +2500,7 @@ def ddp_run(torch, label: str, overrides: dict, work_dir: str, counters: dict,
     def counted(state, lab, unlab):
         torch.cuda.synchronize()
         before = {k: getattr(f, a) for k, (f, a) in counters.items()}
-        coll = dict(mesh_lib.COUNTS)
+        coll, halo = dict(mesh_lib.COUNTS), dict(spatial.COUNTS)
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         # the last step under the profiler: its kernels' device time
         prof = None
@@ -2434,18 +2524,22 @@ def ddp_run(torch, label: str, overrides: dict, work_dir: str, counters: dict,
                       "launches": {k: getattr(f, a) - before[k] for k, (f, a) in counters.items()},
                       "collectives": mesh_lib.COUNTS["collectives"] - coll["collectives"],
                       "bytes": mesh_lib.COUNTS["bytes"] - coll["bytes"],
+                      "spatial": {k: v - halo[k] for k, v in spatial.COUNTS.items()},
                       "loss": float(m["loss"]), "rows": int(lab["image"].shape[0])})
         return m
 
     trainer.train_step = counted
+    enc = getattr(trainer.model, "encoder", None)
+    part = {id(p) for b in (enc.spatial_blocks() if hasattr(enc, "spatial_blocks") else ())
+            for p in b.parameters()}
     try:
-        with recording_grad0(torch) as grad0:
+        with recording_grad0(torch, part) as grad0, \
+                (recording_stem(torch, trainer) if stem else contextlib.nullcontext()) as stems:
             if evaluate:
                 trainer.fit()
             else:
                 try:
-                    for lab, unlab in trainer.batches(0):
-                        counted(trainer.state, lab, unlab)
+                    trainer.train_epoch(0)
                 finally:
                     trainer.close()
     finally:
@@ -2462,9 +2556,10 @@ def ddp_run(torch, label: str, overrides: dict, work_dir: str, counters: dict,
             loader.close()
     out = {"steps": steps, "kth": kths, "cm": np.asarray(cm).tolist(),
            "checksum": _state_checksum(torch, trainer.state), "step": trainer.state.step,
-           "rank": trainer.mesh.rank, "mesh": trainer.mesh.shape,
-           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    vec = {"before": p0, "after": p1, "rest": rest, "grad0": grad0[0]}
+           "rank": trainer.mesh.rank, "world_rank": trainer.mesh.world_rank,
+           "mesh": trainer.mesh.shape, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    vec = {"before": p0, "after": p1, "rest": rest, "grad0": grad0[0],
+           "grad0_stem": grad0[1] if len(grad0) > 1 else None, "stem": stems}
     del trainer
     return out, vec
 
@@ -2499,6 +2594,8 @@ def ddp_rank_main(job: str, out_path: str) -> None:
         u[rank] = torch.tensor([250, 3, rank], dtype=torch.uint8)
         dist.all_reduce(u)
         res.update({"all_reduce": x.tolist(), "broadcast": b.tolist(), "uint8": u.tolist()})
+    elif job.startswith("spatial"):
+        res.update(spatial_rank(torch, job, rank, out_path))
     elif job == "faults":
         # config 3's step 0 through its f32 path on the ranks, correct and
         # with each planted fault
@@ -2573,6 +2670,9 @@ def ddp_phase(torch, counters: dict) -> dict:
     import numpy as np
     import torch.distributed as dist
 
+    # the ranks need room for their contexts: give back what phase 4 cached
+    gc.collect()
+    torch.cuda.empty_cache()
     report = {}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,compute_mode",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -2769,7 +2869,7 @@ def ddp_compare(torch, job: str, label: str, counters: dict) -> dict:
     again, again_vec = ddp_run(torch, label, {},
                                os.path.join(REPO, "build", f"chip_smoke_ddp_{job}_again"),
                                counters, 1, evaluate=False)
-    out = {"one": one, "control_f32": {k: ctrl[k] for k in ("steps", "kth")},
+    out = {"one": one, "one_vec": one_vec, "control_f32": {k: ctrl[k] for k in ("steps", "kth")},
            "again": {k: again[k] for k in ("steps", "kth")}, "ranks_seconds": ranks_s}
     if label == "config 3":
         out["faults_f32"] = fault_readings(torch, ctrl_vec["grad0"])
@@ -2888,6 +2988,311 @@ def cross_world_resume(torch) -> dict:
           f"Trainer in {restore_s:.2f} s: parameters, buffers and teacher bit-equal to the "
           f"ranks' {equal}, step {step}, start_epoch {start}", flush=True)
     return {"bit_equal": equal, "step": step, "start_epoch": start, "restore_s": restore_s}
+
+
+# ---------------------------------------------------------------------------
+# 6. spatial: HRNet's stem H-sharded over a model axis, ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# (e) D = 1 x M = 2 (a val pass and a rolling slot) and (f) D = 2 x M = 2
+# (the steps alone: four ranks with a val pass each would not fit in 80 GB):
+# config 5 (4 + 4) with parallel.model_parallel 2 -> (world size, fit)
+SPATIAL_JOBS = {"spatial_e": (2, True), "spatial_f": (4, False)}
+# per rank and step: the teacher's and the student's forwards pull a halo
+# row twice and gather the stem once each; the backward sends stem2's halo
+# cotangent back (stem1's input takes no gradient)
+SPATIAL_EXPECTED = {"halo": 5, "gather_h": 2}
+# (g): config 5's f32 path (the plain convs: D and E take bf16 only) with
+# the crop cut to 512 so that four f32 ranks fit, step 0 on D = 2 x M = 2
+# against one process on the same weights and batch: the whole gradient and
+# the stem's parameters' part (relative distance), and the stem's output
+# after the gather in the student's forward (max |d|), each within its limit
+# in the correct run; each planted fault (``spatial_faults``) outside at
+# least one of them.  Set before the first reading and kept after it
+# (NVIDIA H100 80GB HBM3, 700.00 W): correct 0.0156 / 0.0164 / 4.05e-6 (one
+# process against itself 3.6e-6 / 2.4e-6 / 0); the faults 0.645-1.34 /
+# 0.876-1.38, and the stem output 1.46-3.51 for the two that change it.
+SPATIAL_F32 = {"model.compute_dtype": "float32", "model.branch_conv": "xla",
+               "data.crop_size": 512, "train.iters_per_epoch": 1}
+SPATIAL_LIMITS = {"grad0": 0.1, "grad0_stem": 0.1, "stem": 1e-3}
+
+
+def spatial_faults() -> dict:
+    """name -> the patches of a fault in the spatial stem, the same on
+    every rank: no halo (the previous rank's row read as zeros); the stem's
+    BatchNorm statistics summed over the data axis only; ``gather_h``'s
+    backward summing the cotangent over the model axis; the stem's
+    gradients summed over the data axis only."""
+    import torch.nn.functional as F
+
+    from semi_supervised_semantic_segmentation_tpu_torch.engine import state as state_mod
+    from semi_supervised_semantic_segmentation_tpu_torch.models import layers, registry
+    from semi_supervised_semantic_segmentation_tpu_torch.parallel import mesh as mesh_lib
+    from semi_supervised_semantic_segmentation_tpu_torch.parallel import spatial
+
+    def stem_bn_over_data(model, mesh):
+        layers.use_mesh(model, mesh)
+        if mesh is not None and mesh.model_size > 1:
+            for b in model.encoder.spatial_blocks():
+                b.Norm_0.BatchNorm_0.mesh = mesh
+
+    def gather_backward_summed(ctx, g):
+        total = mesh_lib._all_reduce_(g.contiguous().clone(), ctx.axis)
+        m, h = ctx.axis.rank, ctx.h
+        return total[:, :, m * h:(m + 1) * h], None
+
+    def stem_grads_over_data(params, mesh):
+        params = list(params)
+        partial = lambda p: getattr(p, "model_partial", False)  # noqa: E731
+        mesh_lib.all_reduce_grads([p for p in params if not partial(p)], mesh)
+        mesh_lib.all_reduce_grads([p for p in params if partial(p)],
+                                  mesh_lib.Mesh({"data": mesh.size, "model": 1}, mesh.rank,
+                                                mesh.group))
+
+    return {
+        "no halo": [(spatial, "halo_pull_prev_h",
+                     lambda x, rows, mesh: F.pad(x, (0, 0, rows, 0)))],
+        "stem BatchNorm over the data axis": [(registry, "use_mesh", stem_bn_over_data)],
+        "gather_h backward summed": [(spatial._GatherH, "backward",
+                                      staticmethod(gather_backward_summed))],
+        "stem gradients not summed over the model axis": [(state_mod, "all_reduce_grads",
+                                                           stem_grads_over_data)],
+    }
+
+
+def spatial_rank(torch, job: str, rank: int, out_path: str) -> dict:
+    """One rank of phase 6: (e)/(f) config 5 through ``Trainer`` on a model
+    axis of 2; (g) config 5's step 0 on its f32 path, correct and with each
+    planted fault.  World rank 0 writes the state vectors beside its
+    result."""
+    import torch.distributed as dist
+
+    from semi_supervised_semantic_segmentation_tpu_torch.ops import (
+        branch_conv, cutmix_normalize as cmn, stem)
+
+    counters = ddp_counters(stem, branch_conv, cmn)
+    data_ranks = dist.get_world_size() // 2
+    over = {"parallel.model_parallel": 2}
+    if job in SPATIAL_JOBS:
+        work = os.path.join(REPO, "build", f"chip_smoke_{job}")
+        if rank == 0:
+            shutil.rmtree(work, ignore_errors=True)
+        dist.barrier()
+        run, vec = ddp_run(torch, "config 5", over, work, counters, data_ranks,
+                           evaluate=SPATIAL_JOBS[job][1])
+        if rank == 0:
+            torch.save(vec, out_path + ".pt")
+        return run
+    res, keep = {"variants": {}}, {}
+    for i, (name, patches) in enumerate([("none", [])] + list(spatial_faults().items())):
+        work = os.path.join(REPO, "build", f"chip_smoke_{job}_{i}")
+        if rank == 0:
+            shutil.rmtree(work, ignore_errors=True)
+        dist.barrier()
+        with planted(patches):
+            run, vec = ddp_run(torch, "config 5", {**SPATIAL_F32, **over}, work, counters,
+                               data_ranks, evaluate=False, stem=True)
+        keep[name] = {"grad0": vec["grad0"], "grad0_stem": vec["grad0_stem"],
+                      "stem": vec["stem"]["outs"][1], "rows": vec["stem"]["rows"]}
+        res["variants"][name] = {"loss": run["steps"][0]["loss"], "checksum": run["checksum"]}
+    if rank == 0:
+        torch.save(keep, out_path + ".pt")
+    return res
+
+
+def _per_step_lines(label: str, ranks: list) -> None:
+    for r in ranks:
+        for i, s in enumerate(r["steps"]):
+            sp = s["spatial"]
+            kms = "" if s["kernel_ms"] is None else f", kernels {s['kernel_ms']:.1f} ms"
+            print(f"[spatial] {label} world rank {r['world_rank']} step {i}: {s['rows']} rows, "
+                  f"launches { {k: v for k, v in s['launches'].items() if v} }, "
+                  f"{s['collectives']} collectives, {s['bytes'] / 1e6:.2f} MB reduced, of them "
+                  f"halo {sp['halo']} ({sp['halo_bytes'] / 1e6:.3f} MB) and gather_h "
+                  f"{sp['gather_h']} ({sp['gather_h_bytes'] / 1e6:.2f} MB); stream "
+                  f"{s['stream_ms']:.1f} ms{kms}, wall {s['wall_ms']:.1f} ms", flush=True)
+
+
+def spatial_compare(torch, job: str, ranks: list, seconds: float, one: dict, one_vec: dict,
+                    counters: dict) -> dict:
+    """(e) and (f): the ranks of ``job`` against one process on the whole
+    batch (``one``) from the same weights."""
+    import numpy as np
+
+    world, fitted = SPATIAL_JOBS[job]
+    d = world // 2
+    label = f"({job[-1]}) config 5 D={d} x M=2"
+    out = {"seconds": seconds}
+    if any(r is None for r in ranks):
+        return out
+    vec = torch.load(os.path.join(REPO, "build", f"ddp_{job}_rank0.json.pt"))
+    expected = {k: DDP_EXPECTED["config 5"].get(k, 0) for k in counters}
+    for r in ranks:
+        check(r["mesh"] == {"data": d, "model": 2}, f"spatial {label}: mesh {r['mesh']}")
+        for i, s in enumerate(r["steps"]):
+            got = {k: s["launches"].get(k, 0) for k in counters}
+            check(got == expected, f"spatial {label}: world rank {r['world_rank']} step {i} "
+                  f"launched {got}, expected {expected}")
+            check(s["rows"] * d == one["steps"][i]["rows"],
+                  f"spatial {label}: world rank {r['world_rank']} ran {s['rows']} rows, one "
+                  f"process {one['steps'][i]['rows']}")
+            sp = {k: s["spatial"][k] for k in SPATIAL_EXPECTED}
+            check(sp == SPATIAL_EXPECTED, f"spatial {label}: world rank {r['world_rank']} step "
+                  f"{i}: halo / gather launches {sp}, expected {SPATIAL_EXPECTED}")
+    sums = [r["checksum"] for r in ranks]
+    same = all(c == sums[0] for c in sums)
+    check(same, f"spatial {label}: the ranks' states differ ({[c[:16] for c in sums]})")
+    check(all(r["step"] == DDP_STEPS for r in ranks), f"spatial {label}: steps "
+          f"{[r['step'] for r in ranks]}")
+    loss = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+               for x, y in zip(ranks[0]["steps"], one["steps"]))
+    lim = DDP_LIMITS["config 5"]["loss"]
+    check(loss <= lim, f"spatial {label}: loss distance {loss:.3g} > limit {lim:.3g}")
+    upd = lambda v: v["after"] - v["before"]  # noqa: E731
+    grad0 = _rel(torch, vec["grad0"], one_vec["grad0"])
+    update = _rel(torch, upd(vec), upd(one_vec))
+    from semi_supervised_semantic_segmentation_tpu_torch.config import load_config
+
+    thresh = load_config(CONFIG5).method.ohem_thresh
+    t_ranks = [[max(k, thresh) for k in r["kth"]] for r in ranks]
+    t_one = [max(k, thresh) for k in one["kth"]]
+    check(all(t == t_one for t in t_ranks) and all(r["kth"] == ranks[0]["kth"] for r in ranks),
+          f"spatial {label}: OHEM thresholds {t_ranks} / one process {t_one}")
+    with open(os.path.join(REPO, "build", f"chip_smoke_{job}", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    train_recs = [r["train"]["step"] for r in recs if "train" in r]
+    vals = sum("val" in r for r in recs)
+    check(train_recs == list(range(DDP_STEPS)) and vals == int(fitted),
+          f"spatial {label}: metrics.jsonl holds train steps {train_recs} and {vals} val "
+          f"records (world rank 0 alone writes them)")
+    out.update({"loss": loss, "grad0": grad0, "update": update, "bit_equal_ranks": same,
+                "kth": ranks[0]["kth"], "peak_gb": [r["peak_gb"] for r in ranks],
+                "steps": [r["steps"] for r in ranks]})
+    cm_line = ""
+    if fitted:
+        cm2, cm1 = np.asarray(ranks[0]["cm"]), np.asarray(one["cm"])
+        check(all(np.array_equal(cm2, np.asarray(r["cm"])) for r in ranks),
+              f"spatial {label}: the ranks' confusion matrices differ")
+        check(int(cm2.sum()) == int(cm1.sum()), f"spatial {label}: val pass totals "
+              f"{cm2.sum()} / {cm1.sum()} (one process)")
+        differ = int(np.abs(cm2 - cm1).sum()) // 2
+        out.update({"cm_total": int(cm2.sum()), "cm_differ": differ})
+        cm_line = f"; val pass: {int(cm2.sum())} pixels on both, {differ} classified differently"
+    _per_step_lines(label, ranks)
+    print(f"[spatial] {label}: {world} ranks (gloo, one card; {seconds:.1f} s with process "
+          f"start) vs one process over {DDP_STEPS} steps: loss distance {loss:.3g} (limit "
+          f"{lim:.3g}), step-0 gradient distance {grad0:.3g}, update distance {update:.3g}; "
+          f"ranks bit-equal {same} (sha256 {sums[0][:16]}); losses "
+          f"{[round(s['loss'], 5) for s in ranks[0]['steps']]}, one process "
+          f"{[round(s['loss'], 5) for s in one['steps']]}{cm_line}; OHEM order statistics "
+          f"{ranks[0]['kth']} (one process {one['kth']}); peak GB per rank "
+          f"{[round(r['peak_gb'], 2) for r in ranks]} (one process {one['peak_gb']:.2f})",
+          flush=True)
+    return out
+
+
+def spatial_fault_readings(torch, ranks: list, seconds: float, counters: dict) -> dict:
+    """(g): the readings of the correct run and each planted fault against
+    one process on config 5's f32 path (and one process against itself, the
+    card's run-to-run control)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"seconds": seconds, "limits": SPATIAL_LIMITS}
+    refs = []
+    for tag in ("one", "again"):
+        _, v = ddp_run(torch, "config 5", SPATIAL_F32,
+                       os.path.join(REPO, "build", f"chip_smoke_spatial_g_{tag}"), counters, 1,
+                       evaluate=False, stem=True)
+        refs.append(v)
+    ref, again = refs
+
+    def readings(v, rows):
+        return {"grad0": _rel(torch, v["grad0"], ref["grad0"]),
+                "grad0_stem": _rel(torch, v["grad0_stem"], ref["grad0_stem"]),
+                "stem": float((v["stem"] - ref["stem"]["outs"][1][rows]).abs().max())}
+
+    out["control"] = readings({"grad0": again["grad0"], "grad0_stem": again["grad0_stem"],
+                               "stem": again["stem"]["outs"][1]}, slice(None))
+    if any(r is None for r in ranks):
+        return out
+    kept = torch.load(os.path.join(REPO, "build", "ddp_spatial_g_rank0.json.pt"))
+    for name, v in kept.items():
+        got = readings(v, v["rows"])
+        sums = [r["variants"][name]["checksum"] for r in ranks]
+        got["ranks_bit_equal"] = all(c == sums[0] for c in sums)
+        got["loss"] = ranks[0]["variants"][name]["loss"]
+        outside = [k for k, lim in SPATIAL_LIMITS.items() if got[k] > lim]
+        got["outside"] = outside
+        out[name] = got
+        if name == "none":
+            check(not outside and got["ranks_bit_equal"],
+                  f"spatial (g): config 5's f32 step 0 on D=2 x M=2 against one process: "
+                  f"{got} (limits {SPATIAL_LIMITS})")
+        else:
+            check(bool(outside), f"spatial (g): the planted fault '{name}' reads {got}, within "
+                  f"every limit {SPATIAL_LIMITS}: the checks cannot see it")
+    print(f"[spatial] (g) config 5 step 0, f32 path at crop 512, D=2 x M=2 against one process "
+          f"({seconds:.1f} s with process start); limits {SPATIAL_LIMITS}; one process against "
+          f"itself {out['control']}; " + "; ".join(
+              f"{k}: gradient {v['grad0']:.3g}, stem's gradient {v['grad0_stem']:.3g}, stem "
+              f"output max|d| {v['stem']:.3g}, ranks bit-equal {v['ranks_bit_equal']}, outside "
+              f"{v['outside']}" for k, v in out.items()
+              if isinstance(v, dict) and "outside" in v), flush=True)
+    return out
+
+
+def spatial_resume(torch) -> dict:
+    """(h): (e)'s rolling slot, written by world rank 0, restored by a
+    one-process Trainer: the ranks' state, bit for bit."""
+    from semi_supervised_semantic_segmentation_tpu_torch.config import update_config
+    from semi_supervised_semantic_segmentation_tpu_torch.engine.trainer import Trainer
+
+    work = os.path.join(REPO, "build", "chip_smoke_spatial_e")
+    path = os.path.join(REPO, "build", "ddp_spatial_e_rank0.json.pt")
+    if not os.path.exists(path):
+        check(False, "spatial (h): (e) left no state to resume")
+        return {}
+    vec = torch.load(path)
+    cfg = _ddp_cfg(CONFIG5, DDP_SLICES["config 5"][1], work)
+    trainer = Trainer(update_config(cfg, {"train.resume": "auto", "train.epochs": 2}))
+    p, rest = _state_vector(torch, trainer.state)
+    equal = torch.equal(p, vec["after"]) and torch.equal(rest, vec["rest"])
+    step, start = trainer.state.step, trainer.start_epoch
+    trainer.close()
+    del trainer
+    check(equal and step == DDP_STEPS and start == 1,
+          f"spatial (h): (e)'s slot restored in one process: bit-equal {equal}, step {step}, "
+          f"start_epoch {start}")
+    print(f"[spatial] (h) (e)'s rolling slot restored by a one-process Trainer: bit-equal to "
+          f"the ranks' {equal}, step {step}, start_epoch {start}", flush=True)
+    return {"bit_equal": equal, "step": step, "start_epoch": start}
+
+
+def spatial_phase(torch, counters: dict, one5=None) -> dict:
+    """(e) and (f) config 5 on a model axis of 2 against one process (the
+    (record, vectors) of phase 5's one-process config 5 run where given),
+    (g) the f32 step with the planted faults, (h) (e)'s slot in one
+    process."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    report, ranks = {}, {}
+    for job, (world, _) in SPATIAL_JOBS.items():
+        t0 = time.time()
+        ranks[job] = (launch_ranks(job, world), time.time() - t0)
+    t0 = time.time()
+    g_ranks = launch_ranks("spatial_g", 4)
+    g_seconds = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    one, one_vec = one5 or ddp_run(torch, "config 5", {},
+                                   os.path.join(REPO, "build", "chip_smoke_spatial_one"),
+                                   counters, 1)
+    for job, (rk, secs) in ranks.items():
+        report[job] = spatial_compare(torch, job, rk, secs, one, one_vec, counters)
+        report[job]["ranks"] = rk
+    del one_vec
+    report["g"] = spatial_fault_readings(torch, g_ranks, g_seconds, counters)
+    report["h"] = spatial_resume(torch)
+    return report
 
 
 if __name__ == "__main__":

@@ -478,20 +478,23 @@ _VALID = {
 def data_parallel_size(parallel: ParallelConfig, world_size: int) -> int:
     """``parallel.*`` against the number of processes: the data axis's size.
 
-    ``data_parallel: -1`` is the world size; any other value must equal it
-    (one process per data shard).  ``model_parallel > 1`` is the reference's
-    spatial H-sharding (``parallel/spatial.py``), not yet ported."""
-    if parallel.model_parallel > 1:
+    The processes form a ``(data, model)`` mesh of D x M ranks, M =
+    ``model_parallel`` (the reference's spatial H-sharding of HRNet's stem
+    over the model axis, ``parallel/spatial.py``).  ``data_parallel: -1`` is
+    the world size over M; any other value times M must equal the world size
+    (one process per device of the reference's mesh)."""
+    m = parallel.model_parallel
+    if m < 1 or world_size % m:
         raise ValueError(
-            f"parallel.model_parallel={parallel.model_parallel}: spatial H-sharding "
-            "(parallel/spatial.py) is not yet ported (ROADMAP Queue 1 item 11); use 1")
-    dp = parallel.data_parallel
+            f"parallel.model_parallel={m} but {world_size} process(es) run: the world size "
+            "must be data_parallel x model_parallel")
+    dp, d = parallel.data_parallel, world_size // m
     if dp == -1:
-        return world_size
-    if dp != world_size:
+        return d
+    if dp != d:
         raise ValueError(
-            f"parallel.data_parallel={dp} but {world_size} process(es) run: set it to "
-            f"{world_size} or -1 (the world size)")
+            f"parallel.data_parallel={dp} but {world_size} process(es) run with "
+            f"model_parallel={m}: set it to {d} or -1 (the world size over model_parallel)")
     return dp
 
 

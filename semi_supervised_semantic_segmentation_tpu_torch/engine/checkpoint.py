@@ -70,7 +70,7 @@ class CheckpointManager:
         self.max_to_keep = max_to_keep
         self.async_save = async_save
         self.mesh = mesh
-        self.writer = mesh is None or mesh.rank == 0
+        self.writer = mesh is None or mesh.world_rank == 0
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._saved = False

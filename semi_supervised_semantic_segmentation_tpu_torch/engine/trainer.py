@@ -9,9 +9,10 @@ unlabeled batch.  The resolved config is written to
 ``<work_dir>/config.yaml``.  Scalars are fetched from the device only at
 log intervals and written besides the log as one JSON line each to
 ``<work_dir>/metrics.jsonl``, in the reference's record shape
-(``MetricLogger.log_scalars``): ``{"train": {"step", "time", ...}}`` with
+(``utils/logging.py::MetricLogger``): ``{"train": {"step", "time", ...}}`` with
 step = i + epoch * iters_per_epoch, the 0-based index of the step just run,
-and time in seconds since the logger was made.
+and time in seconds since the logger was made; and as TensorBoard scalars
+in ``<work_dir>/tb`` where ``tensorboardX`` imports.
 
 ``fit`` runs epochs ``start_epoch`` .. ``train.epochs - 1``, evaluates every
 ``train.eval_interval`` epochs and after the last one, on the EMA teacher
@@ -35,8 +36,12 @@ loads its row block of every global batch (the batch sizes are global),
 starts from rank 0's parameters and buffers (broadcast after
 construction, ``init_from_torch`` and resume) and runs the method's step
 with the mesh, which makes every reduction global and keeps the ranks'
-states bit-equal.  Rank 0 alone writes ``config.yaml``, ``metrics.jsonl``,
-``train.log`` and the checkpoints; the eval's confusion matrix is global.
+states bit-equal.  With ``parallel.model_parallel: M > 1`` the processes
+form a data x model mesh: the M model ranks of a data rank load the same
+rows and H-shard HRNet's stem between them (``models/hrnet.py``).  World
+rank 0 alone writes ``config.yaml``, ``metrics.jsonl``, the TensorBoard
+scalars, ``train.log`` and the checkpoints; the eval's confusion matrix is
+global.
 
 ``train.profile_steps = n`` traces the first epoch's steps 2 .. 2 + n with
 ``torch.profiler`` into ``<work_dir>/profile/`` (a Chrome trace).
@@ -83,6 +88,10 @@ from semi_supervised_semantic_segmentation_tpu_torch.parallel.distributed import
 from semi_supervised_semantic_segmentation_tpu_torch.parallel.mesh import (
     broadcast_from_rank0,
     make_mesh,
+)
+from semi_supervised_semantic_segmentation_tpu_torch.utils.logging import (
+    MetricLogger,
+    log_to_file,
 )
 
 log = logging.getLogger("sstpu_torch")
@@ -152,32 +161,11 @@ class _Prefetcher:
                 pass
 
 
-class MetricLogger:
-    """The JSON-lines half of the reference's ``utils/logging.py``
-    ``MetricLogger`` (the card's machine has no tensorboardX).  With
-    ``write`` false (a rank other than 0) it builds the records and writes
-    nothing."""
-
-    def __init__(self, work_dir: str, write: bool = True):
-        os.makedirs(work_dir, exist_ok=True)
-        self.path = os.path.join(work_dir, "metrics.jsonl")
-        self.write = write
-        self._t0 = time.time()
-
-    def log_scalars(self, step: int, scalars: Dict[str, float], prefix: str = "train") -> dict:
-        rec = {"step": step, "time": round(time.time() - self._t0, 3)}
-        rec.update({k: float(v) for k, v in scalars.items()})
-        if self.write:
-            with open(self.path, "a") as f:
-                f.write(json.dumps({prefix: rec}) + "\n")
-        return rec
-
-
 class Trainer:
     def __init__(self, cfg: Config, device=None):
         self.cfg = cfg
         self.mesh = mesh = make_mesh(cfg.parallel.data_parallel, cfg.parallel.model_parallel)
-        self.rank0 = mesh.rank == 0
+        self.rank0 = mesh.world_rank == 0
         self.device = rank_device(device)
         torch.manual_seed(cfg.train.seed)
         self.method = get_method(cfg.method.name)
@@ -213,11 +201,7 @@ class Trainer:
         self._log_file = None
         if self.rank0:
             save_config(cfg, os.path.join(t.work_dir, "config.yaml"))
-            # the reference's setup_logging: the log also goes to train.log
-            self._log_file = logging.FileHandler(os.path.join(t.work_dir, "train.log"))
-            self._log_file.setFormatter(logging.Formatter("[%(asctime)s] %(message)s",
-                                                          datefmt="%H:%M:%S"))
-            log.addHandler(self._log_file)
+            self._log_file = log_to_file(log, t.work_dir)
         self.metrics = MetricLogger(t.work_dir, write=self.rank0)
         self.ckpt = CheckpointManager(os.path.join(t.work_dir, "checkpoints"),
                                       max_to_keep=t.keep_checkpoints,
@@ -228,12 +212,12 @@ class Trainer:
                                            max_to_keep=1, async_save=t.async_checkpoint,
                                            mesh=mesh)
         log.info("device=%s (%s) model=%s/%s stem_impl=%s branch_conv=%s remat=%s "
-                 "cutmix_impl=%s sup_loss=%s steps=%d mesh=%s rank=%d",
+                 "cutmix_impl=%s sup_loss=%s steps=%d mesh=%s world rank=%d",
                  self.device, torch.cuda.get_device_name(self.device)
                  if self.device.type == "cuda" else "cpu",
                  cfg.model.backbone, cfg.model.decoder, cfg.model.stem_impl,
                  cfg.model.branch_conv, cfg.model.remat, cfg.data.cutmix_impl,
-                 cfg.method.sup_loss, self.total_steps, mesh.shape, mesh.rank)
+                 cfg.method.sup_loss, self.total_steps, mesh.shape, mesh.world_rank)
         if t.init_from_torch:
             # reference-layout interop: weights, EMA teacher and momentum
             # from a torch.save checkpoint file
@@ -380,8 +364,8 @@ class Trainer:
         return self.best_miou
 
     def close(self) -> None:
-        """Stop the prefetch thread and the loaders, and finish the
-        checkpoint writes in flight."""
+        """Stop the prefetch thread and the loaders, finish the checkpoint
+        writes in flight and close the records."""
         if self._prefetch is not None:
             self._prefetch.close()
             self._prefetch = None
@@ -390,6 +374,7 @@ class Trainer:
                 loader.close()
         self.ckpt.close()
         self.ckpt_best.close()
+        self.metrics.close()
         if self._log_file is not None:
             log.removeHandler(self._log_file)
             self._log_file.close()

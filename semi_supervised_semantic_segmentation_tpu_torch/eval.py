@@ -16,7 +16,11 @@ as a file written by its ``eval.py --export_torch``.
 
 Under ``python -m torch.distributed.run --nproc_per_node R`` each process
 scores its rows of every val batch, the confusion matrix is summed over
-them, and process 0 prints the result and writes ``--export_torch``.
+them, and process 0 prints the result and writes ``--export_torch``.  With
+``parallel.model_parallel: M > 1`` the model is built without the spatial
+mesh (the reference's ``eval.py`` builds it with none): the M model ranks
+of a data rank score the same rows whole, and the matrix is summed over the
+data axis alone.
 """
 
 from __future__ import annotations
@@ -56,9 +60,10 @@ def load_state(cfg: Config, checkpoint: str, device, mesh=None):
     """A fresh train state of ``cfg`` on ``device`` (CPS: both nets) with
     the checkpoint loaded into it -> (state, method module, meta).  ``checkpoint``: a
     reference-layout file, or a checkpoint directory (its latest slot) or
-    ``dir:step``.  ``mesh``: the data mesh of the model's layers."""
+    ``dir:step``.  ``mesh``: the ranks that restore it; the model is built
+    without it (inference uses no collective)."""
     method = get_method(cfg.method.name)
-    model = build_model(cfg, mesh=mesh).to(device)
+    model = build_model(cfg).to(device)
     state = method.init_state(cfg, model, max(cfg.train.epochs, 1))
     if checkpoint.endswith((".pth", ".pt")):
         if not os.path.isfile(checkpoint):
@@ -92,7 +97,7 @@ def main(argv=None):
     mesh = make_mesh(cfg.parallel.data_parallel, cfg.parallel.model_parallel)
     device = distributed.rank_device(args.device)
     state, method, meta = load_state(cfg, args.checkpoint, device, mesh)
-    if args.export_torch and mesh.rank == 0:
+    if args.export_torch and mesh.world_rank == 0:
         compat.export_reference_checkpoint(args.export_torch, state, meta, cfg)
         print(f"reference-layout checkpoint written to {args.export_torch}")
 
@@ -109,7 +114,7 @@ def main(argv=None):
         iou, miou, acc = run_eval(make_evaluator(cfg), model, val, device, mesh=mesh)
     finally:
         val.close()
-    if mesh.rank == 0:
+    if mesh.world_rank == 0:
         print(format_iou_table(iou, class_names(cfg.data.dataset, cfg.data.num_classes)))
         print(f"mIoU: {miou:.4f}  pixel-acc: {acc:.4f}")
     if started:

@@ -11,6 +11,15 @@ branch + cross-resolution fusion (1x1 Conv-BN + bilinear up for a lower
 resolution, chained 3x3 stride-2 Conv-BNs for a higher one, summed, ReLU).
 Taps c1 (stem1 output, s2), c2..c5 (the branches, s4..s32), NCHW.
 
+Under a model axis (``parallel.model_parallel > 1``; ``layers.use_mesh``
+sets ``spatial`` on :meth:`HRNet.spatial_blocks`) the forward cuts the
+input to this model rank's H rows, runs both stem convs H-sharded and
+gathers the stem's output over the model axis before ``layer1``: the rest
+of the net runs on whole rows, the same on every model rank (the
+reference's ``hrnet.py:258-278``), in every mode.  The taps then leave c1
+out: no decoder HRNet takes reads it (U-Net refuses HRNet), and a gather
+of it would move the largest activation for nothing.
+
 ``branch_conv='pallas'`` runs every eligible branch (C <= 128, H % 32 == 0:
 the 48/96-ch branches of W48) through the fused flow of
 :class:`~.resnet.BasicBlock` (kernels D and E on the card); the others stay
@@ -41,6 +50,7 @@ from semi_supervised_semantic_segmentation_tpu_torch.models.layers import (
 from semi_supervised_semantic_segmentation_tpu_torch.models.resnet import BasicBlock, Bottleneck
 from semi_supervised_semantic_segmentation_tpu_torch.ops import branch_conv as bconv
 from semi_supervised_semantic_segmentation_tpu_torch.ops.resize import resize_bilinear
+from semi_supervised_semantic_segmentation_tpu_torch.parallel import spatial
 
 
 def _remat_active(module: nn.Module) -> bool:
@@ -182,10 +192,20 @@ class HRNet(nn.Module):
             return checkpoint(lambda *xs: module(list(xs)), *x)
         return checkpoint(module, x)
 
+    def spatial_blocks(self) -> Tuple[ConvNormAct, ConvNormAct]:
+        """The blocks that run H-sharded under a model axis."""
+        return self.stem1, self.stem2
+
     def forward(self, x_nhwc: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = self.stem1(x_nhwc.permute(0, 3, 1, 2))
-        c1 = x  # stride 2
+        mesh = self.stem1.spatial
+        x = x_nhwc.permute(0, 3, 1, 2)
+        if mesh is not None:
+            x = spatial.shard_h(x, mesh)
+        x = self.stem1(x)
+        taps = {} if mesh is not None else {"c1": x}  # stride 2
         x = self.stem2(x)
+        if mesh is not None:
+            x = spatial.gather_h(x, mesh)
         for b in range(4):
             x = self._stage(1, getattr(self, f"layer1_{b}"), x)
         xs = [self.transition1_0(x), self.transition1_1(x)]
@@ -196,4 +216,4 @@ class HRNet(nn.Module):
                 xs.append(self.transition3_3(xs[-1]))
             for m in range(count):
                 xs = self._stage(stage, getattr(self, f"stage{stage}_m{m}"), xs)
-        return {"c1": c1, "c2": xs[0], "c3": xs[1], "c4": xs[2], "c5": xs[3]}
+        return {**taps, "c2": xs[0], "c3": xs[1], "c4": xs[2], "c5": xs[3]}

@@ -20,6 +20,7 @@ import torch.utils.checkpoint
 
 from semi_supervised_semantic_segmentation_tpu_torch.ops import branch_conv
 from semi_supervised_semantic_segmentation_tpu_torch.ops.stem import stem_conv_bn
+from semi_supervised_semantic_segmentation_tpu_torch.parallel import spatial
 from semi_supervised_semantic_segmentation_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, size
 
 _RECOMPUTE = threading.local()
@@ -162,7 +163,13 @@ class Norm(nn.Module):
 
 
 class ConvNormAct(nn.Module):
-    """Conv -> BatchNorm -> (optional) ReLU."""
+    """Conv -> BatchNorm -> (optional) ReLU.
+
+    With ``spatial`` (a mesh with a model axis, set by :func:`use_mesh`) the
+    block is the reference's ``SpatialConv`` path: x is this model rank's H
+    rows, the stride-2 3x3 conv runs through
+    ``parallel.spatial.spatial_conv2d_stride2`` (one halo row from the
+    previous rank) on the same parameters, and the output stays H-sharded."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1,
                  act: bool = True, bn_momentum: float = 0.9,
@@ -172,11 +179,18 @@ class ConvNormAct(nn.Module):
         self.Norm_0 = Norm(cout, bn_momentum)
         self.act = act
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.Norm_0(self.Conv_0(x))
-        return F.relu(x) if self.act else x
-
     mesh: Optional[Mesh] = None
+    spatial: Optional[Mesh] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.Conv_0
+        if self.spatial is not None:
+            d = conv.compute_dtype
+            y = spatial.spatial_conv2d_stride2(x.to(d), conv.weight.to(d), self.spatial)
+        else:
+            y = conv(x)
+        x = self.Norm_0(y)
+        return F.relu(x) if self.act else x
 
     def raw(self, x: torch.Tensor, fold: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         """The fused branch-chain flow (the reference's NCHW
@@ -247,10 +261,35 @@ def _train_mesh(module: nn.Module) -> Optional[Mesh]:
 
 def use_mesh(model: nn.Module, mesh: Optional[Mesh]) -> None:
     """Put every BatchNorm, stem segment and branch conv of ``model`` on the
-    data ``mesh`` (None: one process)."""
+    data axis of ``mesh`` (None: one process).
+
+    Under a model axis (``mesh.model_size > 1``) the blocks that ``model``'s
+    modules name in ``spatial_blocks()`` (HRNet's two stem convs) run
+    H-sharded over it (``ConvNormAct.spatial``): their BatchNorms normalize
+    the H-sharded outputs with statistics summed over every rank, data and
+    model (``mesh.world``), and their parameters are marked
+    ``model_partial``: each rank's gradient holds its rows' share, which
+    ``parallel.mesh.all_reduce_grads`` sums over the model axis too.  A
+    model with no such block raises: nothing runs unsharded instead."""
     for m in model.modules():
         if isinstance(m, (BatchNorm, StemSegment, ConvNormAct)):
             m.mesh = mesh
+    if mesh is None or mesh.model_size == 1:
+        return
+    blocks = [b for m in model.modules() if hasattr(m, "spatial_blocks")
+              for b in m.spatial_blocks()]
+    if not blocks:
+        raise ValueError(f"a model axis of {mesh.model_size} ranks H-shards HRNet's stem; "
+                         f"{type(model).__name__} has no block to shard")
+    for b in blocks:
+        conv = b.Conv_0
+        if not (conv.kernel_size == (3, 3) and conv.stride == (2, 2)
+                and conv.dilation == (1, 1) and conv.bias is None):
+            raise ValueError(f"spatial sharding covers 3x3 stride-2 convs, got {conv}")
+        b.spatial = mesh
+        b.Norm_0.BatchNorm_0.mesh = mesh.world
+        for p in b.parameters():
+            p.model_partial = True
 
 
 def keep_mask(shape, p: float, g: torch.Generator, device=None) -> torch.Tensor:

@@ -17,6 +17,16 @@ of three collectives:
 - :func:`broadcast_from_rank0`: parameters and buffers, after construction
   and restore.
 
+With ``parallel.model_parallel: M > 1`` the R = D·M processes form the
+reference's ``(data, model)`` mesh, world rank ``d·M + m``
+(``parallel/mesh.py:24-37`` of the reference reshapes its devices so).
+Every collective above runs over the *data* axis (the D ranks that share
+``m``): the M model ranks of one data rank hold the same rows and compute
+the same values, so a sum over the world would count them M times.  The
+model axis carries the H-sharded stem (``parallel/spatial.py``); the world
+carries the stem's BatchNorm statistics, the gradient bucket, the
+broadcast and the barrier (:attr:`Mesh.world`).
+
 Only ``all_reduce`` and ``broadcast`` are used: gloo takes CUDA tensors for
 those two and not for ``send``/``recv`` or ``all_gather``, so two ranks on
 one card (gloo) and ranks on cards of their own (NCCL) run one code path.
@@ -46,34 +56,79 @@ COUNTS = {"collectives": 0, "bytes": 0}
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
-    """``shape`` {"data": R, "model": 1}; this process's ``rank`` on the data
-    axis; ``group``: the process group, None in one process with no
-    ``torch.distributed``.  Copies (``copy.deepcopy`` of a model that holds
-    it) share the one mesh."""
+    """``shape`` {"data": D, "model": M}.  ``rank`` / ``group``: this
+    process's place on the data axis and the group of the D ranks that share
+    its model rank (every data-parallel collective runs over it);
+    ``model_rank`` / ``model_group``: its place on the model axis and the
+    group of the M ranks that share its data rank; ``world_group``: all D·M.
+    A group is None where no collective launches: in one process with no
+    ``torch.distributed``, and for the data axis of one rank beside a model
+    axis.  Copies (``copy.deepcopy`` of a model that holds it) share the one
+    mesh."""
 
     shape: Dict[str, int]
     rank: int = 0
     group: Optional[Any] = None
+    model_rank: int = 0
+    model_group: Optional[Any] = None
+    world_group: Optional[Any] = None
 
     @property
     def size(self) -> int:
         return self.shape["data"]
+
+    @property
+    def model_size(self) -> int:
+        return self.shape.get("model", 1)
+
+    @property
+    def world_rank(self) -> int:
+        return self.rank * self.model_size + self.model_rank
+
+    @property
+    def world(self) -> "Mesh":
+        """Every rank as one data axis, in world-rank order (the mesh itself
+        without a model axis)."""
+        if self.model_size == 1:
+            return self
+        return Mesh({"data": self.size * self.model_size, "model": 1}, self.world_rank,
+                    self.world_group, world_group=self.world_group)
+
+    @property
+    def model(self) -> "Mesh":
+        """The model axis as a mesh of one axis: its ``size``, ``rank`` and
+        ``group`` are the model axis's."""
+        return Mesh({"data": self.model_size, "model": 1}, self.model_rank, self.model_group)
 
     def __deepcopy__(self, memo):
         return self
 
 
 def make_mesh(data_parallel: int = -1, model_parallel: int = 1) -> Mesh:
-    """The data mesh over the default process group (world size 1 and no
-    group without ``torch.distributed``).  ``data_parallel`` -1 is the world
-    size; any other value must equal it; ``model_parallel > 1`` raises
-    (``config.data_parallel_size``)."""
+    """The ``(data, model)`` mesh over the default process group (one rank
+    and no group without ``torch.distributed``).  ``data_parallel`` -1 is
+    the world size over ``model_parallel``; any other value times
+    ``model_parallel`` must equal the world size
+    (``config.data_parallel_size``).  Under a model axis every rank creates
+    every subgroup, in one order: the M data groups (ranks ``m, M + m, ...``),
+    then the D model groups (ranks ``d·M .. d·M + M - 1``).  A subgroup that
+    fails to form raises."""
     on = dist.is_initialized()
     world = dist.get_world_size() if on else 1
-    r = data_parallel_size(ParallelConfig(data_parallel=data_parallel,
+    d = data_parallel_size(ParallelConfig(data_parallel=data_parallel,
                                           model_parallel=model_parallel), world)
-    return Mesh({"data": r, "model": 1}, dist.get_rank() if on else 0,
-                dist.group.WORLD if on else None)
+    m = model_parallel
+    if not on:
+        return Mesh({"data": d, "model": m})
+    rank, everyone = dist.get_rank(), dist.group.WORLD
+    if m == 1:
+        return Mesh({"data": d, "model": 1}, rank, everyone, world_group=everyone)
+    data_group, model_group = None, everyone
+    if d > 1:
+        data_groups = [dist.new_group([i * m + j for i in range(d)]) for j in range(m)]
+        model_groups = [dist.new_group([i * m + j for j in range(m)]) for i in range(d)]
+        data_group, model_group = data_groups[rank % m], model_groups[rank // m]
+    return Mesh({"data": d, "model": m}, rank // m, data_group, rank % m, model_group, everyone)
 
 
 def launches(mesh: Optional[Mesh]) -> bool:
@@ -210,9 +265,10 @@ def _flat_groups(tensors: Iterable[torch.Tensor]):
 @torch.no_grad()
 def broadcast_from_rank0(obj, mesh: Optional[Mesh]) -> None:
     """Overwrite, in place, every parameter and buffer of ``obj`` (a module,
-    or a sequence of modules and tensors) with rank 0's: one ``broadcast``
-    of a flat buffer per dtype and device.  Nothing where no collective
-    launches."""
+    or a sequence of modules and tensors) with world rank 0's: one
+    ``broadcast`` over the world of a flat buffer per dtype and device.
+    Nothing where no collective launches."""
+    mesh = None if mesh is None else mesh.world
     if not launches(mesh):
         return
     for ts in _flat_groups(_tensors(obj)):
@@ -228,14 +284,29 @@ def broadcast_from_rank0(obj, mesh: Optional[Mesh]) -> None:
 
 @torch.no_grad()
 def all_reduce_grads(params: Iterable[torch.Tensor], mesh: Optional[Mesh]) -> None:
-    """Sum the gradients over ranks in place: every existing ``.grad`` in one
-    flat buffer per dtype and device, one ``all_reduce`` each, in the same
-    order on every rank.  Nothing where no collective launches."""
-    if not launches(mesh):
+    """Sum the gradients over every rank in place: every existing ``.grad``
+    in one flat buffer per dtype and device, one ``all_reduce`` over the
+    world each, in the same order on every rank.  Nothing where no
+    collective launches.
+
+    Under a model axis of M ranks a parameter marked ``model_partial`` (the
+    H-sharded stem's, ``models/layers.py::use_mesh``) holds the share of this
+    rank's H rows, and every other one the whole gradient of its data rank,
+    the same on the M model ranks: those are scaled by 1/M first (exact for
+    M a power of two), so that one sum over the world leaves every rank the
+    data-summed whole gradient, with the same bits on every rank."""
+    world = None if mesh is None else mesh.world
+    if not launches(world):
         return
-    grads = [p.grad for p in params if p.grad is not None]
+    grads = []
+    for p in params:
+        if p.grad is None:
+            continue
+        if mesh.model_size > 1 and not getattr(p, "model_partial", False):
+            p.grad.div_(mesh.model_size)
+        grads.append(p.grad)
     for gs in _flat_groups(grads):
-        flat = _all_reduce_(torch.cat([g.reshape(-1) for g in gs]), mesh)
+        flat = _all_reduce_(torch.cat([g.reshape(-1) for g in gs]), world)
         off = 0
         for g in gs:
             g.copy_(flat[off:off + g.numel()].view_as(g))
@@ -243,5 +314,6 @@ def all_reduce_grads(params: Iterable[torch.Tensor], mesh: Optional[Mesh]) -> No
 
 
 def barrier(mesh: Optional[Mesh]) -> None:
-    if launches(mesh):
-        dist.barrier(group=mesh.group)
+    """Every rank of the world meets here."""
+    if mesh is not None and launches(mesh.world):
+        dist.barrier(group=mesh.world.group)

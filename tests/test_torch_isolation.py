@@ -43,6 +43,8 @@ def test_importing_every_module_loads_no_jax_or_reference_module():
             f"{PKG}.eval"} <= set(got["modules"])
     assert {f"{PKG}.engine.checkpoint", f"{PKG}.models.unet", f"{PKG}.methods.supervised",
             f"{PKG}.methods.mean_teacher", f"{PKG}.methods.cps"} <= set(got["modules"])
+    assert {f"{PKG}.parallel.mesh", f"{PKG}.parallel.spatial",
+            f"{PKG}.utils.logging"} <= set(got["modules"])
     assert got["bad"] == []
 
 

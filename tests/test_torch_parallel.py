@@ -132,7 +132,8 @@ def test_mesh_without_a_group_is_the_identity():
     assert mesh_lib.COUNTS == before
     with pytest.raises(ValueError, match="data_parallel=2"):
         mesh_lib.make_mesh(2, 1)
-    with pytest.raises(ValueError, match="item 11"):
+    # a model axis of 2 needs D x 2 processes
+    with pytest.raises(ValueError, match="data_parallel x model_parallel"):
         mesh_lib.make_mesh(-1, 2)
 
 

@@ -253,19 +253,25 @@ def one_step(raw: dict, lab: dict, unlab, mesh=None, perturb: float = 0.0) -> Di
     return rec
 
 
-def ddp_steps(rank: int, world: int, cases: list) -> List[dict]:
+def ddp_steps(rank: int, world: int, cases: list, model_parallel: int = 1) -> List[dict]:
     """:func:`one_step` of each (raw, lab, unlab, control) case on this rank's
-    rows: its digests, scalars and collectives.  Rank 0 also runs the
-    one-process step on the whole batch (no group) and returns each
-    vector's relative distance to it, the one-process scalars and, where
-    ``control``, the distances of the control (the one-process step with
-    its weights perturbed by 1e-7)."""
-    mesh = mesh_lib.make_mesh()
+    block under a (world / M) x M mesh, M = ``model_parallel``: its digests,
+    scalars, collectives and the spatial stem's halo and gather launches.
+    Rank 0 also runs the one-process step on the whole batch (no group) and
+    returns each vector's relative distance to it, the one-process scalars
+    and, where ``control``, the distances of the control (the one-process
+    step with its weights perturbed by 1e-7)."""
+    from semi_supervised_semantic_segmentation_tpu_torch.parallel import spatial
+
+    mesh = mesh_lib.make_mesh(-1, model_parallel)
     out = []
     for raw, lab, unlab, control in cases:
+        before = dict(spatial.COUNTS)
         rec = one_step(raw, lab, unlab, mesh)
         res = {"digest": digests(rec), "metrics": rec["metrics"],
-               "collectives": rec["collectives"]}
+               "collectives": rec["collectives"],
+               "spatial": {k: spatial.COUNTS[k] - before[k] for k in before},
+               "coords": (mesh.rank, mesh.model_rank, mesh.world_rank)}
         if rank == 0:
             ref = one_step(raw, lab, unlab)
             res["rel"] = {k: rel(rec[k], ref[k]) for k in digests(ref)}
@@ -317,7 +323,7 @@ def fit(rank: int, world: int, raw: dict, device: str = "cpu") -> Dict[str, obje
         loader.close()
     return {"state": digests(step_record(trainer.state)), "step": trainer.state.step, "cm": cm,
             "best": trainer.best_miou, "mesh": trainer.mesh.shape, "rank": trainer.mesh.rank,
-            "val_rows": trainer.val_loader.local_batch_size}
+            "world_rank": trainer.mesh.world_rank, "val_rows": trainer.val_loader.local_batch_size}
 
 
 def resume(rank: int, world: int, raw: dict) -> Dict[str, object]:
@@ -334,3 +340,68 @@ def resume(rank: int, world: int, raw: dict) -> Dict[str, object]:
 
 def asdict_weak(weak) -> Dict[str, torch.Tensor]:
     return {f.name: getattr(weak, f.name) for f in dataclasses.fields(weak)}
+
+
+# ---------------------------------------------------------------------------
+# spatial H-sharding over a model axis (tests/test_torch_spatial*.py)
+# ---------------------------------------------------------------------------
+
+
+def spatial_primitives(rank: int, world: int, cases: List[dict]) -> List[dict]:
+    """Each case ({"data", "model", "op", "x", "w", "cot"}: whole NCHW x, OIHW
+    w, the output's cotangent) on this rank's block under a data x model
+    mesh: the op's f32 output block, its float64 output block and the
+    float64 gradients of sum(y * cot) in this rank's x block and in w; then
+    the mesh's ranks and the collectives each op launched."""
+    from semi_supervised_semantic_segmentation_tpu_torch.parallel import spatial
+
+    ops = {"same": spatial.spatial_conv2d_same, "stride2": spatial.spatial_conv2d_stride2,
+           "halo": lambda x, w, m: spatial.halo_exchange_h(x, w.shape[2] // 2, m),
+           "pull": lambda x, w, m: spatial.halo_pull_prev_h(x, 1, m),
+           "gather": lambda x, w, m: spatial.gather_h(x, m)}
+    out = []
+    for case in cases:
+        mesh = mesh_lib.make_mesh(case["data"], case["model"])
+        op = ops[case["op"]]
+        # this rank's block: its data rank's rows of N, its model rank's of H
+        x = spatial.shard_h(mesh_lib.shard_batch({"t": case["x"]}, mesh)["t"], mesh)
+        before = dict(spatial.COUNTS)
+        y32 = op(x.float(), case["w"].float(), mesh)
+        x64 = x.double().requires_grad_()
+        w64 = case["w"].double().requires_grad_()
+        y = op(x64, w64, mesh)
+        rows = mesh_lib.shard_batch({"t": case["cot"]}, mesh)["t"]
+        cot = (rows if case["op"] == "gather" else spatial.shard_h(rows, mesh)).double()
+        (y * cot).sum().backward()
+        out.append({"y32": y32.detach(), "y": y.detach(), "dx": x64.grad,
+                    "dw": w64.grad if w64.grad is not None else torch.zeros_like(w64),
+                    "coords": (mesh.rank, mesh.model_rank, mesh.world_rank),
+                    "counts": {k: spatial.COUNTS[k] - before[k] for k in before}})
+    return out
+
+
+def spatial_hrnet(rank: int, world: int, flat: Dict[str, np.ndarray], x: np.ndarray,
+                  model_parallel: int) -> Dict[str, object]:
+    """A width-8 HRNet (f32, ``stage_modules`` (1, 1, 1)) with the weights
+    ``flat`` (torch layout) on this rank's rows of the NHWC ``x`` under a
+    (world / M) x M mesh: the taps in eval mode, then in train mode (no
+    gradient) with the running statistics it leaves, and the stem's
+    collectives."""
+    from semi_supervised_semantic_segmentation_tpu_torch.engine import compat
+    from semi_supervised_semantic_segmentation_tpu_torch.models.hrnet import HRNet
+    from semi_supervised_semantic_segmentation_tpu_torch.models.layers import use_mesh
+    from semi_supervised_semantic_segmentation_tpu_torch.parallel import spatial
+
+    mesh = mesh_lib.make_mesh(-1, model_parallel)
+    net = HRNet(8, stage_modules=(1, 1, 1), compute_dtype=torch.float32)
+    compat.load_flat(net, flat)
+    use_mesh(net, mesh)
+    xb = mesh_lib.shard_batch({"x": torch.from_numpy(x)}, mesh)["x"]
+    before = dict(spatial.COUNTS)
+    with torch.no_grad():
+        taps_eval = net.eval()(xb)
+        taps_train = net.train()(xb)
+    return {"eval": taps_eval, "train": taps_train,
+            "stats": {k: v.clone() for k, v in net.state_dict().items() if "running_" in k},
+            "coords": (mesh.rank, mesh.model_rank, mesh.world_rank),
+            "counts": {k: spatial.COUNTS[k] - before[k] for k in before}}
