@@ -6,6 +6,7 @@
                                            only: their checks and times, no ok line)
     python3 chip_smoke.py --ddp           (phase 1 and phase 5 only, no ok line)
     python3 chip_smoke.py --spatial       (phase 1 and phase 6 only, no ok line)
+    python3 chip_smoke.py --remat-norm    (phase 1 and phase 7 only, no ok line)
 
 Phases; any failure exits non-zero and prints no result:
  1. build    -- compile ``csrc/*.cu`` with nvcc for sm_90a (one nvcc per
@@ -148,6 +149,28 @@ Phases; any failure exits non-zero and prints no result:
                 and each of four planted faults (``spatial_faults``)
                 outside one of them.  (h) (e)'s slot restored by a
                 one-process Trainer bit-equal.
+ 7. remat_norm -- ResNet ``model.remat: blocks`` and ``model.norm:
+                groupnorm``.  (a) config 3 (8 + 8 at 512^2, A, B, C on)
+                with ``blocks`` against ``none`` for 4 steps from the same
+                seeds: A 1 / B 2 / C 1 per step in both, step 0's loss and
+                the running statistics after it bit-equal (else within
+                ``REMAT_LIMIT``), the later losses within it, a second
+                ``none`` run beside as the card's run-to-run control, and a
+                run with the re-run's marker planted off outside it
+                (statistics updated twice); wall and device ms/step and
+                peak of both.
+                (b) config 4 (CPS, R101 + DLv3+, 4 + 4 at 768^2) in the
+                ``stacked`` form with ``blocks`` against ``stacked`` with
+                ``none`` and ``separate`` with ``blocks``, 2 steps each: B 2
+                / C 2 per step, step 0's loss within the ``stacked`` limit,
+                peaks and device ms/step.  (c) config 2 (Mean Teacher
+                U-Net/R18, 8 + 8 at 256^2, ``stem_impl=pallas``) with
+                ``model.norm=groupnorm`` for 4 steps: no kernel launched,
+                losses finite; its state through a reference-layout file
+                (``GroupNorm_0`` keys, no running statistics) into a fresh
+                state bit-equal; one GroupNorm Mean-Teacher step at 128^2
+                card vs CPU within its ``STEP_REF_LIMITS`` entry, and with
+                statistics planted over one group on the card outside it.
 Then it prints the card's name and power limit, one JSON line of kernel
 records (launches in the training runs, per val pass and per step of each
 config; the ranks of phases 5 and 6 per rank), and the ok line.  A longer report goes to
@@ -258,6 +281,7 @@ def main() -> None:
     kernels_only = "--kernels-only" in sys.argv[1:]
     ddp_only = "--ddp" in sys.argv[1:]
     spatial_only = "--spatial" in sys.argv[1:]
+    remat_norm_only = "--remat-norm" in sys.argv[1:]
 
     def time_ms(fn, reps: int = 10) -> float:
         """Median of ``reps`` single calls, each after an L2 flush."""
@@ -281,8 +305,9 @@ def main() -> None:
     kernels = {}
     g = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
-    if ddp_only or spatial_only:
-        tag, phase = ("ddp", ddp_phase) if ddp_only else ("spatial", spatial_phase)
+    if ddp_only or spatial_only or remat_norm_only:
+        tag, phase = (("ddp", ddp_phase) if ddp_only else ("spatial", spatial_phase)
+                      if spatial_only else ("remat_norm", remat_norm_phase))
         report[tag] = phase(torch, ddp_counters(stem, branch_conv, cmn))
         for label in DDP_SLICES if ddp_only else ():
             report[tag].get(label, {}).pop("one_vec", None)
@@ -496,6 +521,8 @@ def main() -> None:
     one5 = (ddp["config 5"]["one"], vecs["config 5"]) if vecs["config 5"] is not None else None
     report["spatial"] = spatial = spatial_phase(torch, counters, one5)
     del vecs, one5
+    # ------------------------------------------------------- 7. remat_norm
+    report["remat_norm"] = rn = remat_norm_phase(torch, counters)
 
     runs = {"config 1": (launches1, eval1, 8), "config 2": (launches2, eval2, 8),
             "config 3": (launches3, eval3, 8), "config 4": (launches4, eval4, 8),
@@ -518,6 +545,16 @@ def main() -> None:
             run = {k: sum(s["launches"].get(k, 0) for s in ranks[0]["steps"]) for k in counters}
             runs[f"spatial ({job[-1]}) config 5 D={world // 2} x M=2, rank 0 of {world}"] = (
                 run, none, DDP_STEPS)
+    # remat_norm: (a)'s and (b)'s runs ((c) launches none; the planted
+    # fault's run is a control)
+    for part, keys in (("a", ("none", "blocks")),
+                       ("b", ("stacked_none", "stacked_blocks", "separate_blocks"))):
+        for key in keys:
+            run = rn.get(part, {}).get(key)
+            if run is not None:
+                cfg_name = "config 3" if part == "a" else "config 4"
+                runs[f"remat_norm ({part}) {cfg_name} {key}"] = (
+                    run["launches"], none, len(run["losses"]))
     launches = {k: sum(r[0][k] for r in runs.values()) for k in counters}
     by_config = {k: {c: {"per_step": r[0][k] / r[2], "run": r[0][k], "per_val_pass": r[1][k]}
                      for c, r in runs.items() if r[0][k] or r[1][k]} for k in counters}
@@ -1321,7 +1358,8 @@ def _conditioned_model(torch, cfg, seed: int):
     output little: the last BatchNorm scale of every residual block at 0.25
     (a random-init BatchNorm-ReLU net is chaotic: it amplifies a 1e-3
     input change about 60-fold), then every running statistic set from one
-    train-mode forward of two calibration images (momentum 0)."""
+    train-mode forward of two calibration images (momentum 0).  Under
+    GroupNorm the last norm's scale, and no statistics."""
     import numpy as np
 
     from semi_supervised_semantic_segmentation_tpu_torch.models import build_model, resnet
@@ -1340,7 +1378,9 @@ def _conditioned_model(torch, cfg, seed: int):
             last = (blk.conv3 if isinstance(blk, resnet.Bottleneck) else
                     blk.conv2 if isinstance(blk, resnet.BasicBlock) else None)
             if last is not None:
-                last.Norm_0.BatchNorm_0.weight.mul_(0.25)
+                norm = last.Norm_0
+                inner = norm.BatchNorm_0 if norm.kind == "batchnorm" else norm.GroupNorm_0
+                inner.weight.mul_(0.25)
         for b in bns:
             b.momentum = 0.0
         model.train()
@@ -1486,14 +1526,24 @@ def eval_reference_phase(torch, dev) -> dict:
 STEP_REF_LIMITS = {"supervised_unet_r18": {"loss": 4.2e-4, "update": 0.20},
                    "mean_teacher_unet_r18": {"loss": 0.016, "update": 0.25},
                    "cps_separate_unet_r18": {"loss": 1.04e-3, "update": 0.27},
-                   "cps_stacked_unet_r18": {"loss": 1.04e-3, "update": 0.27}}
+                   "cps_stacked_unet_r18": {"loss": 1.04e-3, "update": 0.27},
+                   # phase 7 (c): first fixed before the card read it from
+                   # the development CPU's bf16-vs-f32 reading alone (losses
+                   # 1.86e-4, update 0.0704: 3.8e-4, 0.15); the card then read
+                   # losses 1.06e-3 (a 1.06e-6 move of the 8.5e-4 consistency
+                   # loss; the card's machine's CPU 1.74e-4), update 0.0615
+                   # (0.0673), so the rule above, with the card's reading,
+                   # gives 2.2e-3 / 0.15.  Statistics over one group read
+                   # 0.653 / 2.97 on the card (0.653 / 2.94 on the CPU)
+                   "mean_teacher_unet_r18_groupnorm": {"loss": 2.2e-3, "update": 0.15}}
 # config 4's method on config 1's model: both nets U-Net/R18, OHEM as config 4
 CPS_UNET = {"model.backbone": "resnet18", "model.decoder": "unet", "model.output_stride": 32}
 
 
 def unet_step_run(torch, name: str, where, dtype: str) -> dict:
     """One step of config 1's supervised method, config 2's Mean Teacher or
-    config 4's CPS in either form (:data:`STEP_REF_LIMITS` names) on
+    config 4's CPS in either form (:data:`STEP_REF_LIMITS` names; a name
+    ending in ``_groupnorm`` sets ``model.norm=groupnorm``) on
     U-Net/R18 at 128^2, 2 (+ 2) images, ``model.stem_impl=pallas``, in
     ``dtype`` on ``where``: the same seeded, conditioned weights
     (:func:`_conditioned_model`; CPS's net2 from another seed), smooth
@@ -1514,6 +1564,8 @@ def unet_step_run(torch, name: str, where, dtype: str) -> dict:
             "method.rampup_iters": 0}
     if name.startswith("cps"):
         over.update({**CPS_UNET, "method.cps_impl": name.split("_")[1]})
+    if name.endswith("_groupnorm"):
+        over["model.norm"] = "groupnorm"
     cfg = load_config(path, {**over, "model.compute_dtype": dtype})
     cfg32 = load_config(path, {**over, "model.compute_dtype": "float32"})
     rng = np.random.RandomState(7)
@@ -1556,67 +1608,81 @@ def unet_step_run(torch, name: str, where, dtype: str) -> dict:
             "launches": (stem.stem_fwd_cuda.launches - b0, stem.stem_dw_cuda.launches - c0)}
 
 
+def _vec_rel(a, b) -> float:
+    """|a - b| / |b| over the tensors of ``b`` as one vector."""
+    num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
+    return math.sqrt(num / sum(float((b[k] ** 2).sum()) for k in b))
+
+
+def _loss_rel(a, b) -> float:
+    import numpy as np
+
+    return float((np.abs(a - b) / np.maximum(np.abs(b), 1e-3)).max())
+
+
+def unet_step_check(torch, dev, name: str) -> dict:
+    """One :func:`unet_step_run` of ``name`` on the card (kernels B and C)
+    against the CPU (their plain versions), in bf16, the CPU's own
+    bf16-vs-f32 distance beside: losses within ``loss`` (relative), the
+    update as one vector within ``update`` (relative) of
+    :data:`STEP_REF_LIMITS`; B launched once per forward, C once per
+    backward (CPS: twice each, in both forms; none under GroupNorm, whose
+    stem takes the plain conv)."""
+    import numpy as np
+
+    lim = STEP_REF_LIMITS[name]
+    card = unet_step_run(torch, name, dev, "bfloat16")
+    cpu = unet_step_run(torch, name, "cpu", "bfloat16")
+    f32 = unet_step_run(torch, name, "cpu", "float32")
+    r = {"losses_card": card["losses"].tolist(), "losses_cpu": cpu["losses"].tolist(),
+         "loss_rel": _loss_rel(card["losses"], cpu["losses"]),
+         "update_rel": _vec_rel(card["update"], cpu["update"]),
+         "cpu_bf16_vs_f32": {"loss_rel": _loss_rel(cpu["losses"], f32["losses"]),
+                             "update_rel": _vec_rel(cpu["update"], f32["update"])},
+         "limits": lim, "launches": card["launches"]}
+    # Mean Teacher: teacher + student forwards; CPS: one per net
+    want = (0, 0) if name.endswith("_groupnorm") else (2, 1) if name.startswith(
+        "mean_teacher") else (2, 2) if name.startswith("cps") else (1, 1)
+    check(bool(np.all(np.isfinite(card["losses"]))),
+          f"reference {name}: non-finite losses on the card {r['losses_card']}")
+    check(r["loss_rel"] <= lim["loss"], f"reference {name}: losses card "
+          f"{r['losses_card']} vs cpu {r['losses_cpu']} ({r['loss_rel']:.4g}, limit "
+          f"{lim['loss']})")
+    check(r["update_rel"] <= lim["update"], f"reference {name}: the update differs by "
+          f"{r['update_rel']:.4g} as one vector (limit {lim['update']})")
+    check(tuple(card["launches"]) == want, f"reference {name}: (B, C) launched "
+          f"{card['launches']} times, expected {want}")
+    print(f"[reference] {name} step at 128^2, bf16, stem_impl=pallas: losses card "
+          f"{r['losses_card']} cpu {r['losses_cpu']}, max rel {r['loss_rel']:.4g} (limit "
+          f"{lim['loss']}); update as one vector {r['update_rel']:.4g} (limit "
+          f"{lim['update']}); CPU bf16 vs f32: losses {r['cpu_bf16_vs_f32']['loss_rel']:.4g}"
+          f", update {r['cpu_bf16_vs_f32']['update_rel']:.4g}; (B, C) launches on the "
+          f"card {card['launches']}", flush=True)
+    r["_card"], r["_cpu"] = card, cpu
+    return r
+
+
 def unet_step_reference(torch, dev) -> dict:
     """(g) one supervised U-Net/R18 step (config 1), (h) one Mean-Teacher
     step (config 2) and (i) one CPS step (config 4's method, U-Net/R18
     nets) in each form, ``separate`` and ``stacked`` (``torch.func.vmap``),
-    at 128^2 (:func:`unet_step_run`) on the card (kernels B and C) against
-    the CPU (their plain versions), in bf16, and the CPU's own bf16-vs-f32
-    distance beside: losses within ``loss`` (relative), the update as one
-    vector within ``update`` (relative) of :data:`STEP_REF_LIMITS`; B
-    launched once per forward, C once per backward (CPS: twice each, in
-    both forms); the card's ``stacked`` losses and update against its
-    ``separate`` ones within the same limits."""
-    import numpy as np
-
-    def vec_rel(a, b):
-        num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
-        return math.sqrt(num / sum(float((b[k] ** 2).sum()) for k in b))
-
-    def loss_rel(a, b):
-        return float((np.abs(a - b) / np.maximum(np.abs(b), 1e-3)).max())
-
-    out = {}
-    for name, lim in STEP_REF_LIMITS.items():
-        card = unet_step_run(torch, name, dev, "bfloat16")
-        cpu = unet_step_run(torch, name, "cpu", "bfloat16")
-        f32 = unet_step_run(torch, name, "cpu", "float32")
-        r = {"losses_card": card["losses"].tolist(), "losses_cpu": cpu["losses"].tolist(),
-             "loss_rel": loss_rel(card["losses"], cpu["losses"]),
-             "update_rel": vec_rel(card["update"], cpu["update"]),
-             "cpu_bf16_vs_f32": {"loss_rel": loss_rel(cpu["losses"], f32["losses"]),
-                                 "update_rel": vec_rel(cpu["update"], f32["update"])},
-             "limits": lim, "launches": card["launches"]}
-        # Mean Teacher: teacher + student forwards; CPS: one per net
-        want = (2, 1) if name.startswith("mean_teacher") else (
-            (2, 2) if name.startswith("cps") else (1, 1))
-        check(bool(np.all(np.isfinite(card["losses"]))),
-              f"reference {name}: non-finite losses on the card {r['losses_card']}")
-        check(r["loss_rel"] <= lim["loss"], f"reference {name}: losses card "
-              f"{r['losses_card']} vs cpu {r['losses_cpu']} ({r['loss_rel']:.4g}, limit "
-              f"{lim['loss']})")
-        check(r["update_rel"] <= lim["update"], f"reference {name}: the update differs by "
-              f"{r['update_rel']:.4g} as one vector (limit {lim['update']})")
-        check(tuple(card["launches"]) == want, f"reference {name}: (B, C) launched "
-              f"{card['launches']} times, expected {want}")
-        print(f"[reference] {name} step at 128^2, bf16, stem_impl=pallas: losses card "
-              f"{r['losses_card']} cpu {r['losses_cpu']}, max rel {r['loss_rel']:.4g} (limit "
-              f"{lim['loss']}); update as one vector {r['update_rel']:.4g} (limit "
-              f"{lim['update']}); CPU bf16 vs f32: losses {r['cpu_bf16_vs_f32']['loss_rel']:.4g}"
-              f", update {r['cpu_bf16_vs_f32']['update_rel']:.4g}; (B, C) launches on the "
-              f"card {card['launches']}", flush=True)
-        out[name] = r
-        r["_card"] = card
+    at 128^2 on the card against the CPU (:func:`unet_step_check`); the
+    card's ``stacked`` losses and update against its ``separate`` ones
+    within the same limits."""
+    out = {name: unet_step_check(torch, dev, name) for name in (
+        "supervised_unet_r18", "mean_teacher_unet_r18", "cps_separate_unet_r18",
+        "cps_stacked_unet_r18")}
     sep, stk = (out[f"cps_{f}_unet_r18"] for f in ("separate", "stacked"))
     lim = STEP_REF_LIMITS["cps_stacked_unet_r18"]
-    forms = {"loss_rel": loss_rel(stk["_card"]["losses"], sep["_card"]["losses"]),
-             "update_rel": vec_rel(stk["_card"]["update"], sep["_card"]["update"])}
+    forms = {"loss_rel": _loss_rel(stk["_card"]["losses"], sep["_card"]["losses"]),
+             "update_rel": _vec_rel(stk["_card"]["update"], sep["_card"]["update"])}
     check(forms["loss_rel"] <= lim["loss"] and forms["update_rel"] <= lim["update"],
           f"reference cps: stacked against separate on the card {forms} (limits {lim})")
     print(f"[reference] cps on the card, stacked against separate: losses "
           f"{forms['loss_rel']:.4g}, update {forms['update_rel']:.4g} (limits {lim})", flush=True)
     for r in out.values():
         r.pop("_card")
+        r.pop("_cpu")
     out["cps_stacked_vs_separate_card"] = forms
     return out
 
@@ -1875,53 +1941,88 @@ def host_loader_rates(torch, trainer, cfg, min_batches: int = 8) -> dict:
 STACKED_STEPS = 4
 
 
-def stacked_steps(torch, cfg, counters: dict, expected: dict, out: dict) -> dict:
-    """Config 4 in CPS's ``stacked`` form (``torch.func.vmap`` over the two
-    nets): a Trainer of the same config and seeds with
-    ``method.cps_impl=stacked`` runs :data:`STACKED_STEPS` steps (no eval).
-    Every counter is set to 0 just before and read just after; each step
-    must launch each kernel ``expected`` times (B and C once per net, from
-    the stem's vmap rule).  Losses finite; step 0 starts from the state,
-    batch and draws of the ``separate`` run's step 0, so its loss is held
-    to that run's within the phase-3 loss limit; the last two steps run
-    under the profiler.  The launches go to ``out["launches"]``."""
-    from semi_supervised_semantic_segmentation_tpu_torch.config import update_config
+def trainer_steps(torch, cfg, counters: dict, steps: int, profiled: int,
+                  after_step0=None) -> dict:
+    """A Trainer of ``cfg`` (its work_dir emptied first) for ``steps`` steps
+    on its own batches, with no eval.  The cache is emptied and the peak
+    reset before; every counter is set to 0 just before the first step and
+    read just after the last.  The last ``profiled`` steps run under
+    torch.profiler (its breakdown: :func:`device_breakdown`); the wall time
+    is the median of the steps between the first and them.
+    ``after_step0(trainer)`` runs after step 0; its result is ``"step0"``.
+    Returns losses, per-step launches, step seconds, the peak (and what
+    was allocated before the Trainer), the breakdown and the trainer
+    (closed)."""
     from semi_supervised_semantic_segmentation_tpu_torch.engine.trainer import Trainer
 
-    with open(os.path.join(cfg.train.work_dir, "metrics.jsonl")) as f:
-        separate0 = next(json.loads(line)["train"]["loss"] for line in f if '"train"' in line)
-    work = cfg.train.work_dir + "_stacked"
-    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(cfg.train.work_dir, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    trainer = Trainer(update_config(cfg, {"method.cps_impl": "stacked", "train.work_dir": work}))
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    trainer = Trainer(cfg)
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                               torch.profiler.ProfilerActivity.CUDA])
-    losses, times, per_step, window = [], [], [], []
+    out = {"losses": [], "step_s": [], "per_step_launches": []}
+    window = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for f, a in counters.values():
         setattr(f, a, 0)
     try:
         for i, (lab, unlab) in enumerate(trainer.batches(0)):
-            if i == STACKED_STEPS:
+            if i == steps:
                 break
             before = {k: getattr(f, a) for k, (f, a) in counters.items()}
-            if i == STACKED_STEPS - 2:
+            if profiled and i == steps - profiled:
                 prof.start()
                 window.append(time.time())
             t0 = time.time()
             m = trainer.train_step(trainer.state, lab, unlab)
-            losses.append(float(m["loss"]))
+            out["losses"].append(float(m["loss"]))
             torch.cuda.synchronize()
-            times.append(time.time() - t0)
-            per_step.append({k: getattr(f, a) - before[k] for k, (f, a) in counters.items()})
-        window.append(time.time())
-        prof.stop()
+            out["step_s"].append(time.time() - t0)
+            out["per_step_launches"].append(
+                {k: getattr(f, a) - before[k] for k, (f, a) in counters.items()})
+            if i == 0 and after_step0 is not None:
+                out["step0"] = after_step0(trainer)
+        if profiled:
+            window.append(time.time())
+            prof.stop()
     finally:
         trainer.close()
     out["launches"] = {k: getattr(f, a) for k, (f, a) in counters.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["held_gb"] = held_gb
+    timed = out["step_s"][1:steps - profiled] or out["step_s"][-1:]
+    out["ms_per_step"] = statistics.median(timed) * 1e3
+    out["profile"] = (device_breakdown(torch, prof, (window[1] - window[0]) * 1e3, profiled)
+                      if profiled else {})
+    out["trainer"] = trainer
+    shutil.rmtree(cfg.train.work_dir, ignore_errors=True)
+    return out
+
+
+def stacked_steps(torch, cfg, counters: dict, expected: dict, out: dict) -> dict:
+    """Config 4 in CPS's ``stacked`` form (``torch.func.vmap`` over the two
+    nets): a Trainer of the same config and seeds with
+    ``method.cps_impl=stacked`` runs :data:`STACKED_STEPS` steps (no eval,
+    :func:`trainer_steps`).  Each step must launch each kernel ``expected``
+    times (B and C once per net, from the stem's vmap rule).  Losses
+    finite; step 0 starts from the state, batch and draws of the
+    ``separate`` run's step 0, so its loss is held to that run's within the
+    phase-3 loss limit; the last two steps run under the profiler.  The
+    launches go to ``out["launches"]``."""
+    from semi_supervised_semantic_segmentation_tpu_torch.config import update_config
+
+    with open(os.path.join(cfg.train.work_dir, "metrics.jsonl")) as f:
+        separate0 = next(json.loads(line)["train"]["loss"] for line in f if '"train"' in line)
+    run = trainer_steps(torch, update_config(cfg, {"method.cps_impl": "stacked",
+                                                   "train.work_dir": cfg.train.work_dir
+                                                   + "_stacked"}),
+                        counters, STACKED_STEPS, 2)
+    del run["trainer"]
+    out["launches"] = run["launches"]
+    losses, times, per_step = run["losses"], run["step_s"], run["per_step_launches"]
     check(len(losses) == STACKED_STEPS and all(math.isfinite(v) for v in losses),
           f"config 4 stacked: losses {losses}")
     for i, d in enumerate(per_step):
@@ -1930,18 +2031,15 @@ def stacked_steps(torch, cfg, counters: dict, expected: dict, out: dict) -> dict
     rel = abs(losses[0] - separate0) / max(abs(separate0), 1e-3)
     check(rel <= lim, f"config 4 stacked: step 0 loss {losses[0]} vs separate's {separate0} "
           f"({rel:.4g}, limit {lim})")
-    ms = statistics.median(times[1:STACKED_STEPS - 2]) * 1e3
     print(f"[slice] config 4 stacked (torch.func.vmap over both nets), {STACKED_STEPS} steps: "
           f"losses {[round(v, 4) for v in losses]}; step 0 {losses[0]:.5f} vs separate's "
           f"{separate0:.5f} (rel {rel:.3g}, limit {lim}); launches per step {per_step[-1]}; "
-          f"{ms:.1f} ms/step (median of steps 2-{STACKED_STEPS - 2}); peak memory "
-          f"{peak_gb:.2f} GB; step times s {[round(t, 3) for t in times]}", flush=True)
-    breakdown = device_breakdown(torch, prof, (window[1] - window[0]) * 1e3, 2)
-    shutil.rmtree(work, ignore_errors=True)
-    del trainer
-    return {"losses": losses, "step_s": times, "ms_per_step": ms, "peak_gb": peak_gb,
-            "separate_step0_loss": separate0, "step0_rel": rel, "per_step_launches": per_step,
-            "profile": breakdown}
+          f"{run['ms_per_step']:.1f} ms/step (median of steps 2-{STACKED_STEPS - 2}); peak "
+          f"memory {run['peak_gb']:.2f} GB; step times s {[round(t, 3) for t in times]}",
+          flush=True)
+    return {"losses": losses, "step_s": times, "ms_per_step": run["ms_per_step"],
+            "peak_gb": run["peak_gb"], "separate_step0_loss": separate0, "step0_rel": rel,
+            "per_step_launches": per_step, "profile": run["profile"]}
 
 
 def slice_phase(torch, label: str, config_path: str, overrides: dict, counters: dict,
@@ -3293,6 +3391,233 @@ def spatial_phase(torch, counters: dict, one5=None) -> dict:
     report["g"] = spatial_fault_readings(torch, g_ranks, g_seconds, counters)
     report["h"] = spatial_resume(torch)
     return report
+
+
+# ---------------------------------------------------------------------------
+# 7. remat_norm: ResNet ``model.remat: blocks`` and ``model.norm: groupnorm``
+# ---------------------------------------------------------------------------
+
+# (a) config 3 with blocks against none: 4 steps, step 2 timed on the host
+# clock, 3-4 profiled; (b) config 4's forms, 2 steps, step 2 profiled
+REMAT_STEPS, REMAT_CPS_STEPS = 4, 2
+# (a): the later losses, and step 0's loss and running statistics where
+# they are not bit-equal, within config 3's bf16 control limit (the ddp
+# phase's: 2x the card's bf16-vs-f32 reading of config 3's loss), the
+# statistics as two vectors (running means, running variances).  A second
+# run with none, from the same seeds, is the card's run-to-run control:
+# F.interpolate's backward adds with atomics, and a random bf16 net carries
+# that apart over steps (6 steps of blocks against none read 0.0097 at
+# step 5 on NVIDIA H100 80GB HBM3, 700.00 W)
+REMAT_LIMIT = DDP_LIMITS["config 3"]["loss"]
+
+
+def _running_stats(torch, model) -> dict:
+    return {n: b.detach().float().cpu().clone() for n, b in model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))}
+
+
+def _stats_rel(a: dict, b: dict) -> float:
+    """The larger relative distance of the running means and of the
+    running variances, each as one vector."""
+    return max(_vec_rel({k: v for k, v in a.items() if k.endswith(suffix)},
+                        {k: v for k, v in b.items() if k.endswith(suffix)})
+               for suffix in ("running_mean", "running_var"))
+
+
+def _run_line(label: str, run: dict) -> str:
+    prof = run["profile"]
+    dev_ms = prof.get("device_ms_per_step")
+    return (f"{label}: losses {[round(v, 5) for v in run['losses']]}; launches per step "
+            f"{ {k: v for k, v in run['per_step_launches'][-1].items() if v} }; wall "
+            f"{run['ms_per_step']:.1f} ms/step; device "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.1f} ms/step'}; peak "
+            f"{run['peak_gb']:.2f} GB ({run['held_gb']:.2f} GB held before the run)")
+
+
+def remat_norm_phase(torch, counters: dict, dev="cuda") -> dict:
+    """(a) config 3 (8 + 8 at 512^2, A, B and C on) with
+    ``model.remat=blocks`` against ``none`` from the same seeds, and once
+    more with the re-run's marker planted off (``layers._recompute_scope``
+    a no-op: the running statistics are then updated twice); (b) config
+    4's CPS (R101 + DLv3+, 4 + 4 at 768^2 from 1024^2 canvases) in the
+    ``stacked`` form with ``blocks`` against ``stacked`` with ``none`` and
+    ``separate`` with ``blocks``; (c) config 2 (Mean Teacher U-Net/R18, 8 +
+    8 at 256^2, ``stem_impl=pallas``) with ``model.norm=groupnorm``, its
+    state through a reference-layout file into a fresh state, and one
+    GroupNorm Mean-Teacher step card vs CPU (:func:`unet_step_check`), also
+    with statistics planted over one group on the card."""
+    import numpy as np
+
+    from semi_supervised_semantic_segmentation_tpu_torch.config import load_config
+    from semi_supervised_semantic_segmentation_tpu_torch.engine import compat
+    from semi_supervised_semantic_segmentation_tpu_torch.methods import get_method
+    from semi_supervised_semantic_segmentation_tpu_torch.models import build_model, layers
+
+    none = {k: 0 for k in counters}
+    out = {}
+    t_phase = time.time()
+
+    def cfg_of(path, label, over):
+        work = os.path.join(REPO, "build", f"chip_smoke_remat_norm_{label}")
+        return load_config(path, {"data.dataset": "synthetic", "data.num_workers": 8,
+                                  "train.iters_per_epoch": 100, "train.log_interval": 1,
+                                  "train.work_dir": work, **over})
+
+    def launches_ok(label, run, expected, steps):
+        check(len(run["losses"]) == steps and all(math.isfinite(v) for v in run["losses"]),
+              f"remat_norm {label}: losses {run['losses']}")
+        for i, d in enumerate(run["per_step_launches"]):
+            check(d == expected, f"remat_norm {label}: step {i} launched {d}, expected "
+                  f"{expected}")
+
+    # ---- (a) config 3 with blocks against none
+    c3 = {"data.synthetic_canvas": 512, "data.synthetic_size": 48, "data.cutmix_impl": "pallas",
+          "model.stem_impl": "pallas"}
+    want3 = {**none, "cutmix_normalize": 1, "stem_fwd": 2, "stem_dw": 1}
+    runs = {}
+    for key, remat in (("none", "none"), ("blocks", "blocks"), ("none_again", "none")):
+        runs[key] = trainer_steps(
+            torch, cfg_of(CONFIG3, f"3_{key}", {**c3, "model.remat": remat}), counters,
+            REMAT_STEPS, 2, after_step0=lambda tr: _running_stats(torch, tr.state.model))
+        del runs[key]["trainer"]
+        launches_ok(f"(a) config 3 {key}", runs[key], want3, REMAT_STEPS)
+        print(f"[remat_norm] (a) {_run_line(f'config 3 {key} (remat={remat})', runs[key])}",
+              flush=True)
+    with planted([(layers, "_recompute_scope", contextlib.nullcontext)]):
+        fault = trainer_steps(torch, cfg_of(CONFIG3, "3_fault", {**c3, "model.remat": "blocks"}),
+                              counters, 1, 0,
+                              after_step0=lambda tr: _running_stats(torch, tr.state.model))
+    n, b = runs["none"], runs["blocks"]
+
+    def loss_rel(run):
+        return [abs(x - y) / max(abs(y), 1e-3) for x, y in zip(run["losses"], n["losses"])]
+
+    stats_equal = all(torch.equal(b["step0"][k], v) for k, v in n["step0"].items())
+    a = {"loss0_equal": b["losses"][0] == n["losses"][0], "stats0_equal": stats_equal,
+         "stats0_rel": _stats_rel(b["step0"], n["step0"]), "loss_rel": loss_rel(b),
+         "control_loss_rel": loss_rel(runs["none_again"]),
+         "control_stats0_rel": _stats_rel(runs["none_again"]["step0"], n["step0"]),
+         "fault_stats0_rel": _stats_rel(fault["step0"], n["step0"]),
+         "fault_loss0": fault["losses"][0], "limit": REMAT_LIMIT}
+    check(a["loss0_equal"] or a["loss_rel"][0] <= REMAT_LIMIT,
+          f"remat_norm (a): step 0 loss {b['losses'][0]} vs none's {n['losses'][0]}")
+    check(stats_equal or a["stats0_rel"] <= REMAT_LIMIT,
+          f"remat_norm (a): running statistics after step 0 {a['stats0_rel']:.4g} from none's "
+          f"(limit {REMAT_LIMIT})")
+    check(max(a["loss_rel"]) <= REMAT_LIMIT,
+          f"remat_norm (a): losses {a['loss_rel']} from none's (limit {REMAT_LIMIT})")
+    check(a["fault_stats0_rel"] > REMAT_LIMIT,
+          f"remat_norm (a): the re-run's marker planted off moved the running statistics "
+          f"only {a['fault_stats0_rel']:.4g} (limit {REMAT_LIMIT})")
+    print(f"[remat_norm] (a) config 3 blocks vs none: step 0 loss bit-equal "
+          f"{a['loss0_equal']}, running statistics after step 0 bit-equal {stats_equal} "
+          f"({a['stats0_rel']:.4g}); loss distances {[f'{v:.3g}' for v in a['loss_rel']]} "
+          f"(limit {REMAT_LIMIT}); the control (none again): losses "
+          f"{[f'{v:.3g}' for v in a['control_loss_rel']]}, statistics "
+          f"{a['control_stats0_rel']:.4g}; planted fault (no re-run marker): statistics "
+          f"{a['fault_stats0_rel']:.4g}, step 0 loss {fault['losses'][0]:.5f}", flush=True)
+    for key, run in runs.items():
+        a[key] = {k: v for k, v in run.items() if k != "step0"}
+    a["seconds"] = time.time() - t_phase
+    out["a"] = a
+    del runs, n, b, fault
+
+    # ---- (b) config 4: stacked with blocks against stacked and separate
+    gc.collect()
+    torch.cuda.empty_cache()
+    c4 = {"data.synthetic_canvas": 1024, "data.synthetic_size": 16,
+          "train.labeled_batch_size": 4, "train.unlabeled_batch_size": 4,
+          "model.stem_impl": "pallas"}
+    want4 = {**none, "stem_fwd": 2, "stem_dw": 2}
+    forms = {"stacked_none": ("stacked", "none"), "stacked_blocks": ("stacked", "blocks"),
+             "separate_blocks": ("separate", "blocks")}
+    bruns = {}
+    for key, (impl, remat) in forms.items():
+        run = trainer_steps(torch, cfg_of(CONFIG4, f"4_{key}", {
+            **c4, "method.cps_impl": impl, "model.remat": remat}), counters, REMAT_CPS_STEPS, 1)
+        del run["trainer"]
+        launches_ok(f"(b) config 4 {key}", run, want4, REMAT_CPS_STEPS)
+        print(f"[remat_norm] (b) {_run_line(f'config 4 {impl} remat={remat}', run)}", flush=True)
+        bruns[key] = run
+        gc.collect()
+        torch.cuda.empty_cache()
+    # step 0 from the same state, batch and draws, held as stacked_steps
+    # holds it; step 1 printed (the card's atomics move step 0's update:
+    # stacked with blocks is stacked with none's computation)
+    lim4 = STEP_REF_LIMITS["cps_stacked_unet_r18"]["loss"]
+    ref4 = bruns["stacked_none"]["losses"]
+    rel4 = {k: [abs(x - y) / max(abs(y), 1e-3) for x, y in zip(bruns[k]["losses"], ref4)]
+            for k in ("stacked_blocks", "separate_blocks")}
+    check(rel4["stacked_blocks"][0] <= lim4 and rel4["separate_blocks"][0] <= lim4,
+          f"remat_norm (b): step 0 losses against stacked with none {rel4} (limit {lim4})")
+    print(f"[remat_norm] (b) loss distances from stacked with none: {rel4} (limit {lim4} on "
+          f"step 0); "
+          f"peaks stacked none / stacked blocks / separate blocks "
+          f"{[round(bruns[k]['peak_gb'], 2) for k in forms]} GB", flush=True)
+    out["b"] = {**bruns, "loss_rel": rel4, "limit": lim4, "seconds": time.time() - t_phase}
+    del bruns
+
+    # ---- (c) config 2 with GroupNorm
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg2 = cfg_of(CONFIG2, "2_groupnorm", {"data.synthetic_canvas": 256,
+                                            "data.synthetic_size": 16,
+                                            "model.stem_impl": "pallas",
+                                            "model.norm": "groupnorm"})
+    run = trainer_steps(torch, cfg2, counters, 4, 2)
+    launches_ok("(c) config 2 groupnorm", run, none, 4)
+    print(f"[remat_norm] (c) {_run_line('config 2 norm=groupnorm, stem_impl=pallas', run)}",
+          flush=True)
+    state = run.pop("trainer").state
+    path = os.path.join(REPO, "build", "chip_smoke_groupnorm.pth")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    compat.export_reference_checkpoint(path, state, {"epoch": 0}, cfg2)
+    keys = list(torch.load(path, map_location="cpu", weights_only=True)["model"])
+    method = get_method(cfg2.method.name)
+    fresh = method.init_state(cfg2, build_model(cfg2, seed=cfg2.train.seed + 9).to(dev), 10)
+    compat.import_reference_checkpoint(path, fresh)
+    os.remove(path)
+    nets = [(state.model, fresh.model), (state.ema_model, fresh.ema_model)]
+    slot_equal = fresh.step == state.step and all(
+        torch.equal(v, b.state_dict()[k]) for a_, b in nets for k, v in a_.state_dict().items())
+    moms = compat._named_buffers(fresh)
+    slot_equal = slot_equal and all(torch.equal(v, moms[k])
+                                    for k, v in compat._named_buffers(state).items())
+    gn_keys = sum(".GroupNorm_0." in k for k in keys)
+    check(slot_equal and gn_keys > 0 and not any("running_" in k or "BatchNorm" in k
+                                                  for k in keys),
+          f"remat_norm (c): the reference-layout slot restored bit-equal {slot_equal}, "
+          f"{gn_keys} GroupNorm_0 keys of {len(keys)}")
+    print(f"[remat_norm] (c) reference-layout slot: {len(keys)} model keys, {gn_keys} "
+          f"GroupNorm_0, none running_ or BatchNorm; restored bit-equal (model, teacher, "
+          f"momentum, step {state.step}) {slot_equal}", flush=True)
+    del state, fresh, nets
+    name = "mean_teacher_unet_r18_groupnorm"
+    step = unet_step_check(torch, dev, name)
+    init = layers.GroupNorm.__init__
+
+    def one_group(self, features, eps=1e-6):
+        init(self, features, eps)
+        self.groups = 1
+
+    with planted([(layers.GroupNorm, "__init__", one_group)]):
+        planted_card = unet_step_run(torch, name, dev, "bfloat16")
+    lim = STEP_REF_LIMITS[name]
+    fault_c = {"loss_rel": _loss_rel(planted_card["losses"], step["_cpu"]["losses"]),
+               "update_rel": _vec_rel(planted_card["update"], step["_cpu"]["update"])}
+    check(fault_c["loss_rel"] > lim["loss"] or fault_c["update_rel"] > lim["update"],
+          f"remat_norm (c): GroupNorm over one group on the card passed the limits "
+          f"{fault_c} ({lim})")
+    print(f"[remat_norm] (c) planted fault (statistics over one group) on the card vs the "
+          f"CPU: losses {fault_c['loss_rel']:.4g}, update {fault_c['update_rel']:.4g} "
+          f"(limits {lim})", flush=True)
+    step.pop("_card")
+    step.pop("_cpu")
+    out["c"] = {"run": run, "slot_equal": slot_equal, "slot_keys": len(keys),
+                "groupnorm_keys": gn_keys, "step_reference": step, "fault": fault_c}
+    out["seconds"] = time.time() - t_phase
+    print(f"[remat_norm] phase 7: {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 if __name__ == "__main__":

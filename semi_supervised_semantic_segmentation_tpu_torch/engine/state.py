@@ -7,6 +7,9 @@ reference's optax chain.  One SGD may hold several nets (CPS's two): each
 adds its backbone and head groups, in the nets' order.  ``ema_update`` moves the teacher's parameters and
 BatchNorm running statistics towards the student's.
 
+``optim.grad_clip_norm`` clips by one global norm over every net's
+gradients (:func:`clip_by_global_norm`, the reference's optax rule).
+
 Under data parallelism (``step(..., mesh)``) the gradients are summed over
 ranks before clipping and the update, in one flat buffer per dtype
 (``parallel.mesh.all_reduce_grads``): a sum, because each rank's loss
@@ -64,8 +67,8 @@ class SGD:
         lr = self.lr(step)
         all_reduce_grads([p for ps, _ in self.groups for p in ps], mesh)
         if o.grad_clip_norm > 0:
-            params = [p for ps, _ in self.groups for p in ps if p.grad is not None]
-            torch.nn.utils.clip_grad_norm_(params, o.grad_clip_norm)
+            clip_by_global_norm([p.grad for ps, _ in self.groups for p in ps
+                                 if p.grad is not None], o.grad_clip_norm)
         for (params, mult), bufs in zip(self.groups, self.bufs):
             if not params:
                 continue
@@ -82,6 +85,21 @@ class SGD:
         for params, _ in self.groups:
             for p in params:
                 p.grad = None
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
+    """``optax.clip_by_global_norm`` in place: g <- g / |g| * max_norm where
+    the global norm |g| of every gradient (both groups of every net),
+    taken in at least f32, is >= max_norm; else g unchanged.  No epsilon,
+    and no host sync."""
+    if not grads:
+        return
+    norm = torch.stack([(g.to(torch.promote_types(g.dtype, torch.float32)) ** 2).sum()
+                        for g in grads]).sum().sqrt()
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
 
 
 def ema_tensors(model: nn.Module) -> List[torch.Tensor]:

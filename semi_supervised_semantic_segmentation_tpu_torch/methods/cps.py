@@ -24,6 +24,9 @@ on net1's device.  With ``model.pretrained`` both load the same encoder.
   over stacked params; each conv then runs as one grouped conv.  The
   stem kernels run once per net (``ops.stem.StemConvBN.vmap``).  A piece
   that ``vmap`` cannot carry raises: ``stacked`` never runs ``separate``.
+  A ``model.remat`` plan checkpoints nothing here (``layers.remat_active``:
+  ``torch.utils.checkpoint`` cannot run inside ``vmap``), so ``stacked``
+  keeps every activation whatever the plan; the values are the plan's.
 
 Every random parameter of a step is drawn up front (:func:`draw`) from a
 generator seeded by (``train.seed``, step), in the reference's order: weak_l,

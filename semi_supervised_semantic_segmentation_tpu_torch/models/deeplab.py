@@ -31,9 +31,9 @@ from semi_supervised_semantic_segmentation_tpu_torch.ops.resize import resize_bi
 class ASPP(nn.Module):
     def __init__(self, cin: int, features: int = 256, dilations: Sequence[int] = (6, 12, 18),
                  bn_momentum: float = 0.9, compute_dtype: torch.dtype = torch.bfloat16,
-                 dropout_p: float = 0.5):
+                 dropout_p: float = 0.5, norm: str = "batchnorm"):
         super().__init__()
-        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype)
+        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype, norm=norm)
         self.b0 = ConvNormAct(cin, features, 1, **kw)
         for i, d in enumerate(dilations):
             setattr(self, f"b{i + 1}", ConvNormAct(cin, features, 3, dilation=d, **kw))
@@ -42,7 +42,7 @@ class ASPP(nn.Module):
         for i in range(self.n_branches):
             setattr(self, f"project{i}", Conv2d(features, features, 1, compute_dtype=compute_dtype))
         self.project_pool = Conv2d(features, features, 1, compute_dtype=compute_dtype)
-        self.project_norm = Norm(features, bn_momentum)
+        self.project_norm = Norm(features, bn_momentum, norm)
         self.dropout_p = dropout_p
         self.compute_dtype = compute_dtype
 
@@ -64,14 +64,14 @@ class DeepLabV3Plus(nn.Module):
     def __init__(self, num_classes: int, in_channels: int = 2048, low_channels: int = 256,
                  features: int = 256, low_level_features: int = 48,
                  dilations: Sequence[int] = (6, 12, 18), bn_momentum: float = 0.9,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16, norm: str = "batchnorm"):
         super().__init__()
-        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype)
+        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype, norm=norm)
         self.aspp = ASPP(in_channels, features, dilations, **kw)
         self.low_project = ConvNormAct(low_channels, low_level_features, 1, **kw)
         self.fuse1a = Conv2d(features, features, 3, compute_dtype=compute_dtype)
         self.fuse1b = Conv2d(low_level_features, features, 3, compute_dtype=compute_dtype)
-        self.fuse1_norm = Norm(features, bn_momentum)
+        self.fuse1_norm = Norm(features, bn_momentum, norm)
         self.fuse2 = ConvNormAct(features, features, 3, **kw)
         self.head = Conv2d(features, num_classes, 1, bias=True, compute_dtype=compute_dtype)
         self.compute_dtype = compute_dtype

@@ -46,6 +46,7 @@ from semi_supervised_semantic_segmentation_tpu_torch.models.layers import (
     ConvNormAct,
     Norm,
     checkpoint,
+    remat_active,
 )
 from semi_supervised_semantic_segmentation_tpu_torch.models.resnet import BasicBlock, Bottleneck
 from semi_supervised_semantic_segmentation_tpu_torch.ops import branch_conv as bconv
@@ -53,20 +54,16 @@ from semi_supervised_semantic_segmentation_tpu_torch.ops.resize import resize_bi
 from semi_supervised_semantic_segmentation_tpu_torch.parallel import spatial
 
 
-def _remat_active(module: nn.Module) -> bool:
-    return module.training and torch.is_grad_enabled()
-
-
 class HRModule(nn.Module):
     def __init__(self, channels: Sequence[int], num_blocks: int = 4, bn_momentum: float = 0.9,
                  compute_dtype: torch.dtype = torch.bfloat16, branch_conv: str = "xla",
-                 remat_blocks: bool = False):
+                 remat_blocks: bool = False, norm: str = "batchnorm"):
         super().__init__()
         self.channels = tuple(channels)
         self.num_blocks = num_blocks
         self.branch_conv = branch_conv
         self.remat_blocks = remat_blocks
-        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype)
+        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype, norm=norm)
         n = len(self.channels)
         for i, c in enumerate(self.channels):
             for b in range(num_blocks):
@@ -84,7 +81,7 @@ class HRModule(nn.Module):
 
     def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         n = len(self.channels)
-        remat = self.remat_blocks and _remat_active(self)
+        remat = self.remat_blocks and remat_active(self)
         ys = []
         for i, c in enumerate(self.channels):
             x = xs[i]
@@ -122,7 +119,8 @@ class HRNetV2Head(nn.Module):
     resolution.  Same parameters and math either way."""
 
     def __init__(self, num_classes: int, in_channels: Sequence[int], bn_momentum: float = 0.9,
-                 compute_dtype: torch.dtype = torch.bfloat16, fuse_order: str = "conv_first"):
+                 compute_dtype: torch.dtype = torch.bfloat16, fuse_order: str = "conv_first",
+                 norm: str = "batchnorm"):
         super().__init__()
         if fuse_order not in ("conv_first", "up_first"):
             raise ValueError(f"unknown head fuse order {fuse_order!r}")
@@ -130,7 +128,7 @@ class HRNetV2Head(nn.Module):
         self.fuse0 = Conv2d(in_channels[0], width, 1, bias=True, compute_dtype=compute_dtype)
         for i, c in enumerate(in_channels[1:]):
             setattr(self, f"fuse{i + 1}", Conv2d(c, width, 1, compute_dtype=compute_dtype))
-        self.fuse_norm = Norm(width, bn_momentum)
+        self.fuse_norm = Norm(width, bn_momentum, norm)
         self.head = Conv2d(width, num_classes, 1, bias=True, compute_dtype=compute_dtype)
         self.fuse_order = fuse_order
         self.compute_dtype = compute_dtype
@@ -155,17 +153,21 @@ class HRNet(nn.Module):
                  compute_dtype: torch.dtype = torch.bfloat16,
                  stage_modules: Tuple[int, int, int] = (1, 4, 3),
                  remat_stages: Tuple[int, ...] = (), remat_scope: str = "module",
-                 branch_conv: str = "xla", branch_widths: Tuple[int, ...] = ()):
+                 branch_conv: str = "xla", branch_widths: Tuple[int, ...] = (),
+                 norm: str = "batchnorm"):
         super().__init__()
         if remat_scope not in ("module", "branch_blocks"):
             raise ValueError(f"unknown remat scope {remat_scope!r}")
+        if branch_conv == "pallas" and norm != "batchnorm":
+            raise ValueError(f"model.norm={norm!r} with model.branch_conv=pallas: the fused "
+                             "branch convs fold BatchNorm from the kernel's statistics")
         self.width = width
         self.stage_modules = tuple(stage_modules)
         self.branch_widths = tuple(branch_widths) or (width, 2 * width, 4 * width, 8 * width)
         self.remat_stages = tuple(remat_stages)
         self.remat_scope = remat_scope
         widths = self.branch_widths
-        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype)
+        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype, norm=norm)
         self.stem1 = ConvNormAct(3, 64, 3, stride=2, **kw)
         self.stem2 = ConvNormAct(64, 64, 3, stride=2, **kw)
         for b in range(4):
@@ -185,7 +187,7 @@ class HRNet(nn.Module):
     def _stage(self, stage: int, module: nn.Module, x):
         """Run ``module``, checkpointed when the plan says so ('module'
         scope; the 'branch_blocks' scope checkpoints inside HRModule)."""
-        if stage not in self.remat_stages or not _remat_active(self) or (
+        if stage not in self.remat_stages or not remat_active(self) or (
                 stage > 1 and self.remat_scope == "branch_blocks"):
             return module(x)
         if isinstance(x, list):

@@ -44,12 +44,22 @@ def _recompute_scope():
 @contextlib.contextmanager
 def vmapped():
     """Marks a forward run under ``torch.func.vmap`` over stacked nets
-    (CPS's ``stacked`` form): :class:`BatchNorm` then normalizes in f32."""
+    (CPS's ``stacked`` form): :class:`BatchNorm` then normalizes in f32,
+    and no remat plan checkpoints (:func:`remat_active`)."""
     prev, _VMAP.on = getattr(_VMAP, "on", False), True
     try:
         yield
     finally:
         _VMAP.on = prev
+
+
+def remat_active(module: nn.Module) -> bool:
+    """Whether a remat plan checkpoints ``module``'s blocks now: in training
+    with autograd on, and not under :func:`vmapped`.  ``torch.func.vmap``
+    cannot carry ``torch.utils.checkpoint`` (the backward's re-run meets
+    tensors from inside the vmapped function), so CPS's ``stacked`` form
+    keeps every activation, as with no plan; the values are the same."""
+    return module.training and torch.is_grad_enabled() and not getattr(_VMAP, "on", False)
 
 
 def checkpoint(fn, *args):
@@ -151,19 +161,57 @@ class BatchNorm(nn.Module):
         self.running_var.mul_(m).add_((1.0 - m) * unbiased)
 
 
-class Norm(nn.Module):
-    """Holder that pins the reference's ``Norm_0.BatchNorm_0`` path."""
+class GroupNorm(nn.Module):
+    """The reference's ``nn.GroupNorm(num_groups=min(32, C), dtype=compute,
+    param_dtype=float32)`` of flax 0.12, on NCHW, as plain tensor ops: per
+    sample and group of C/G contiguous channels, mean and mean square over
+    (C/G, H, W) in f32, variance E[x^2] - E[x]^2 clipped at 0, then
+    ``(x - mean) * (rsqrt(var + 1e-6) * weight) + bias`` in f32, rounded once
+    to x's dtype.  f32 parameters, no buffers.  A channel count the group
+    count does not divide raises, with flax's message."""
 
-    def __init__(self, features: int, momentum: float = 0.9):
+    def __init__(self, features: int, eps: float = 1e-6):
         super().__init__()
-        self.BatchNorm_0 = BatchNorm(features, momentum)
+        self.groups = min(32, features)
+        if features % self.groups:
+            raise ValueError(f"model.norm='groupnorm': Number of groups ({self.groups}) does "
+                             f"not divide the number of channels ({features}).")
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.BatchNorm_0(x)
+        n, c = x.shape[:2]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        grouped = xf.reshape(n, self.groups, -1)
+        mean = grouped.mean(-1)
+        var = torch.clamp((grouped * grouped).mean(-1) - mean * mean, min=0.0)
+        mean, var = (t.repeat_interleave(c // self.groups, 1)[:, :, None, None]
+                     for t in (mean, var))
+        mul = torch.rsqrt(var + self.eps) * self.weight[:, None, None]
+        return ((xf - mean) * mul + self.bias[:, None, None]).to(x.dtype)
+
+
+class Norm(nn.Module):
+    """Holder that pins the reference's ``Norm_0.BatchNorm_0`` or
+    ``Norm_0.GroupNorm_0`` path (``kind``)."""
+
+    def __init__(self, features: int, momentum: float = 0.9, kind: str = "batchnorm"):
+        super().__init__()
+        if kind == "batchnorm":
+            self.BatchNorm_0 = BatchNorm(features, momentum)
+        elif kind == "groupnorm":
+            self.GroupNorm_0 = GroupNorm(features)
+        else:
+            raise ValueError(f"unknown norm kind: {kind!r}")
+        self.kind = kind
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.BatchNorm_0(x) if self.kind == "batchnorm" else self.GroupNorm_0(x)
 
 
 class ConvNormAct(nn.Module):
-    """Conv -> BatchNorm -> (optional) ReLU.
+    """Conv -> Norm (BatchNorm, or GroupNorm: ``norm``) -> (optional) ReLU.
 
     With ``spatial`` (a mesh with a model axis, set by :func:`use_mesh`) the
     block is the reference's ``SpatialConv`` path: x is this model rank's H
@@ -173,10 +221,10 @@ class ConvNormAct(nn.Module):
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1,
                  act: bool = True, bn_momentum: float = 0.9,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16, norm: str = "batchnorm"):
         super().__init__()
         self.Conv_0 = Conv2d(cin, cout, k, stride, dilation, compute_dtype=compute_dtype)
-        self.Norm_0 = Norm(cout, bn_momentum)
+        self.Norm_0 = Norm(cout, bn_momentum, norm)
         self.act = act
 
     mesh: Optional[Mesh] = None
@@ -221,19 +269,22 @@ class StemSegment(nn.Module):
     ``PallasStemSegment``: the conv runs through ``ops.stem.stem_conv_bn``
     (kernels B and C on the card), the BatchNorm is folded from the
     kernel's own statistics (so the statistics' cotangent reaches kernel
-    C), then ReLU and the max-pool with -inf padding.  Any other impl runs
-    the plain conv + BatchNorm on the same parameters.  Same math either
-    way.  With a data ``mesh`` (:func:`use_mesh`) the kernel's statistics
-    are summed over ranks in training (``stem_conv_bn``'s mesh form)."""
+    C), then ReLU and the max-pool with -inf padding.  Any other impl, and
+    GroupNorm under any impl (no batch statistics to fold: the reference's
+    ``PallasStemSegment`` takes its plain path then too), runs the plain
+    conv + Norm on the same parameters.  Same math either way.  With a
+    data ``mesh`` (:func:`use_mesh`) the kernel's statistics are summed
+    over ranks in training (``stem_conv_bn``'s mesh form)."""
 
     mesh: Optional[Mesh] = None
 
     def __init__(self, features: int = 64, kernel: int = 7, bn_momentum: float = 0.9,
-                 compute_dtype: torch.dtype = torch.bfloat16, impl: str = "conv"):
+                 compute_dtype: torch.dtype = torch.bfloat16, impl: str = "conv",
+                 norm: str = "batchnorm"):
         super().__init__()
         self.Conv_0 = Conv2d(3, features, kernel, stride=2, compute_dtype=compute_dtype)
-        self.Norm_0 = Norm(features, bn_momentum)
-        self.impl = impl
+        self.Norm_0 = Norm(features, bn_momentum, norm)
+        self.impl = impl if norm == "batchnorm" else "conv"
 
     def forward(self, x_nhwc: torch.Tensor):
         dtype = self.Conv_0.compute_dtype

@@ -52,15 +52,16 @@ class SegModel(nn.Module):
                  aspp_dilations: Sequence[int] = (6, 12, 18), decoder_channels: int = 256,
                  stem_impl: str = "conv", remat: str = "", branch_conv: str = "xla",
                  head_fuse: str = "conv_first", hrnet_width: int = 48,
-                 hrnet_modules: Tuple[int, int, int] = (1, 4, 3)):
+                 hrnet_modules: Tuple[int, int, int] = (1, 4, 3), norm: str = "batchnorm"):
         super().__init__()
         self.compute_dtype = compute_dtype
-        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype)
+        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype, norm=norm)
         if backbone in ("resnet18", "resnet50", "resnet101"):
-            if remat not in ("", "none"):
-                raise NotImplementedError(f"model.remat={remat!r} is not yet ported for ResNet")
+            if remat not in ("", "none", "blocks"):
+                raise ValueError(f"model.remat={remat!r} is an HRNet-only plan; use 'blocks' "
+                                 f"or 'none' with backbone={backbone!r}")
             self.encoder = ResNet(backbone, output_stride if decoder == "deeplabv3plus" else 32,
-                                  stem_impl=stem_impl, **kw)
+                                  stem_impl=stem_impl, remat=remat == "blocks", **kw)
             chans = self.encoder.feature_channels[1:]
         elif backbone == "hrnet_w48":
             # 's2d' and 'pallas' stems are the reference's TPU formulations
@@ -120,8 +121,6 @@ def build_model(cfg: Config, seed: Optional[int] = None, mesh=None) -> SegModel:
     """The model of ``cfg`` with random weights from ``seed`` (default
     ``train.seed``), its layers on the data ``mesh`` (``parallel.mesh``)."""
     m = cfg.model
-    if m.norm != "batchnorm":
-        raise NotImplementedError(f"model.norm={m.norm!r} is not yet ported")
     # 's2d' is the reference's TPU-layout formulation of the same conv, and
     # so is fuse_impl='s2d' of HRNet's stride-2 convs: both map to the plain conv.
     stem_impl = "pallas" if m.stem_impl == "pallas" else "conv"
@@ -132,6 +131,7 @@ def build_model(cfg: Config, seed: Optional[int] = None, mesh=None) -> SegModel:
         decoder_channels=m.decoder_channels, stem_impl=stem_impl,
         remat="" if m.remat == "none" else m.remat, branch_conv=m.branch_conv,
         head_fuse=m.head_fuse, hrnet_width=m.hrnet_width, hrnet_modules=tuple(m.hrnet_modules),
+        norm=m.norm,
     )
     init_weights(model, cfg.train.seed if seed is None else seed)
     use_mesh(model, mesh)

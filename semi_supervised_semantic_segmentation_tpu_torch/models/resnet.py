@@ -19,7 +19,10 @@ import torch.nn.functional as F
 from semi_supervised_semantic_segmentation_tpu_torch.models.layers import (
     ConvNormAct,
     StemSegment,
+    checkpoint,
+    remat_active,
 )
+
 
 class BasicBlock(nn.Module):
     """Two 3x3 Conv-BN (stride and dilation on the first) with an identity
@@ -35,9 +38,9 @@ class BasicBlock(nn.Module):
 
     def __init__(self, cin: int, planes: int, stride: int = 1, dilation: int = 1,
                  downsample: bool = False, bn_momentum: float = 0.9,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16, norm: str = "batchnorm"):
         super().__init__()
-        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype)
+        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype, norm=norm)
         self.conv1 = ConvNormAct(cin, planes, 3, stride=stride, dilation=dilation, **kw)
         self.conv2 = ConvNormAct(planes, planes, 3, dilation=dilation, act=False, **kw)
         self.downsample = (ConvNormAct(cin, planes, 1, stride=stride, act=False, **kw)
@@ -60,9 +63,9 @@ class Bottleneck(nn.Module):
 
     def __init__(self, cin: int, planes: int, stride: int = 1, dilation: int = 1,
                  downsample: bool = False, bn_momentum: float = 0.9,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16, norm: str = "batchnorm"):
         super().__init__()
-        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype)
+        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype, norm=norm)
         out = planes * self.expansion
         self.conv1 = ConvNormAct(cin, planes, 1, **kw)
         self.conv2 = ConvNormAct(planes, planes, 3, stride=stride, dilation=dilation, **kw)
@@ -80,18 +83,22 @@ _SPECS = {"resnet18": (BasicBlock, (2, 2, 2, 2)), "resnet50": (Bottleneck, (3, 4
 
 
 class ResNet(nn.Module):
-    """ResNet encoder returning the taps c1..c5."""
+    """ResNet encoder returning the taps c1..c5.  ``remat`` (the
+    ``model.remat: blocks`` plan) checkpoints each residual block in
+    training, as the reference's ``nn.remat(block_cls)``; the stem stays
+    outside."""
 
     def __init__(self, arch: str = "resnet50", output_stride: int = 32,
                  bn_momentum: float = 0.9, compute_dtype: torch.dtype = torch.bfloat16,
-                 stem_impl: str = "conv"):
+                 stem_impl: str = "conv", norm: str = "batchnorm", remat: bool = False):
         super().__init__()
         if arch not in _SPECS:
             raise NotImplementedError(f"backbone {arch!r} is not yet ported")
         block, layers = _SPECS[arch]
         self.expansion = block.expansion
         self.output_stride = output_stride
-        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype)
+        self.remat = remat
+        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype, norm=norm)
         self.stem = StemSegment(64, 7, impl=stem_impl, **kw)
         strides = [1, 2, 2, 2]
         dilations = [1, 1, 1, 1]  # dilation of blocks 1.. of the stage
@@ -122,8 +129,10 @@ class ResNet(nn.Module):
     def forward(self, x_nhwc: torch.Tensor) -> Dict[str, torch.Tensor]:
         x, c1 = self.stem(x_nhwc)
         taps = {"c1": c1}
+        remat = self.remat and remat_active(self)
         for stage in range(4):
             for b in range(self.layers[stage]):
-                x = getattr(self, f"layer{stage + 1}_{b}")(x)
+                block = getattr(self, f"layer{stage + 1}_{b}")
+                x = checkpoint(block, x) if remat else block(x)
             taps[f"c{stage + 2}"] = x
         return taps

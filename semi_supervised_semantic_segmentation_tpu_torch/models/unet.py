@@ -22,9 +22,9 @@ from semi_supervised_semantic_segmentation_tpu_torch.ops.resize import resize_bi
 
 class DecoderBlock(nn.Module):
     def __init__(self, cin: int, features: int, bn_momentum: float = 0.9,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16, norm: str = "batchnorm"):
         super().__init__()
-        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype)
+        kw = dict(bn_momentum=bn_momentum, compute_dtype=compute_dtype, norm=norm)
         self.conv1 = ConvNormAct(cin, features, 3, **kw)
         self.conv2 = ConvNormAct(features, features, 3, **kw)
 
@@ -41,11 +41,11 @@ class UNetDecoder(nn.Module):
 
     def __init__(self, num_classes: int, in_channels: Sequence[int],
                  channels: Sequence[int] = (256, 128, 64, 32), bn_momentum: float = 0.9,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16, norm: str = "batchnorm"):
         super().__init__()
         cin = in_channels[4]
         for i, (ch, skip) in enumerate(zip(channels, in_channels[3::-1])):
-            setattr(self, f"up{i}", DecoderBlock(cin + skip, ch, bn_momentum, compute_dtype))
+            setattr(self, f"up{i}", DecoderBlock(cin + skip, ch, bn_momentum, compute_dtype, norm))
             cin = ch
         self.head = Conv2d(cin, num_classes, 1, bias=True, compute_dtype=compute_dtype)
 
