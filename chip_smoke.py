@@ -32,9 +32,17 @@ Phases; any failure exits non-zero and prints no result:
                 bit-equal to D's dx conv followed by ``pre_backward`` on the
                 card, twice on the same inputs, with the times of
                 ``pre_backward`` alone and of that unfused chain; E also twice
-                on the same inputs and through its synchronous fill (a
-                misaligned input) beside its asynchronous ring, all
-                bit-equal, with its tile plan and the registers ptxas gives it;
+                on the same inputs (bit-equal), with its plan and the
+                registers ptxas gives it: at C = 48 on conv_dw_kernel's
+                asynchronous ring and through its synchronous fill (a
+                misaligned input), bit-equal; at C = 96 on E96
+                (``conv_dw96_kernel``: clusters of 3 CTAs, x by TMA
+                multicast; counted by ``launches_c96``), beside
+                conv_dw_kernel<6> through the misaligned copy (its
+                synchronous fill, "old_kernel_ms") and on its ring
+                ("old_ring_ms"), dY bit-equal and dk within 1e-3 of E96's,
+                both also back to back in turns ("b2b_ms"), and E96's
+                stamps (``dw96_phases``);
  2b. D at eval -- D in ``pre`` mode at every shape config 5's shipped eval
                 gives it (each scale's windows of both views in one
                 batch: branch 0 at C = 48, branch 1 at C = 96), against its
@@ -62,10 +70,10 @@ Phases; any failure exits non-zero and prints no result:
                 (synthetic data, 4 + 4 images at 1024^2, HRNet-W48 + HRNetV2
                 head, ``branch_conv=pallas``, remat 'stages:3', OHEM) for a
                 few steps each: losses finite, each path's kernels launched
-                the derived number of times at every step (E on its
-                asynchronous ring every time; config 5's C = 96 branch convs
-                on D96 and its C = 48 ones on D48, post mode included, and
-                none on conv_fwd_kernel), time per step,
+                the derived number of times at every step (config 5's C =
+                96 branch convs on D96 and E96, its C = 48 ones on D48 and
+                E's ring, post mode included, none on conv_fwd_kernel; E's
+                counts derived from the model by ``e_launches``), time per step,
                 peak memory and a profile.  Each run ends in ``Trainer.fit``'s
                 evaluation (``train.epochs=1``), counted and measured apart
                 from training: the ``val`` record, wall seconds, val
@@ -122,7 +130,8 @@ Phases; any failure exits non-zero and prints no result:
                 within ``F32_GRAD0_LIMIT`` of one process's and, with each
                 of three planted faults (``planted_faults``), outside it;
                 the ranks' states bit-equal (sha256), A 1 / B 2 / C 1
-                (config 3) and D 448 / E 128 (config 5) per rank and step,
+                (config 3) and D 448 / E 128 (config 5: E96 64, the ring
+                64, from ``e_launches``) per rank and step,
                 collectives and bytes reduced, stream, kernel and wall ms
                 per step, kernel A with the other rank's partner row
                 against its plain version, the val pass's confusion matrix
@@ -139,7 +148,8 @@ Phases; any failure exits non-zero and prints no result:
                 val pass and rolling slot; (f) the steps alone), against one
                 process on the whole batch from the same weights: the loss
                 within ``DDP_LIMITS["config 5"]``, the ranks' states
-                bit-equal, D 448 / E 128 per rank and step, the collectives
+                bit-equal, D 448 / E 128 (E96 64, the ring 64) per rank and
+                step, the collectives
                 and bytes with the halo and ``gather_h`` launches apart (5
                 and 2 per step), the val pass's matrix, the OHEM threshold,
                 world rank 0's records alone, the peak memory per rank.
@@ -398,6 +408,7 @@ def main() -> None:
     kernels["branch_conv_fwd_c96"] = d_rows["N8_C96_128x128 pre+stats"]
     kernels["branch_conv_dx_post_c96"] = d_rows["N8_C96_128x128 post"]
     kernels["branch_conv_dw"] = e_rows["N8_C48_256x256 fuse+pre"]
+    kernels["branch_conv_dw_c96"] = e_rows["N8_C96_128x128 fuse+pre"]
 
     # ------------------------------------ 2b. D at config 5's eval shapes
     from semi_supervised_semantic_segmentation_tpu_torch.config import load_config
@@ -429,7 +440,9 @@ def main() -> None:
     # re-run by the checkpoint (64) + the dx convs (128), of which the 64 of
     # the convs with the input transform (each block's second) run in D's
     # post mode; the half of each at C = 96 (branch 1, W = 128) on D96, the
-    # other half at C = 48 (branch 0, W = 256) on D48; E: 128.
+    # other half at C = 48 (branch 0, W = 256) on D48; E: one per conv of
+    # the student's backward, at C = 96 on E96 and at C = 48 on the ring
+    # (e_launches: 64 and 64).
     # eval (8 val images, one batch, 6 scales, flip, sliding): each scale's
     # windows of both views in one forward, 128 D launches each, on the
     # kernel fwd_kernel picks for each eligible branch shape (phase 2b)
@@ -437,7 +450,7 @@ def main() -> None:
         counters,
         {**none, "branch_conv_fwd": 448, "branch_conv_dx_post": 64, "branch_conv_fwd_c96": 224,
          "branch_conv_dx_post_c96": 32, "branch_conv_fwd_c48": 224, "branch_conv_dx_post_c48": 32,
-         "branch_conv_dw": 128, "branch_conv_dw_async": 128},
+         **e_launches(cfg5, branch_conv)},
         steps=8, eval_expected={**none, **eval_d_launches(eval5_shapes, branch_conv, cfg5)})
     old_eval = eval5["branch_conv_fwd"] - eval5["branch_conv_fwd_c96"] - eval5["branch_conv_fwd_c48"]
     print(f"[slice] config 5 eval: conv_fwd_kernel launched {old_eval} times per val pass "
@@ -576,15 +589,21 @@ def main() -> None:
                                     "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:223"),
         "branch_conv_dw": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
                            "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:536"),
+        "branch_conv_dw_c96": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
+                               "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:536"),
     }
+    # the record's counter: branch_conv_dw is E at C = 48, conv_dw_kernel,
+    # which the path launches on its ring alone
+    counter = {"branch_conv_dw": "branch_conv_dw_async"}
     records = []
     for kname, (route, source, replaces) in meta.items():
         k = kernels[kname]
+        ck = counter.get(kname, kname)
         records.append({
             "name": kname, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[kname],
-            "launches_per_val_pass": sum(r[1][kname] for r in runs.values()),
-            "launches_by_config": by_config[kname],
+            "launches": launches[ck],
+            "launches_per_val_pass": sum(r[1][ck] for r in runs.values()),
+            "launches_by_config": by_config[ck],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
@@ -883,19 +902,32 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
         y, _ = bc.conv3x3_fwd_cuda(x, w)
         dY_lib = bc.fold_stats_cotangent(dy, y, ds)
         lib_dw = time_ms(lambda: torch.nn.grad.conv2d_weight(x, w.shape, dY_lib, padding=1))
-        plan = bc.dw_plan(c, h, h)
-        plan["ptxas"] = ptxas.get(f"conv_dw_kernel<{(c + 15) // 16}>", "not in the log")
+        e96 = bc.dw_c96(x.shape, (x.data_ptr(), dy.data_ptr(), y.data_ptr()))
+        check(e96 == (c == 96), f"E {tag}: dw_c96 is {e96}")
+        old_name = f"conv_dw_kernel<{(c + 15) // 16}>"
+        ename = "conv_dw96_kernel" if e96 else old_name
+        plan = bc.dw96_plan(c, h, h) if e96 else bc.dw_plan(c, h, h)
+        plan["ptxas"] = ptxas.get(ename, "not in the log")
         e_plans[tag] = plan
-        print(f"[kernel E plan] {tag}: {plan['rows']} dk rows per block, {plan['row_blocks']} "
-              f"block(s) per slab, tiles of {plan['tile_rows']}x32 pixels, "
-              f"{plan['stages']} ring stages, {plan['smem']} shared bytes, ptxas "
-              f"{plan['ptxas']}", flush=True)
+        if e96:
+            print(f"[kernel E96 plan] {tag}: clusters of {plan['cluster']} CTAs x "
+                  f"{plan['threads']} threads, {plan['clusters']} clusters at once, "
+                  f"{plan['stages']} ring stages, tiles of {plan['tile_rows']}x32 pixels, x boxes "
+                  f"of {plan['x_box_cols']} columns, {plan['smem']} shared bytes, ptxas "
+                  f"{plan['ptxas']}", flush=True)
+        else:
+            print(f"[kernel E plan] {tag}: {plan['rows']} dk rows per block, {plan['row_blocks']} "
+                  f"block(s) per slab, tiles of {plan['tile_rows']}x32 pixels, "
+                  f"{plan['stages']} ring stages, {plan['smem']} shared bytes, ptxas "
+                  f"{plan['ptxas']}", flush=True)
         xm = _misaligned(torch, x)
+        fe = bc.conv3x3_dw_cuda
         for mode, pre in (("fuse", ()), ("fuse+pre", (mul, add))):
-            ring0 = bc.conv3x3_dw_cuda.launches_async
+            counts0 = (fe.launches_async, fe.launches_c96)
             dk, dY = bc.conv3x3_dw_cuda(x, dy, y, ds, *pre)
-            check(bc.conv3x3_dw_cuda.launches_async == ring0 + 1,
-                  f"E {tag} {mode}: did not take the asynchronous ring")
+            check((fe.launches_async - counts0[0], fe.launches_c96 - counts0[1])
+                  == ((0, 1) if e96 else (1, 0)),
+                  f"E {tag} {mode}: did not take {'E96' if e96 else 'the asynchronous ring'}")
             dk2, dY2 = bc.conv3x3_dw_cuda(x, dy, y, ds, *pre)
             torch.cuda.synchronize()
             check(torch.equal(dk, dk2) and torch.equal(dY, dY2),
@@ -906,34 +938,121 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
             err = (dk - dkp).abs().max().item()
             check(err <= 1e-3 * dkp.abs().max().item(),
                   f"E {tag} {mode}: dk differs by {err} (max|dk| {dkp.abs().max().item()})")
-            ring0 = bc.conv3x3_dw_cuda.launches_async
+            counts0 = (fe.launches_async, fe.launches_c96)
             dks, dYs = bc.conv3x3_dw_cuda(xm, dy, y, ds, *pre)
             torch.cuda.synchronize()
-            check(bc.conv3x3_dw_cuda.launches_async == ring0,
-                  f"E {tag} {mode}: a misaligned input took the asynchronous ring")
-            # the same tiles through the same products: the same bits
-            check(torch.equal(dYs, dY) and torch.equal(dks, dk),
-                  f"E {tag} {mode}: the synchronous fill differs from the ring (dk by "
-                  f"{(dks - dk).abs().max().item()})")
+            check((fe.launches_async, fe.launches_c96) == counts0,
+                  f"E {tag} {mode}: a misaligned input took {'E96' if e96 else 'the ring'}")
+            if e96:
+                # conv_dw_kernel<6>'s synchronous fill, on its own slabs: the
+                # same dY, dk within f32 reordering
+                err_o = (dks - dk).abs().max().item()
+                check(torch.equal(dYs, dY) and err_o <= 1e-3 * dk.abs().max().item(),
+                      f"E {tag} {mode}: {old_name} on the misaligned copy differs from E96 (dk "
+                      f"by {err_o})")
+            else:
+                # the same tiles through the same products: the same bits
+                check(torch.equal(dYs, dY) and torch.equal(dks, dk),
+                      f"E {tag} {mode}: the synchronous fill differs from the ring (dk by "
+                      f"{(dks - dk).abs().max().item()})")
             row = {
+                "kernel": ename,
                 "ms": time_ms(lambda: bc.conv3x3_dw_cuda(x, dy, y, ds, *pre)),
                 "plain_ms": time_ms(lambda: bc.conv3x3_dw_plain(x, dy, y, ds, *pre)),
                 # the weight gradient alone: no fold, no transform
                 "library_ms": lib_dw,
                 "max_abs_err": err,
-                "sync_fill_ms": time_ms(lambda: bc.conv3x3_dw_cuda(xm, dy, y, ds, *pre)),
+                "plan": {k: v for k, v in plan.items() if k != "ptxas"},
+                "ptxas": plan["ptxas"],
             }
+            if e96:
+                # conv_dw_kernel<6> beside it: its synchronous fill through the
+                # misaligned copy (the path's old kernel for such an input),
+                # and its ring on the same aligned inputs, named to the
+                # launcher (the wrapper never takes it at C = 96)
+                dkr, dYr, _ = bc.conv3x3_dw_launch(x, dy, y, ds, *pre, kernel="ring")
+                torch.cuda.synchronize()
+                err_r = (dkr - dk).abs().max().item()
+                check(torch.equal(dYr, dY) and err_r <= 1e-3 * dk.abs().max().item(),
+                      f"E {tag} {mode}: {old_name}'s ring differs from E96 (dk by {err_r})")
+                row.update({
+                    "old_kernel": old_name,
+                    "old_kernel_ms": time_ms(lambda: bc.conv3x3_dw_cuda(xm, dy, y, ds, *pre)),
+                    "old_ring_ms": time_ms(lambda: bc.conv3x3_dw_launch(x, dy, y, ds, *pre,
+                                                                       kernel="ring")),
+                    # the device's own pace: launches queued back to back, in
+                    # turns (the single calls above carry the host's work)
+                    "b2b_ms": [back_to_back_ms(torch, lambda: bc.conv3x3_dw_launch(
+                        x, dy, y, ds, *pre, kernel=k)) for k in ("e96", "ring", "ring", "e96")],
+                    "old_dk_rel": err_o / dk.abs().max().item(),
+                    "phases": dw96_phases(torch, bc, x, dy, y, ds, pre),
+                })
+                bb = row["b2b_ms"]
+                row["faster_than_old"] = {
+                    "single call": row["ms"] < min(row["old_kernel_ms"], row["old_ring_ms"]),
+                    "back to back": max(bb[0], bb[3]) < min(bb[1], bb[2])}
+                del dkr, dYr
+            else:
+                row["sync_fill_ms"] = time_ms(lambda: bc.conv3x3_dw_cuda(xm, dy, y, ds, *pre))
             nbytes = 4 * act + ds.numel() * 4 + (2 * c * 4 if pre else 0) + w.numel() * 4
             row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf16_peak)
             e_rows[f"{tag} {mode}"] = row
-            print(f"[kernel E branch_conv_dw] {tag} {mode}: dY exact, max|ddk|={err:.3g} (max|dk| "
-                  f"{dkp.abs().max().item():.3g}), two launches bit-equal  kernel {row['ms']:.3f} "
-                  f"ms (synchronous fill {row['sync_fill_ms']:.3f} ms)  plain "
-                  f"{row['plain_ms']:.3f} ms  conv2d_weight {row['library_ms']:.3f} ms  bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+            if e96:
+                ph = row["phases"]
+                bb = row["b2b_ms"]
+                old_txt = (f"E96 {row['ms']:.3f} ms  {old_name}: ring {row['old_ring_ms']:.3f} ms, "
+                           f"back to back E96 {bb[0]:.4f}/{bb[3]:.4f} ms, ring {bb[1]:.4f}/"
+                           f"{bb[2]:.4f} ms, "
+                           f"synchronous fill (misaligned copy) {row['old_kernel_ms']:.3f} ms "
+                           f"(dk within {row['old_dk_rel']:.2g} of max|dk|); phases of the tile "
+                           f"loop {ph['share']}")
+            else:
+                old_txt = (f"kernel {row['ms']:.3f} ms (synchronous fill "
+                           f"{row['sync_fill_ms']:.3f} ms)")
+            print(f"[kernel E branch_conv_dw] {tag} {mode}: {ename} dY exact, max|ddk|={err:.3g} "
+                  f"(max|dk| {dkp.abs().max().item():.3g}), two launches bit-equal  {old_txt}  "
+                  f"plain {row['plain_ms']:.3f} ms  conv2d_weight {row['library_ms']:.3f} ms  "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
             del dk, dY, dk2, dY2, dkp, dYp, dks, dYs
         del x, xm, dy, y, dY_lib, old
     return d_rows, e_rows, e_plans, d_plans
+
+
+def back_to_back_ms(torch, fn, reps: int = 20) -> float:
+    """Mean ms of ``reps`` launches queued back to back between two events
+    (after one warm call): the device's own pace, no host gap between them."""
+    fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def dw96_phases(torch, bc, x, dy, y, ds, pre) -> dict:
+    """E96's phases in one launch, from its stamps (``bc.DW96_PHASES``):
+    thread 0's clock64 sums (mean per CTA, each one's share of the tile
+    loop, and staging and products per tile) and, on the global timer, the
+    mean microseconds per CTA before the tile loop, in it, storing the
+    partial and at the exit barrier, with the spread of the CTAs' ends."""
+    _, _, cyc = bc.conv3x3_dw_launch(x, dy, y, ds, *pre, kernel="e96", cycles=True)
+    torch.cuda.synchronize()
+    names = bc.DW96_PHASES
+    sums = dict(zip(names[:6], cyc[:, :6].double().mean(dim=0).tolist()))
+    tiles = x.shape[0] * (x.shape[2] // 4) * ((x.shape[3] + 31) // 32) / (cyc.shape[0] // 3)
+    loop = sums["tile loop"]
+    ns = cyc[:, 6:11].double() / 1e3
+    gaps = (ns[:, 1:] - ns[:, :-1]).mean(dim=0).tolist()
+    return {"ctas": cyc.shape[0], "tiles_per_cta": tiles, "mean_cycles": sums,
+            "share": {k: round(v / loop, 3) for k, v in sums.items() if k != "tile loop"},
+            "per_tile_cycles": {k: round(sums[k] / tiles) for k in (
+                "staging (transform, compose)", "products")},
+            "us_per_cta": dict(zip(("before the loop", "tile loop", "partial out", "exit barrier"),
+                                   [round(v, 2) for v in gaps])),
+            "end_spread_us": round((ns[:, 4].max() - ns[:, 4].min()).item(), 2)}
 
 
 def dx_post_row(torch, bc, tag, x, w, mul, add, dY, time_ms, bound, bf16_peak, lib_fwd, flops,
@@ -2238,6 +2357,7 @@ def synthetic_canvas_hw(hw):
 
 # lower-cased kernel-name fragments -> group, first match wins
 GROUPS = [
+    ("E at C = 96 (E96)", ("conv_dw96_kernel",)),
     ("D at C = 96 (D96 and its weight pack)", ("conv_fwd96_kernel", "pack_w_kernel<96>")),
     ("D at C = 48 (D48 and its weight pack)", ("conv_fwd48_kernel", "pack_w_kernel<48>")),
     ("stem kernels (B, C)", ("stem_fwd_kernel", "stem_dw_kernel", "reduce_partials_kernel")),
@@ -2318,8 +2438,9 @@ NCCL_STEPS = 8
 def ddp_counters(stem, branch_conv, cmn) -> dict:
     """name -> (wrapper, counter attribute); "branch_conv_dx_post" counts D's
     post-mode launches (also in D's "launches"), "..._c96" / "..._c48" those
-    of them on D96 / D48, "branch_conv_dw_async" E's launches on its
-    asynchronous ring."""
+    of them on D96 / D48, "branch_conv_dw_async" E's launches on
+    conv_dw_kernel's asynchronous ring, "branch_conv_dw_c96" E's on E96
+    (both also in E's "launches")."""
     return {"cutmix_normalize": (cmn.cutmix_normalize_triton, "launches"),
             "stem_fwd": (stem.stem_fwd_cuda, "launches"),
             "stem_dw": (stem.stem_dw_cuda, "launches"),
@@ -2330,18 +2451,64 @@ def ddp_counters(stem, branch_conv, cmn) -> dict:
             "branch_conv_fwd_c48": (branch_conv.conv3x3_fwd_cuda, "launches_c48"),
             "branch_conv_dx_post_c48": (branch_conv.conv3x3_fwd_cuda, "launches_c48_post"),
             "branch_conv_dw": (branch_conv.conv3x3_dw_cuda, "launches"),
-            "branch_conv_dw_async": (branch_conv.conv3x3_dw_cuda, "launches_async")}
+            "branch_conv_dw_async": (branch_conv.conv3x3_dw_cuda, "launches_async"),
+            "branch_conv_dw_c96": (branch_conv.conv3x3_dw_cuda, "launches_c96")}
 
 
 # expected launches per training step of each slice the ddp phase runs
-# (each rank launches as many as one process, each launch on its rows)
+# (each rank launches as many as one process, each launch on its rows);
+# config 5's E launches come from its model (step_expected)
 DDP_EXPECTED = {
     "config 3": {"cutmix_normalize": 1, "stem_fwd": 2, "stem_dw": 1},
     "config 5": {"branch_conv_fwd": 448, "branch_conv_dx_post": 64, "branch_conv_fwd_c96": 224,
                  "branch_conv_dx_post_c96": 32, "branch_conv_fwd_c48": 224,
-                 "branch_conv_dx_post_c48": 32, "branch_conv_dw": 128,
-                 "branch_conv_dw_async": 128},
+                 "branch_conv_dx_post_c48": 32},
 }
+
+
+def e_launches(cfg, bc) -> dict:
+    """Kernel E's launches per training step of an HRNet config, derived
+    from the model: each HRModule of stages 2-4 runs ``num_blocks``
+    BasicBlocks (HRModule's default, which HRNet keeps) of two fused 3x3
+    convs on every branch the fused flow takes (``bc.supported`` at the
+    branch's side for the training crop: the stem's stride 4, then 2 per
+    branch), and the student's one backward a step launches E once per
+    conv (the teacher's forward and the checkpoint's re-run launch none).
+    Each runs on E96 where ``bc.dw_c96`` takes the branch's shape (torch's
+    allocations are 16-byte aligned), else on conv_dw_kernel's ring.  The
+    batch and a model axis (which shards the stem alone) change neither."""
+    import inspect
+
+    from semi_supervised_semantic_segmentation_tpu_torch.models.hrnet import HRModule
+
+    blocks = inspect.signature(HRModule).parameters["num_blocks"].default
+    widths = [cfg.model.hrnet_width * 2 ** i for i in range(4)]
+    out = {"branch_conv_dw": 0, "branch_conv_dw_async": 0, "branch_conv_dw_c96": 0}
+    for stage, modules in zip((2, 3, 4), cfg.model.hrnet_modules):
+        for i in range(stage):
+            side = cfg.data.crop_size // 4 // 2 ** i
+            shape = (1, widths[i], side, side)
+            if not bc.supported(shape, widths[i], widths[i]):
+                continue
+            kern = "branch_conv_dw_c96" if bc.dw_c96(shape, (0, 0, 0, 0)) else \
+                "branch_conv_dw_async"
+            out[kern] += modules * blocks * 2
+            out["branch_conv_dw"] += modules * blocks * 2
+    return out
+
+
+def step_expected(label: str) -> dict:
+    """Launches per training step of the ddp and spatial phases' slice
+    ``label`` on each rank: :data:`DDP_EXPECTED`, with config 5's E
+    launches from :func:`e_launches` on the slice's config."""
+    from semi_supervised_semantic_segmentation_tpu_torch.config import load_config
+    from semi_supervised_semantic_segmentation_tpu_torch.ops import branch_conv as bc
+
+    out = dict(DDP_EXPECTED[label])
+    if label == "config 5":
+        path, overrides, _ = DDP_SLICES[label]
+        out.update(e_launches(load_config(path, {"data.dataset": "synthetic", **overrides}), bc))
+    return out
 
 
 def _free_port() -> int:
@@ -2985,7 +3152,7 @@ def ddp_compare(torch, job: str, label: str, counters: dict) -> dict:
     reading, control = readings(ranks[0], vec), readings(ctrl, ctrl_vec)
     again_reading = readings(again, again_vec)
     lim = DDP_LIMITS[label]
-    expected = {k: DDP_EXPECTED[label].get(k, 0) for k in counters}
+    expected = {k: step_expected(label).get(k, 0) for k in counters}
     for r in ranks:
         for i, s in enumerate(r["steps"]):
             got = {k: s["launches"].get(k, 0) for k in counters}
@@ -3224,7 +3391,7 @@ def spatial_compare(torch, job: str, ranks: list, seconds: float, one: dict, one
     if any(r is None for r in ranks):
         return out
     vec = torch.load(os.path.join(REPO, "build", f"ddp_{job}_rank0.json.pt"))
-    expected = {k: DDP_EXPECTED["config 5"].get(k, 0) for k in counters}
+    expected = {k: step_expected("config 5").get(k, 0) for k in counters}
     for r in ranks:
         check(r["mesh"] == {"data": d, "model": 2}, f"spatial {label}: mesh {r['mesh']}")
         for i, s in enumerate(r["steps"]):

@@ -92,6 +92,48 @@
 //      tiles; each composes and writes only its own rows of dY, so no two
 //      blocks compose the same dY.  Each slab writes one [Cp][9Cp] partial
 //      and a second kernel sums them in a fixed order into OIHW dk.
+//   E96 (conv_dw96_kernel, E at Cp = 96 with W % 8 == 0 and x, dy, y, dY
+//      16-byte aligned; the wrapper picks it, conv_dw_kernel serves every
+//      other shape): a slab is one cluster of 3 CTAs on 3 SMs, each owning 32
+//      of dk's rows and all 864 columns, walking the slab's tiles in the same
+//      order.  x arrives by TMA from a 4-D tensor map [N,C,H,W]: each CTA
+//      loads its third of the channels (a 48 x 6 x 32 box, columns ox0-8 ..
+//      ox0+39: a box's first column must sit on 16 bytes, so the halo costs
+//      the ring's 1.5 x in columns) multicast to all three, so L2 serves each
+//      x tile once per cluster, not once per CTA (~57 MB a [8,96,128,128]
+//      call against ~170); dy comes as one 32 x 4 x 32 box per CTA for its
+//      own rows.  The x boxes land in dw_issue's raw layout; the hardware's
+//      zero fill outside the image is not relu(add), so the transform's
+//      position masks stay.  A ring of NS96 stages on mbarriers: a stage's
+//      "full" barrier expects the 55,296 multicast bytes and the CTA's 8,192
+//      dy bytes; its "empty" barrier counts one arrival from each CTA of the
+//      cluster, so a CTA multicasts into a stage only after all three have
+//      released it.  Lane 0 of warp 7, whose share of the products is the
+//      smallest, issues the loads a tile ahead (with a ninth, producer warp
+//      ptxas allots fewer registers than the product loop needs and spills;
+//      warp 0 issuing delayed every block barrier).  The 8 warps load y
+//      (fuse) into registers ahead of the stage, transform x (dw96_transform:
+//      8 loads of 8 bytes for 4 pixels of 8 channels, against dw_transform's
+//      32 loads of 2 bytes, two such quads in flight a thread, transposed by
+//      byte permutes) and compose dY (into a skewed operand tile, so ldmatrix
+//      stays conflict-free) into one of two operand buffers, meet at one
+//      block barrier per tile, release the stage and run E's product loop
+//      (dw96_products: the next k-step's fragments loaded during this one's
+//      MMAs); the next tile's staging needs no barrier behind those products.
+//      The partial goes out through shared memory in 16-byte row chunks.
+//      Tried on the card and dropped, each no faster as a whole: staging tile
+//      i+1 between the k-steps of tile i's products (they overlapped, but at
+//      255 registers the products slowed); two warp groups taking the phases
+//      in opposite orders (the products sped up, the staging slowed); and the
+//      products as wgmma m64n32k16 on the transposed GEMM (A, x, from
+//      registers by ldmatrix; B, dY, by descriptor from core matrices: the
+//      products sped up, the staging and the barrier slowed).  Shared bytes:
+//      2 stages x 63,488 (raw x 55,296, dy 8,192) + 2 x 42,432 (x operand) +
+//      2 x 8,704 (dY operand) + 640 (ds, pre) + 120 (barriers, phase clocks)
+//      + 128 (alignment) = 230,136: y in the ring, or 40-column boxes, would
+//      not fit beside the two operand buffers.  Bound per [8,96,128,128]
+//      call: ~101 MB (x, dy, y read, dY written; ~30 us) against 21.7 GFLOP
+//      (~22 us): bytes.
 // What bounds it: D moves ~100 MB and does 21.7 GFLOP per [8,48,256,256]
 // call (bound ~30 us, bytes).  E reads x, dy, y and writes dY: ~201 MB per
 // [8,48,256,256] call (~60 us) and ~101 MB per [8,96,128,128] call (~30
@@ -111,11 +153,18 @@
 // aligned) keep a synchronous fill inside the same kernel; the wrapper
 // picks the path from the shape and the pointers.  What still holds E
 // above its bound: the cp.async copies (16 bytes each, 1.5 x the rows and
-// 1.5 x the columns of x for the halo, x once per row block at C = 96)
-// and the block's phases (copy wait, transform, compose, products)
-// following one another between barriers; products stay mma.sync, not
-// wgmma.
+// 1.5 x the columns of x for the halo, x once per row block where no
+// cluster shares it) and the block's phases (copy wait, transform,
+// compose, products) following one another between barriers; products
+// stay mma.sync, not wgmma (E96: 32 dk rows per CTA against wgmma's 64,
+// and a tap is a 1-pixel shift along K, which its core-matrix layout does
+// not take).  What still holds E96 above its bound: every CTA of a
+// cluster stages the whole x tile (the transform is done 3 times, once
+// per 32 rows of dk), and each CTA's staging and products follow one
+// another (about 2 : 3 of its tile loop); 39 clusters of 3 fit on the
+// card's GPCs, so 15 SMs stay idle.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encode call is looked up at run time
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -844,10 +893,12 @@ __global__ void pack_w_kernel(const float* __restrict__ w, bf16* __restrict__ wp
   wp[e] = __float2bfloat16(v);
 }
 
-// A ring stage's barrier: one arrival (the issuing thread's, with the
-// slab's byte count) per use; the bulk copy completes the bytes.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_addr(bar)) : "memory");
+// A ring stage's barrier: count arrivals per phase (D96's and D48's: one,
+// the issuing thread's, with the slab's byte count; the bulk copy
+// completes the bytes).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
+               : "memory");
 }
 
 // One tap's packed weights (a contiguous slab) -> a weight ring stage, as
@@ -1360,6 +1411,478 @@ conv_fwd48_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
 }
 
 // ---------------------------------------------------------------------------
+// E96: kernel E at Cp = 96, a cluster of 3 CTAs per slab, x by TMA multicast
+// ---------------------------------------------------------------------------
+//
+// Replaces, at channels that pad to 96 (HRNet-W48's branch 1), the TPU
+// kernel E replaces: pallas_conv.py:536 _conv3x3_dw_impl (-> _dw_kernel_dyroll).
+// The design and its shared-memory budget are in the note at the top (E96).
+
+#define NS96 2                             // ring stages
+#define CL96 3                             // CTAs per cluster (slab)
+#define XBOX96 (32 * (ETH + 2) * XRW)      // one CTA's x box [32 ch][6][48] (elements)
+#define XST96 (CL96 * XBOX96)              // a stage's raw x, all 96 channels
+#define DYBOX96 (32 * EPIX)                // a CTA's dy box [32 rows][4][32]
+#define STG96 (XST96 + DYBOX96)            // one ring stage (elements)
+#define OPX96 ((ETH + 2) * HW2 * CPS96)    // one transformed x operand tile
+#define OPD96 (32 * DST)                   // one dY operand tile
+#define NCY96 11                           // phase sums and stamps per CTA
+#define PST96 (9 * CP96 + 8)               // the partial's staging row (floats; skewed)
+#define DW96_SMEM                                                                   \
+  (128 + (NS96 * STG96 + 2 * OPX96 + 2 * OPD96) * 2 + 2 * 32 * 4 + 2 * CP96 * 2 + \
+   2 * NS96 * 8 + NCY96 * 8)
+#define TMAP_ERR 10000  // + the CUresult of a tensor-map encode that failed
+
+__device__ __forceinline__ long long globaltimer_ns() {
+  long long v;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(v));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster (release / acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// One arrival on the barrier at bar's offset in CTA cta of the cluster,
+// releasing this thread's (and, after a block barrier, its CTA's) reads.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n"
+      :: "r"(smem_addr(bar)), "r"(cta) : "memory");
+}
+
+// E96's waits for a barrier phase of this parity (cluster: with
+// cluster-scope acquire, for arrivals from other CTAs).  A wait that has
+// not ended after WAIT_LIMIT cycles (~10 s) traps, so a fault in the ring's
+// protocol ends the launch with an error instead of hanging the card.
+#define WAIT_LIMIT 20000000000LL
+template <bool CLUSTER>
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    if constexpr (CLUSTER)
+      asm volatile("{\n.reg .pred P1;\n"
+                   "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%1], %2;\n"
+                   "selp.b32 %0, 1, 0, P1;\n}\n"
+                   : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    else
+      asm volatile("{\n.reg .pred P1;\n"
+                   "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+                   "selp.b32 %0, 1, 0, P1;\n}\n"
+                   : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > WAIT_LIMIT) __trap();
+  }
+}
+
+// A box of a 4-D tensor map at coordinates (c0 innermost) -> this CTA's
+// shared memory, completing on bar.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// The same box multicast: it lands at dst's offset in every CTA of mask,
+// completing on the barrier at bar's offset in each.
+__device__ __forceinline__ void tma_load_4d_mc(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                               int c0, int c1, int c2, int c3, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6, %7}], [%2], %3;\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+         "h"(mask), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// Per-lane ldmatrix B offsets (bytes, from the operand tile's start), fixed
+// for a kernel: the warp's n8 tiles q = warp*NW + j in pairs, one
+// ldmatrix.x4.trans per pair (lanes 0-15 address tile j, lanes 16-31 tile
+// j+1): pixel row b_k of tap (kh, kw), channels ci0..ci0+7.  Tiles past
+// the last (q >= N8) load tile N8-1 and are not multiplied.
+template <int K16, int NW = dw_nw(K16)>
+__device__ __forceinline__ void dw_b_offsets(uint32_t (&b_off)[(NW + 1) / 2], int warp,
+                                             int lane) {
+  constexpr int CP = 16 * K16, CPS = CP + 8, N8 = 9 * CP / 8, CP8 = CP / 8;
+  const int b_k = (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int pp = 0; pp < (NW + 1) / 2; ++pp) {
+    const int q = min(warp * NW + 2 * pp + (lane >> 4), N8 - 1);
+    const int tap = q / CP8, ci0 = (q - tap * CP8) * 8;
+    const int kh = tap / 3, kw = tap - kh * 3;
+    b_off[pp] = ((kh * HW2 + b_k + kw) * CPS + ci0) * 2;
+  }
+}
+
+// E96's products of one tile: dw_products' sums in its order (the same
+// bits), with the fragments of k-step q+1 loaded while k-step q's MMAs run
+// (two register sets), so ldmatrix's latency is not paid once per k-step.
+template <int K16, int MT = dw_mt(K16), int NW = dw_nw(K16)>
+__device__ __forceinline__ void dw96_products(float (&acc)[MT][NW][4], uint32_t a_base,
+                                              uint32_t b_base,
+                                              const uint32_t (&b_off)[(NW + 1) / 2], int nj) {
+  constexpr int CPS = 16 * K16 + 8, NP = (NW + 1) / 2, KS = EPIX / 16;
+  uint32_t af[2][MT][4], bfr[2][2 * NP][2];
+  auto load = [&](int q, uint32_t (&a)[MT][4], uint32_t (&bb)[2 * NP][2]) {
+    const int kc = q * 16, r = kc / TW, c0 = kc - r * TW;
+    const uint32_t b_step = b_base + (r * HW2 + c0) * CPS * 2;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) ldsm_x4(a[m], a_base + (m * 16 * DST + kc) * 2);
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp) {
+      if (2 * pp + 1 < NW) {
+        uint32_t b4[4];
+        ldsm_x4_trans(b4, b_off[pp] + b_step);
+        bb[2 * pp][0] = b4[0]; bb[2 * pp][1] = b4[1];
+        bb[2 * pp + 1][0] = b4[2]; bb[2 * pp + 1][1] = b4[3];
+      } else {
+        ldsm_x2_trans(bb[2 * pp], b_off[pp] + b_step);
+      }
+    }
+  };
+  load(0, af[0], bfr[0]);
+#pragma unroll
+  for (int q = 0; q < KS; ++q) {
+    if (q + 1 < KS) load(q + 1, af[(q + 1) & 1], bfr[(q + 1) & 1]);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      if (j < nj) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m) mma_bf16(acc[m][j], af[q & 1][m], bfr[q & 1][j]);
+      }
+    }
+  }
+}
+
+// E96's transform: dw_transform's function (the staged raw x -> the
+// operand tile, positions masked, pre's packed bf16 arithmetic, the same
+// bits) with 8-byte loads.  A quad is 4 pixels (c = 4k+1 .. 4k+4: raw
+// columns 4k+8 .. 4k+11, 8-byte aligned) of 8 channels: 8 loads transposed
+// in registers by byte permutes into 4 pixel vectors; a thread takes two
+// quads at a time, their 16 loads in flight together.  The tile's first
+// and last columns (c = 0, 33) are single pixels.  A warp's quads are
+// consecutive in a (channel group, row), so its loads are contiguous.
+#define XQUADS96 ((CP96 / 8) * (ETH + 2) * ((HW2 - 2) / 4))  // 576 a tile
+#define XSINGLES96 ((CP96 / 8) * (ETH + 2) * 2)              // 144 a tile
+__device__ __forceinline__ void dw96_transform(bf16* xop, const bf16* raw, const bf16* pmb,
+                                               bool pre, const Geo& g, int oy0, int ox0) {
+  constexpr int XR = ETH + 2, QPR = (HW2 - 2) / 4;
+  static_assert((HW2 - 2) % 4 == 0, "E96's transform: quads of pixels");
+  const uint16_t* rw = reinterpret_cast<const uint16_t*>(raw);
+  // pre, then the masks (the zero-filled raw would give relu(add)); one
+  // pixel vector of channels grp*8 .. grp*8+7 to pixel (r, c)
+  // a group's pre (bf16 mul, add) and channel masks (channels >= C are 0)
+  struct Group {
+    uint4 m4, a4;
+    uint32_t keep[4];
+  };
+  auto group = [&](Group& gr, int grp) {
+    gr.m4 = make_uint4(0, 0, 0, 0);
+    gr.a4 = gr.m4;
+    if (pre) {
+      gr.m4 = *reinterpret_cast<const uint4*>(&pmb[grp * 8]);
+      gr.a4 = *reinterpret_cast<const uint4*>(&pmb[CP96 + grp * 8]);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int ci = grp * 8 + 2 * jj;
+      gr.keep[jj] = (ci < g.C ? 0xffffu : 0u) | (ci + 1 < g.C ? 0xffff0000u : 0u);
+    }
+  };
+  auto finish = [&](uint32_t (&w)[4], const Group& gr, int grp, int r, int c) {
+    const int iy = oy0 - 1 + r, ix = ox0 - 1 + c;
+    const uint32_t in = iy >= 0 && iy < g.H && ix >= 0 && ix < g.W ? 0xffffffffu : 0u;
+    if (pre) {
+      w[0] = pre2(w[0], gr.m4.x, gr.a4.x);
+      w[1] = pre2(w[1], gr.m4.y, gr.a4.y);
+      w[2] = pre2(w[2], gr.m4.z, gr.a4.z);
+      w[3] = pre2(w[3], gr.m4.w, gr.a4.w);
+    }
+    *reinterpret_cast<uint4*>(&xop[(r * HW2 + c) * CPS96 + grp * 8]) =
+        make_uint4(w[0] & gr.keep[0] & in, w[1] & gr.keep[1] & in, w[2] & gr.keep[2] & in,
+                   w[3] & gr.keep[3] & in);
+  };
+  for (int e0 = threadIdx.x; e0 < XQUADS96; e0 += 2 * NT) {
+    uint2 v[2][8];
+    int grp[2], r[2], c[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = min(e0 + u * NT, XQUADS96 - 1);  // a thread past the end reloads the last
+      grp[u] = e / (XR * QPR);
+      const int rem = e - grp[u] * (XR * QPR);
+      r[u] = rem / QPR;
+      c[u] = 4 * (rem - r[u] * QPR) + 1;
+      const uint16_t* src = rw + (grp[u] * 8 * XR + r[u]) * XRW + 7 + c[u];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[u][j] = *reinterpret_cast<const uint2*>(src + j * XR * XRW);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (e0 + u * NT >= XQUADS96) break;
+      Group gr;
+      group(gr, grp[u]);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const uint32_t sel = (m & 1) ? 0x7632u : 0x5410u;  // high or low halves
+        uint32_t w[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          w[jj] = __byte_perm(m < 2 ? v[u][2 * jj].x : v[u][2 * jj].y,
+                              m < 2 ? v[u][2 * jj + 1].x : v[u][2 * jj + 1].y, sel);
+        finish(w, gr, grp[u], r[u], c[u] + m);
+      }
+    }
+  }
+  for (int e = threadIdx.x; e < XSINGLES96; e += NT) {
+    const int grp = e / (XR * 2), rem = e - grp * (XR * 2), r = rem >> 1;
+    const int c = (rem & 1) ? HW2 - 1 : 0;
+    const uint16_t* src = rw + (grp * 8 * XR + r) * XRW + 7 + c;
+    uint32_t w[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      w[jj] = (uint32_t)src[2 * jj * XR * XRW] | ((uint32_t)src[(2 * jj + 1) * XR * XRW] << 16);
+    Group gr;
+    group(gr, grp);
+    finish(w, gr, grp, r, c);
+  }
+}
+
+// E96's y for a tile's dY (fuse): thread tid's 16-byte chunks tid, tid +
+// NTH, ... of the CTA's 32 rows x 128 pixels (0 outside the image and past
+// C), loaded before the tile's stage is waited for, so their latency
+// hides behind that wait and the transform.
+#define DCH96 (32 * EPIX / 8)  // 16-byte chunks of a tile's dY rows
+template <int NTH>
+__device__ __forceinline__ void dw96_load_y(uint4 (&yv)[DCH96 / NTH], const bf16* __restrict__ y,
+                                            const Geo& g, int co_base, int n, int oy0, int ox0,
+                                            int tid) {
+#pragma unroll
+  for (int u = 0; u < DCH96 / NTH; ++u) {
+    const int e = tid + u * NTH, co = e / (EPIX / 8), k = e - co * (EPIX / 8);
+    const int r = k / (TW / 8), c = (k - r * (TW / 8)) * 8;
+    const int cog = co_base + co, ox = ox0 + c;
+    yv[u] = make_uint4(0, 0, 0, 0);
+    if (cog < g.C && ox < g.W)
+      yv[u] = *reinterpret_cast<const uint4*>(
+          &y[(((size_t)n * g.C + cog) * g.H + oy0 + r) * g.W + ox]);
+  }
+}
+
+// E96's dY operand of a tile: the dense dy box [32 rows][EPIX] -> the
+// skewed operand dop [32 rows][DST] (so ldmatrix stays conflict-free),
+// with fuse the stats cotangent folded in from yv and dY written out with
+// 16-byte stores; positions as dw_compose (rows >= C and pixels at ox >= W
+// are 0 in the operand and not written out).  Thread tid takes the
+// chunks of dw96_load_y.
+template <int NTH>
+__device__ __forceinline__ void dw96_compose(bf16* dop, const bf16* dys,
+                                             const uint4 (&yv)[DCH96 / NTH], const float* dss,
+                                             bf16* __restrict__ dY, const Geo& g, int fuse,
+                                             int co_base, int n, int oy0, int ox0, int tid) {
+#pragma unroll
+  for (int u = 0; u < DCH96 / NTH; ++u) {
+    const int e = tid + u * NTH, co = e / (EPIX / 8), k = e - co * (EPIX / 8);
+    const int r = k / (TW / 8), c = (k - r * (TW / 8)) * 8;
+    const int cog = co_base + co, ox = ox0 + c;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (cog < g.C && ox < g.W) {
+      v = *reinterpret_cast<const uint4*>(&dys[co * EPIX + r * TW + c]);
+      if (fuse) {
+        const float s0 = dss[co], s1 = dss[32 + co];
+        v = make_uint4(fold2(v.x, yv[u].x, s0, s1), fold2(v.y, yv[u].y, s0, s1),
+                       fold2(v.z, yv[u].z, s0, s1), fold2(v.w, yv[u].w, s0, s1));
+        *reinterpret_cast<uint4*>(&dY[(((size_t)n * g.C + cog) * g.H + oy0 + r) * g.W + ox]) = v;
+      }
+    }
+    *reinterpret_cast<uint4*>(&dop[co * DST + r * TW + c]) = v;
+  }
+}
+
+// blockIdx.x = 3 * slab + rank; the 3 CTAs of a cluster walk the tiles slab,
+// slab + nslab, ...  Tile i sits in stage i % 2 and is staged into operand
+// buffer i % 2.  The producer thread (lane 0 of warp 7) waits at the top of
+// tile i until all three CTAs have released stage (i + 1) % 2 (tile i-1)
+// and issues tile i + 1 into it, so those loads have tile i's staging and
+// products to land.  tmx: x [N,C,H,W] bf16, box {48, 6, 32, 1} (a box's
+// first column must sit on 16 bytes: ox0 - 8); tmdy: dy, box {32, 4, 32,
+// 1}; y (fuse) is read by the threads.  cycles (or null): [gridDim.x]
+// [NCY96] clock64 sums: thread 0 waiting for a stage, staging, the block
+// barrier, products, the whole tile loop; the producer waiting for a
+// release and issuing; on the global timer (ns): the CTA's start, the tile
+// loop's start and end, the partials stored, the CTA's end.
+__global__ void __launch_bounds__(NT, 1)
+conv_dw96_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmdy,
+                 const bf16* __restrict__ y, const float* __restrict__ ds,
+                 const float* __restrict__ mul, const float* __restrict__ add,
+                 bf16* __restrict__ dY, float* __restrict__ partial,
+                 long long* __restrict__ cycles, Geo g, int pre, int fuse) {
+  constexpr int K16 = CP96 / 16, MT = dw_mt(K16), NW = dw_nw(K16), ROWS = 16 * MT;
+  constexpr int N8 = 9 * CP96 / 8, NP = (NW + 1) / 2;
+  static_assert(CL96 * ROWS == CP96 && dw_nw(K16) * 8 >= N8, "E96's plan");
+  static_assert(DW96_SMEM <= SMEM_MAX, "E96's shared memory");
+  static_assert(32 * PST96 * 4 <= NS96 * STG96 * 2, "E96's partial fits in the ring");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // TMA boxes land at 128-byte aligned offsets, the same in every CTA
+  unsigned char* base = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
+  bf16* ring = reinterpret_cast<bf16*>(base);                      // [NS96][STG96]
+  bf16* xop = ring + NS96 * STG96;                                  // [2][OPX96]
+  bf16* dop = xop + 2 * OPX96;                                      // [2][OPD96]
+  float* dss = reinterpret_cast<float*>(dop + 2 * OPD96);           // [2][ROWS]
+  bf16* pmb = reinterpret_cast<bf16*>(dss + 2 * ROWS);              // [2][Cp]
+  uint64_t* full = reinterpret_cast<uint64_t*>(pmb + 2 * CP96);     // [NS96]
+  uint64_t* empty = full + NS96;                                    // [NS96]
+  long long* cyc = reinterpret_cast<long long*>(empty + NS96);      // [NCY96]
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const long long t_start = globaltimer_ns();
+  const uint32_t rank = cluster_rank();
+  const int slab = blockIdx.x / CL96, nslab = gridDim.x / CL96;
+  const int co_base = rank * ROWS, C = g.C;
+  // thread 0's phase sums go straight to shared memory: no registers held
+  // across the loop
+  const bool stamp = cycles != nullptr, st0 = stamp && t == 0;
+  for (int e = t; e < 2 * ROWS; e += NT) {
+    const int which = e / ROWS, co = co_base + e - which * ROWS;
+    dss[e] = (fuse && co < C) ? ds[which * C + co] : 0.f;
+  }
+  for (int e = t; e < 2 * CP96; e += NT) {
+    const int which = e / CP96, ci = e - which * CP96;
+    pmb[e] = __float2bfloat16((pre && ci < C) ? (which ? add : mul)[ci] : 0.f);
+  }
+  if (t < NCY96) cyc[t] = 0;
+  if (t == 0) {
+    for (int k = 0; k < NS96; ++k) {
+      mbar_init(&full[k]);              // the producer's arrival (+ the stage's bytes)
+      mbar_init(&empty[k], CL96);       // one release from each CTA of the cluster
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  cluster_sync();  // every CTA's barriers are initialised before a copy reaches them
+
+  const int ntl = (g.ntiles - slab + nslab - 1) / nslab;  // this slab's tiles
+  // The producer, lane 0 of the last warp (its share of the products is
+  // the smallest: 10 of the 108 n8 tiles, against 14): tile j into stage
+  // j % NS96 -- this CTA's third of x to all three CTAs, its dy to itself
+  // alone.  A TMA issue can hold its thread for a while; warp 0 issuing
+  // made every block barrier wait for it.
+  const int prod = NT - 32;
+  auto issue = [&](int j) {
+    int n, oy0, ox0;
+    dw_tile_coords(g, slab + j * nslab, n, oy0, ox0);
+    bf16* st = ring + (j % NS96) * STG96;
+    uint64_t* bar = &full[j % NS96];
+    mbar_arrive_expect_tx(bar, STG96 * 2);
+    tma_load_4d_mc(st + rank * XBOX96, &tmx, bar, ox0 - 8, oy0 - 1, co_base, n,
+                   (uint16_t)((1u << CL96) - 1));
+    tma_load_4d(st + XST96, &tmdy, bar, ox0, oy0, co_base, n);
+  };
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
+  const uint32_t a_off = (a_row * DST + a_col) * 2;
+  const int nj = N8 - warp * NW;
+  uint32_t b_off[NP];
+  dw_b_offsets<K16>(b_off, warp, lane);
+  float acc[MT][NW][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NW; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
+  if (st0) {
+    cyc[4] = -clock64();
+    cyc[7] = globaltimer_ns();
+  }
+  if (t == prod && ntl > 0) issue(0);
+  for (int i = 0; i < ntl; ++i) {
+    const int j = i + 1;
+    if (t == prod && j < ntl) {
+      const long long c0 = stamp ? clock64() : 0;
+      if (j >= NS96)  // stage j % 2's previous tile released by all three CTAs
+        mbar_wait_bounded<true>(&empty[j % NS96], (j / NS96 - 1) & 1);
+      issue(j);
+      if (stamp) cyc[5] += clock64() - c0;
+    }
+    const int s = i % NS96, b = i & 1;
+    int n, oy0, ox0;
+    dw_tile_coords(g, slab + i * nslab, n, oy0, ox0);
+    const bf16* st = ring + s * STG96;
+    uint4 yv[DCH96 / NT];
+    if (fuse) dw96_load_y<NT>(yv, y, g, co_base, n, oy0, ox0, t);
+    long long c0 = st0 ? clock64() : 0;
+    mbar_wait_bounded<false>(&full[s], (i / NS96) & 1);  // tile i's boxes have landed
+    long long c1 = st0 ? clock64() : 0;
+    if (st0) cyc[0] += c1 - c0;
+    dw96_transform(xop + b * OPX96, st, pmb, pre != 0, g, oy0, ox0);
+    dw96_compose<NT>(dop + b * OPD96, st + XST96, yv, dss, dY, g, fuse, co_base, n, oy0, ox0, t);
+    c0 = st0 ? clock64() : 0;
+    if (st0) cyc[1] += c0 - c1;
+    // operand buffer b is ready, stage s read by every thread, and every
+    // thread is past tile i-1's products (buffer b ^ 1 is free next)
+    __syncthreads();
+    c1 = st0 ? clock64() : 0;
+    if (st0) cyc[2] += c1 - c0;
+    if (t == prod)
+      for (int r = 0; r < CL96; ++r) mbar_arrive_cluster(&empty[s], r);
+    dw96_products<K16>(acc, smem_addr(dop + b * OPD96) + a_off, smem_addr(xop + b * OPX96), b_off,
+                       nj);
+    if (st0) cyc[3] += clock64() - c1;
+  }
+  if (st0) {
+    cyc[4] += clock64();
+    cyc[8] = globaltimer_ns();
+  }
+  // the partial, through shared memory (the ring and the operand tiles are
+  // free once every warp is past its last products) and out in 16-byte
+  // row chunks: partial[slab][co_base + row][tap*Cp + ci]
+  __syncthreads();
+  float* pst = reinterpret_cast<float*>(ring);  // [ROWS][PST96]
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    if (j >= nj) break;
+    const int col = (warp * NW + j) * 8 + (lane & 3) * 2;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m * 16 + half * 8 + (lane >> 2);
+        *reinterpret_cast<float2*>(&pst[row * PST96 + col]) =
+            make_float2(acc[m][j][2 * half], acc[m][j][2 * half + 1]);
+      }
+  }
+  __syncthreads();
+  for (int e = t; e < ROWS * (N8 * 2); e += NT) {
+    const int row = e / (N8 * 2), c4 = e - row * (N8 * 2);
+    const size_t at = ((size_t)slab * CP96 + co_base + row) * (9 * CP96) + 4 * c4;
+    *reinterpret_cast<float4*>(&partial[at]) =
+        *reinterpret_cast<const float4*>(&pst[row * PST96 + 4 * c4]);
+  }
+  if (st0) cyc[9] = globaltimer_ns();
+  // no CTA leaves while a peer may still multicast into its shared memory
+  // or arrive on its barriers
+  cluster_sync();
+  if (st0) {
+    cyc[6] = t_start;
+    cyc[10] = globaltimer_ns();
+  }
+  if (cycles != nullptr && t < NCY96) cycles[(size_t)blockIdx.x * NCY96 + t] = cyc[t];
+}
+
+// ---------------------------------------------------------------------------
 // fixed-order reductions of the per-block partials
 // ---------------------------------------------------------------------------
 
@@ -1612,33 +2135,146 @@ static cudaError_t launch_dw(const void* x, const void* dy, const void* y, const
   return cudaGetLastError();
 }
 
+// E96's host side: the tensor maps and the cluster launch.  The driver's
+// cuTensorMapEncodeTiled is looked up through the runtime, so the library
+// links nothing beyond the runtime.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// A 4-D map over an activation [N,C,H,W] bf16 (W innermost), box
+// {bw, bh, bc, 1}, zero fill outside it; 0 or TMAP_ERR + the CUresult.
+static int encode_act(CUtensorMap* map, const void* p, const Geo& g, int bw, int bh, int bc) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return TMAP_ERR + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)g.W, (cuuint64_t)g.H, (cuuint64_t)g.C, (cuuint64_t)g.N};
+  const cuuint64_t strides[3] = {(cuuint64_t)g.W * 2, (cuuint64_t)g.H * g.W * 2,
+                                 (cuuint64_t)g.C * g.H * g.W * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)bw, (cuuint32_t)bh, (cuuint32_t)bc, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TMAP_ERR + (int)r;
+}
+
+static cudaLaunchConfig_t dw96_config(int nslab, cudaStream_t s, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL96 * nslab);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = DW96_SMEM;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = CL96;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+static int launch_dw96(const void* x, const void* dy, const void* y, const void* ds,
+                       const void* mul, const void* add, void* dY, void* partial, void* cycles,
+                       const Geo& g, int pre, int fuse, int nslab, cudaStream_t s) {
+  CUtensorMap tmx, tmdy;
+  int e = encode_act(&tmx, x, g, XRW, ETH + 2, 32);
+  if (!e) e = encode_act(&tmdy, dy, g, TW, ETH, 32);
+  if (e) return e;
+  cudaError_t err = cudaFuncSetAttribute(conv_dw96_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, DW96_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = dw96_config(nslab, s, &attr);
+  err = cudaLaunchKernelEx(&cfg, conv_dw96_kernel, tmx, tmdy, (const bf16*)y, (const float*)ds,
+                           (const float*)mul, (const float*)add, (bf16*)dY, (float*)partial,
+                           (long long*)cycles, g, pre, fuse);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// E96's plan: out[0] = shared bytes, out[1] = CTAs per cluster, out[2] =
+// clusters that fit on the card at once (the occupancy calculator's, for
+// the grid), out[3] = ring stages, out[4] = tile rows, out[5] = tiles per
+// image plane, out[6] = x box columns, out[7] = threads per CTA.
+extern "C" int branch_conv_dw96_plan(int C, int H, int W, int* out) {
+  const Geo g = make_dw_geo(1, C, H, W);
+  if (C < 1 || g.Cp != CP96) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(conv_dw96_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, DW96_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = dw96_config(1, 0, &attr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)conv_dw96_kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = DW96_SMEM;
+  out[1] = CL96;
+  out[2] = clusters;
+  out[3] = NS96;
+  out[4] = ETH;
+  out[5] = g.ntiles;
+  out[6] = XRW;
+  out[7] = NT;
+  return 0;
+}
+
 // Kernel E.  x, dy [N,C,H,W] bf16; y [N,C,H,W] bf16 and ds [2][C] f32 (fuse);
 // mul, add [C] f32 (pre); dY [N,C,H,W] bf16 (fuse); partial [nslab][Cp][9*Cp]
 // f32; dk [C,C,3,3] f32 (OIHW).  The grid is nslab * (E's row split).
 // async_copy = 1 stages through the cp.async ring, which needs W % 8 == 0
 // and x, dy (y, dY with fuse) 16-byte aligned; 0 the synchronous fill.
+// c96 = 1 takes E96 (conv_dw96_kernel; partial [nslab][96][864], the grid
+// nslab clusters of 3, cycles null or [3 * nslab][6] int64), which needs C
+// padding to 96 and the ring's conditions; a cluster launch the card
+// refuses returns its error, a tensor map that fails to encode TMAP_ERR +
+// its CUresult.
 extern "C" int branch_conv_dw(const void* x, const void* dy, const void* y, const void* ds,
                               const void* mul, const void* add, void* dY, void* partial,
-                              void* dk, int N, int C, int H, int W, int pre, int fuse, int nslab,
-                              int async_copy, void* stream) {
+                              void* dk, void* cycles, int N, int C, int H, int W, int pre,
+                              int fuse, int nslab, int async_copy, int c96, void* stream) {
   if (!geo_ok(N, C, H, W) || nslab < 1) return (int)cudaErrorInvalidValue;
   const Geo g = make_dw_geo(N, C, H, W);
   if (nslab > g.ntiles) return (int)cudaErrorInvalidValue;
-  if (async_copy && (W % 8 != 0 || !aligned16(x) || !aligned16(dy) ||
-                     (fuse && (!aligned16(y) || !aligned16(dY)))))
+  if ((async_copy || c96) && (W % 8 != 0 || !aligned16(x) || !aligned16(dy) ||
+                              (fuse && (!aligned16(y) || !aligned16(dY)))))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int k16 = g.Cp / 16;
-  const int grid = nslab * (k16 / dw_mt(k16));
   cudaError_t err;
-  switch (k16) {
+  if (c96) {
+    if (g.Cp != CP96) return (int)cudaErrorInvalidValue;
+    const int e = launch_dw96(x, dy, y, ds, mul, add, dY, partial, cycles, g, pre, fuse, nslab, s);
+    if (e != 0) return e;
+  } else {
+    const int k16 = g.Cp / 16;
+    const int grid = nslab * (k16 / dw_mt(k16));
+    switch (k16) {
 #define DW_CASE(K) \
-    case K: err = launch_dw<K>(x, dy, y, ds, mul, add, dY, partial, g, pre, fuse, async_copy, grid, s); break;
-    DW_CASE(1) DW_CASE(2) DW_CASE(3) DW_CASE(4) DW_CASE(5) DW_CASE(6) DW_CASE(7) DW_CASE(8)
+      case K: err = launch_dw<K>(x, dy, y, ds, mul, add, dY, partial, g, pre, fuse, async_copy, grid, s); break;
+      DW_CASE(1) DW_CASE(2) DW_CASE(3) DW_CASE(4) DW_CASE(5) DW_CASE(6) DW_CASE(7) DW_CASE(8)
 #undef DW_CASE
-    default: return (int)cudaErrorInvalidValue;
+      default: return (int)cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess) return (int)err;
   }
-  if (err != cudaSuccess) return (int)err;
   const int total = C * 9 * g.Cp;
   reduce_dk_kernel<<<(total + 255) / 256, 256, 0, s>>>((const float*)partial, nslab, C, g.Cp,
                                                        (float*)dk);

@@ -31,9 +31,17 @@ so the port reads no such variable.
 
 On a CUDA tensor the wrappers launch the hand-written kernels of
 ``csrc/branch_conv.cu`` (bf16, C <= 128, H % 8 == 0; anything else raises).
-E stages its tiles through an asynchronous ring where the shape and the
-pointers allow it (:func:`dw_async`) and fills them synchronously
-otherwise, in the same kernel.  D has three kernels, picked before the
+E has two kernels, picked before the launch from the shape and the
+pointers: at channels padded to 96 (C = 81..96) with W % 8 == 0 and x, dy
+(and y, dY with fuse) 16-byte aligned, E96 (``conv_dw96_kernel``,
+:func:`dw_c96`: one cluster of 3 CTAs per slab, each owning 32 of dk's
+rows, x loaded once per cluster by a TMA multicast, dy by TMA per CTA, a
+2-stage ring on mbarriers fed by one producer thread); else
+``conv_dw_kernel``, which stages its tiles through an asynchronous ring
+where the shape and the pointers allow it (:func:`dw_async`) and fills
+them synchronously otherwise.  A cluster launch the card refuses, or a
+tensor map that fails to encode, raises; nothing gives way to another
+kernel.  D has three kernels, picked before the
 launch by :func:`fwd_kernel`, where W % 8 == 0 and the activations are
 16-byte aligned: at channels padded to 96 (C = 81..96) D96
 (``conv_fwd96_kernel``: one block per SM, 4 x 32-pixel tiles of all 96
@@ -43,7 +51,8 @@ streamed per tap); at channels padded to 48 (C = 33..48) D48
 (``conv_fwd48_kernel``: one block per SM, 8 x 32-pixel tiles of all 48
 output channels, the packed weights resident in shared memory, x staged two
 tiles ahead); else ``conv_fwd_kernel``.  Counters:
-``conv3x3_dw_cuda.launches_async`` (E's ring launches),
+``conv3x3_dw_cuda.launches`` (every E launch), ``launches_c96`` (E96's)
+and ``launches_async`` (``conv_dw_kernel``'s ring alone),
 ``conv3x3_fwd_cuda.launches_post`` (D's post-mode launches),
 ``launches_c96`` / ``launches_c48`` (D96's / D48's launches, every mode)
 and ``launches_c96_post`` / ``launches_c48_post`` (their post-mode
@@ -178,7 +187,9 @@ def _lib() -> ctypes.CDLL:
         lib.branch_conv_pack.restype = i
         lib.branch_conv_dw_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.branch_conv_dw_plan.restype = i
-        lib.branch_conv_dw.argtypes = [vp] * 9 + [i] * 8 + [vp]
+        lib.branch_conv_dw.argtypes = [vp] * 10 + [i] * 9 + [vp]
+        lib.branch_conv_dw96_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
+        lib.branch_conv_dw96_plan.restype = i
         lib.branch_conv_dw.restype = i
         lib._typed = True
     return lib
@@ -212,6 +223,26 @@ def dw_plan(c: int, h: int, w: int) -> dict:
     bytes, blocks per slab (the split of dk's rows), dk rows per block, tile
     rows, ring stages, tiles per image."""
     return _plan_dict(DW_PLAN_KEYS, "branch_conv_dw_plan", c, h, w)
+
+
+# E96's stamps per CTA, in the kernel's order (csrc/branch_conv.cu,
+# conv_dw96_kernel): clock64 sums of thread 0's phases (the tile loop holds
+# the others) and of the producer thread's, then global-timer marks
+DW96_PHASES = ("wait for a stage", "staging (transform, compose)", "block barrier", "products",
+               "tile loop", "producer: wait for a release and issue", "start (global ns)",
+               "loop start (global ns)", "loop end (global ns)", "partials stored (global ns)",
+               "end (global ns)")
+
+DW96_PLAN_KEYS = ("smem", "cluster", "clusters", "stages", "tile_rows", "tiles", "x_box_cols",
+                  "threads")
+
+
+def dw96_plan(c: int, h: int, w: int) -> dict:
+    """E96's plan for C channels (padded to 96) at H x W, from the kernel
+    source: shared bytes, CTAs per cluster, clusters that fit on the card
+    at once (the occupancy calculator's: the grid), ring stages, tile rows,
+    tiles per image, x box columns, threads per CTA."""
+    return _plan_dict(DW96_PLAN_KEYS, "branch_conv_dw96_plan", c, h, w)
 
 
 def dw_async(shape, ptrs) -> bool:
@@ -259,6 +290,14 @@ def fwd_c48(shape, ptrs) -> bool:
     return _packed_ok(shape, ptrs, C48)
 
 
+def dw_c96(shape, ptrs) -> bool:
+    """E96 for x's shape [N,C,H,W] and the addresses of x, dy (and y, dY
+    with fuse): channels that pad to 96, W % 8 == 0 and every pointer
+    16-byte aligned -- also TMA's conditions (global strides in multiples of
+    16 bytes, a 16-byte aligned base)."""
+    return _packed_ok(shape, ptrs, C96)
+
+
 def fwd_kernel(shape, ptrs) -> int:
     """D's kernel, decided before the launch from the shape and the
     addresses alone: 96 (D96), 48 (D48) or 0 (``conv_fwd_kernel``, for
@@ -266,7 +305,13 @@ def fwd_kernel(shape, ptrs) -> int:
     return C96 if fwd_c96(shape, ptrs) else C48 if fwd_c48(shape, ptrs) else 0
 
 
+TMAP_ERR = 10000  # the kernel source's code for a tensor map that failed to encode
+
+
 def _raise_on(err: int, name: str) -> None:
+    if err >= TMAP_ERR:
+        raise RuntimeError(f"{name}: a TMA tensor map failed to encode: "
+                           f"CUresult {err - TMAP_ERR}")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
@@ -404,7 +449,27 @@ def conv3x3_dx_post_cuda(dY: torch.Tensor, w: torch.Tensor, x: torch.Tensor, mul
 
 
 def conv3x3_dw_cuda(x: torch.Tensor, dy: torch.Tensor, y=None, ds=None, mul=None, add=None):
-    """Kernel E: -> (dk f32 OIHW [C,C,3,3], dY bf16 or None)."""
+    """Kernel E: -> (dk f32 OIHW [C,C,3,3], dY bf16 or None), on E96 where
+    :func:`dw_c96` holds, else on ``conv_dw_kernel``."""
+    # dY, when fused, is a fresh allocation: aligned like every tensor torch makes
+    ptrs = [t.data_ptr() for t in (x, dy, y) if t is not None]
+    if dw_c96(x.shape, ptrs):
+        kernel = "e96"
+    else:
+        kernel = "ring" if dw_async(x.shape, ptrs) else "fill"
+    return conv3x3_dw_launch(x, dy, y, ds, mul, add, kernel)[:2]
+
+
+def conv3x3_dw_launch(x: torch.Tensor, dy: torch.Tensor, y=None, ds=None, mul=None, add=None,
+                      kernel: str = "e96", cycles: bool = False):
+    """Kernel E on the kernel named: "e96" (``conv_dw96_kernel``), "ring"
+    or "fill" (``conv_dw_kernel`` through its asynchronous ring or its
+    synchronous fill).  :func:`conv3x3_dw_cuda` names the one the shape and
+    the pointers take; a caller naming another one (``chip_smoke.py`` times
+    ``conv_dw_kernel``'s ring beside E96) gets it, or ValueError where it
+    cannot take them.  -> (dk, dY or None, cycles or None): with
+    ``cycles`` (E96 only) an int64 [3 * clusters, 11] tensor of each CTA's
+    stamps (:data:`DW96_PHASES`)."""
     dk = torch.empty((x.shape[1], x.shape[1], 3, 3), dtype=torch.float32, device=x.device)
     n, c, h, wd = _geometry(x, dk)
     _check_act("dy", dy, x.shape)
@@ -415,26 +480,44 @@ def conv3x3_dw_cuda(x: torch.Tensor, dy: torch.Tensor, y=None, ds=None, mul=None
     if mul is not None:
         _check_vec("mul", mul, (c,), x.device)
         _check_vec("add", add, (c,), x.device)
-    plan = dw_plan(c, h, wd)
+    _check(kernel in ("e96", "ring", "fill"), f"unknown E kernel {kernel!r}")
+    _check(not cycles or kernel == "e96", "cycles are E96's")
     cp = _padded(c)
-    # E: one block per SM (its f32 partial fills the registers)
-    nslab = _slabs(x.device, 1, plan["row_blocks"], n * plan["tiles"])
-    partial = torch.empty((nslab, cp, 9 * cp), dtype=torch.float32, device=x.device)
     dY = torch.empty_like(x) if fuse else None
-    ring = dw_async(x.shape, [t.data_ptr() for t in (x, dy, y, dY) if t is not None])
+    ptrs = [t.data_ptr() for t in (x, dy, y, dY) if t is not None]
+    if kernel == "e96":
+        _check(dw_c96(x.shape, ptrs), f"E96 needs C padding to {C96}, W % 8 == 0 and 16-byte "
+               f"aligned tensors, got {tuple(x.shape)}")
+        plan = dw96_plan(c, h, wd)
+        _check(plan["clusters"] > 0, f"no cluster of {plan['cluster']} CTAs with "
+               f"{plan['smem']} shared bytes fits on this card")
+        nslab = max(1, min(n * plan["tiles"], plan["clusters"]))
+    else:
+        _check(kernel == "fill" or dw_async(x.shape, ptrs),
+               "E's ring needs W % 8 == 0 and 16-byte aligned tensors")
+        plan = dw_plan(c, h, wd)
+        # one block per SM (its f32 partial fills the registers)
+        nslab = _slabs(x.device, 1, plan["row_blocks"], n * plan["tiles"])
+    partial = torch.empty((nslab, cp, 9 * cp), dtype=torch.float32, device=x.device)
+    cyc = torch.zeros((3 * nslab, len(DW96_PHASES)), dtype=torch.int64,
+                      device=x.device) if cycles else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().branch_conv_dw(x.data_ptr(), dy.data_ptr(), ptr(y), ptr(ds), ptr(mul), ptr(add),
-                                ptr(dY), partial.data_ptr(), dk.data_ptr(), n, c, h, wd,
-                                int(mul is not None), int(fuse), nslab, int(ring), stream)
+                                ptr(dY), partial.data_ptr(), dk.data_ptr(), ptr(cyc), n, c, h, wd,
+                                int(mul is not None), int(fuse), nslab, int(kernel == "ring"),
+                                int(kernel == "e96"), stream)
     _raise_on(err, "branch_conv_dw")
-    conv3x3_dw_cuda.launches += 1
-    conv3x3_dw_cuda.launches_async += int(ring)
-    return dk, dY
+    f = conv3x3_dw_cuda
+    f.launches += 1
+    f.launches_async += int(kernel == "ring")
+    f.launches_c96 += int(kernel == "e96")
+    return dk, dY, cyc
 
 
 conv3x3_dw_cuda.launches = 0
 conv3x3_dw_cuda.launches_async = 0
+conv3x3_dw_cuda.launches_c96 = 0
 
 
 # ---------------------------------------------------------------------------

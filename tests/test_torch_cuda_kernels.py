@@ -141,21 +141,23 @@ def test_branch_conv_kernels_match_plain(dev, n, c, h, w):
     """D (plain, pre, flipped dx conv) and E (fused dY with ds != 0, with and
     without pre; unfused) against their plain versions, at widths that pad
     to the MMA's 16 and at W not a multiple of the 32-pixel tile.  E takes
-    its asynchronous ring exactly when W % 8 == 0: W = 40 and 72 end in a
-    ragged column tile on the ring (dY beyond W must stay 0, not ds0), and
-    C = 96 at H = 32 with pre puts the input's zero halo (not relu(add)) at
-    both the top and the bottom of the image."""
+    E96 at C = 96 with W % 8 == 0, else its asynchronous ring exactly when
+    W % 8 == 0: W = 40 and 72 end in a ragged column tile (dY beyond W must
+    stay 0, not ds0), and C = 96 at H = 32 with pre puts the input's zero
+    halo (not relu(add)) at both the top and the bottom of the image."""
     x, wt, mul, add, dy, ds = _branch_inputs(dev, n, c, h, w)
-    ring = w % 8 == 0
+    e96 = bc.dw_c96(x.shape, (x.data_ptr(), dy.data_ptr()))
+    ring = w % 8 == 0 and not e96
     for pre in ((), (mul, add)):
         y, s = bc.conv3x3_fwd(x, wt, *pre)
         yp, sp = bc.conv3x3_fwd_plain(x, wt, *pre)
         torch.cuda.synchronize()
         assert _within_one_ulp(y, yp), (pre != (), (y.float() - yp.float()).abs().max().item())
         assert bool(((s - sp).abs() <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all())
-        before = bc.conv3x3_dw_cuda.launches_async
+        before = (bc.conv3x3_dw_cuda.launches_async, bc.conv3x3_dw_cuda.launches_c96)
         dk, dY = bc.conv3x3_dw(x, dy, y, ds, *pre)
-        assert bc.conv3x3_dw_cuda.launches_async - before == int(ring)
+        assert (bc.conv3x3_dw_cuda.launches_async - before[0],
+                bc.conv3x3_dw_cuda.launches_c96 - before[1]) == (int(ring), int(e96))
         dkp, dYp = bc.conv3x3_dw_plain(x, dy, y, ds, *pre)
         assert torch.equal(dY, dYp)
         assert (dk - dkp).abs().max().item() <= 1e-3 * dkp.abs().max().item()
