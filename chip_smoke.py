@@ -878,12 +878,21 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
                 check(bool((err_ko <= 1e-3 * so.abs().amax(dim=1, keepdim=True)).all()),
                       f"D {tag} {mode}: stats differ from conv_fwd_kernel's by "
                       f"{err_ko.max().item()}")
+            diff = bf16_ulp_diff(torch, y, yo)
             row.update({
                 "old_kernel_ms": time_ms(lambda: bc.conv3x3_fwd_cuda(srcm, w, *pre, stats=stats,
                                                                      flip=flip)),
                 "y_bit_equal_old": bool(torch.equal(y, yo)),
+                "y_differs_from_old": diff,
                 "plan": {k: v for k, v in plan.items() if k != "ptxas"},
                 "ptxas": plan["ptxas"],
+                # the device's own pace: 20 launches queued between two events,
+                # the kernel, conv_fwd_kernel and F.conv2d in turns
+                "b2b_ms": b2b_turns(torch, {
+                    "kernel": lambda: bc.conv3x3_fwd_cuda(src, w, *pre, stats=stats, flip=flip),
+                    "old_kernel": lambda: bc.conv3x3_fwd_cuda(srcm, w, *pre, stats=stats,
+                                                              flip=flip),
+                    "library": lambda: F.conv2d(src, w_bf, padding=1)}),
             })
             del yo, y2
             nbytes = 2 * act + w.numel() * 4 + (2 * c * 4 if pre else 0) + (2 * c * 4 if stats else 0)
@@ -892,9 +901,10 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
             print(f"[kernel D branch_conv_fwd] {tag} {mode}: {row['kernel']} max|dy|="
                   f"{row['max_abs_err']:.3g}, two launches bit-equal  kernel {row['ms']:.3f} ms  "
                   f"conv_fwd_kernel {row['old_kernel_ms']:.3f} ms (y bit-equal "
-                  f"{row['y_bit_equal_old']})  plain {row['plain_ms']:.3f} ms  F.conv2d "
-                  f"{row['library_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
-                  flush=True)
+                  f"{row['y_bit_equal_old']}; elements that differ {diff['count']}, at most "
+                  f"{diff['max_ulps']} bf16 ulps)  plain {row['plain_ms']:.3f} ms  F.conv2d "
+                  f"{row['library_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                  f"back to back {b2b_text(row['b2b_ms'])}", flush=True)
             del y, yp
         d_rows[f"{tag} post"] = dx_post_row(torch, bc, tag, x, w, mul, add, dy, time_ms, bound,
                                             bf16_peak, lib_fwd, flops, old, kern, names[kern])
@@ -1020,16 +1030,49 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
 
 def back_to_back_ms(torch, fn, reps: int = 20) -> float:
     """Mean ms of ``reps`` launches queued back to back between two events
-    (after one warm call): the device's own pace, no host gap between them."""
+    (after one warm call): the device's own pace, no host gap between them.
+    The events and launches queue behind a ~10 ms device spin, so the host
+    has enqueued them all before the first event runs: a call whose host
+    side (checks, allocations, launches) takes longer than its device time
+    does not pace the device."""
     fn()
     torch.cuda.synchronize()
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     s.record()
     for _ in range(reps):
         fn()
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def b2b_turns(torch, fns: dict, turns: int = 2) -> dict:
+    """:func:`back_to_back_ms` of each of ``fns`` (name -> call), in turns:
+    a, b, c, a, b, c ... -> name -> [ms of each turn]."""
+    out = {k: [] for k in fns}
+    for _ in range(turns):
+        for k, fn in fns.items():
+            out[k].append(back_to_back_ms(torch, fn))
+    return out
+
+
+def b2b_text(b2b: dict) -> str:
+    return ", ".join(f"{k} " + "/".join(f"{v:.4f}" for v in vs) + " ms" for k, vs in b2b.items())
+
+
+def bf16_ulp_diff(torch, a, b) -> dict:
+    """How far two bf16 tensors of one shape are apart: the count of
+    elements whose bits differ, and the largest difference in bf16 ulps
+    (the distance between the two values' places in the ordered bf16
+    codes; +0 and -0 share one place)."""
+    def place(t):
+        bits = t.contiguous().view(torch.int16).int() & 0xFFFF
+        return torch.where(bits >= 0x8000, -(bits & 0x7FFF), bits)
+
+    d = (place(a) - place(b)).abs()
+    return {"count": int((a.view(torch.int16) != b.view(torch.int16)).sum().item()),
+            "max_ulps": int(d.max().item()) if d.numel() else 0}
 
 
 def dw96_phases(torch, bc, x, dy, y, ds, pre) -> dict:
@@ -1118,18 +1161,27 @@ def dx_post_row(torch, bc, tag, x, w, mul, add, dY, time_ms, bound, bf16_peak, l
           f"D {tag} post: (dmul, dadd) differ from conv_fwd_kernel's by {err_so.max().item()}")
     row["old_kernel_ms"] = time_ms(lambda: bc.conv3x3_dx_post_cuda(dYm, w, xm, mul, add))
     row["dx_bit_equal_old"] = bool(torch.equal(dx, dxo))
+    row["dx_differs_from_old"] = bf16_ulp_diff(torch, dx, dxo)
+    w_bf = w.to(torch.bfloat16)
+    row["b2b_ms"] = b2b_turns(torch, {
+        "kernel": lambda: bc.conv3x3_dx_post_cuda(dY, w, x, mul, add),
+        "old_kernel": lambda: bc.conv3x3_dx_post_cuda(dYm, w, xm, mul, add),
+        "library": lambda: torch.nn.functional.conv2d(dY, w_bf, padding=1)})
     # dY and x read, dx written; the weights, (mul, add) and (dmul, dadd)
     nbytes = 3 * x.numel() * 2 + w.numel() * 4 + 2 * c * 4 + 2 * c * 4
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf16_peak)
     old_txt = (f"  conv_fwd_kernel {row['old_kernel_ms']:.3f} ms (dx bit-equal "
-               f"{row['dx_bit_equal_old']})")
+               f"{row['dx_bit_equal_old']}; elements that differ "
+               f"{row['dx_differs_from_old']['count']}, at most "
+               f"{row['dx_differs_from_old']['max_ulps']} bf16 ulps)")
     print(f"[kernel D post branch_conv_dx_post] {tag}: {row['kernel']} dx bit-equal to D dx + "
           f"pre_backward, two launches bit-equal, max|ddx| vs plain {row['max_abs_err']:.3g}, "
           f"max|d(dmul, dadd)| {row['sums_err']:.3g}  kernel {row['ms']:.3f} ms{old_txt}  "
           f"unfused D dx + pre_backward "
           f"{row['unfused_ms']:.3f} ms  pre_backward alone {row['pre_backward_ms']:.3f} ms  plain "
           f"{row['plain_ms']:.3f} ms  F.conv2d {row['library_ms']:.3f} ms  bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); back to back {b2b_text(row['b2b_ms'])}",
+          flush=True)
     return row
 
 
