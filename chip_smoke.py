@@ -27,7 +27,10 @@ Phases; any failure exits non-zero and prints no result:
                 at C = 48 D48 (D's kernels for those widths), each with its
                 plan and registers, bit-equal over two launches and to
                 conv_fwd_kernel (a misaligned input; [2,C] sums within f32
-                reordering), which is timed beside it, in every mode; D's
+                reordering), which is timed beside it, in every mode, also
+                back to back in turns with it and ``F.conv2d`` ("b2b_ms",
+                behind a device spin), with the count of elements whose bits
+                differ from it and D96's stamps (``d96_phases``); D's
                 post mode also
                 bit-equal to D's dx conv followed by ``pre_backward`` on the
                 card, twice on the same inputs, with the times of
@@ -273,6 +276,15 @@ def main() -> None:
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}", flush=True)
     report = {"card": smi_line, "device": name}
+    # each phase's wall seconds, to keep the whole run inside its time limit
+    report["phase_seconds"] = phase_s = {}
+    t_lap = [time.time()]
+
+    def lap(phase: str) -> None:
+        now = time.time()
+        phase_s[phase] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+        print(f"[time] {phase}: {phase_s[phase]} s", flush=True)
 
     # ------------------------------------------------------------- 1. build
     t0 = time.time()
@@ -282,10 +294,11 @@ def main() -> None:
     report["build"] = {k: {"seconds": v["seconds"], "log": v["log"]} for k, v in built.items()}
     for src, b in built.items():
         for line in b["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"[build] {src} ptxas: {line.strip()}", flush=True)
     report["ptxas"] = ptxas = {**ptxas_usage(built["stem.cu"]["log"]),
                                **ptxas_usage(built["branch_conv.cu"]["log"])}
+    lap("build")
 
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     kernels_only = "--kernels-only" in sys.argv[1:]
@@ -395,6 +408,7 @@ def main() -> None:
           f"({k_a['bound_by']})", flush=True)
     del imgs, labs, conf, oi, ol, oc, pi, pl, pc, partner, qi, ql, qc, ri, rl, rc
     report["triton_first_launch_s"] = triton_s
+    lap("kernels B, C, A")
 
     # ------------------------------------------ 2. kernels: D, E (config 5)
     d_rows, e_rows, e_plans, d_plans = branch_kernels(torch, dev, branch_conv, time_ms, bound,
@@ -409,6 +423,7 @@ def main() -> None:
     kernels["branch_conv_dx_post_c96"] = d_rows["N8_C96_128x128 post"]
     kernels["branch_conv_dw"] = e_rows["N8_C48_256x256 fuse+pre"]
     kernels["branch_conv_dw_c96"] = e_rows["N8_C96_128x128 fuse+pre"]
+    lap("kernels D, E")
 
     # ------------------------------------ 2b. D at config 5's eval shapes
     from semi_supervised_semantic_segmentation_tpu_torch.config import load_config
@@ -424,6 +439,7 @@ def main() -> None:
     report["reference"] = reference_phase(torch, dev)
     report["reference"]["eval"] = eval_reference_phase(torch, dev)
     report["reference"]["unet_steps"] = unet_step_reference(torch, dev)
+    lap("D at eval shapes, references")
 
     # ------------------------------------------------------ 4. the slices
     counters = ddp_counters(stem, branch_conv, cmn)
@@ -459,6 +475,7 @@ def main() -> None:
     old = launches5["branch_conv_fwd"] - launches5["branch_conv_fwd_c96"] \
         - launches5["branch_conv_fwd_c48"]
     check(old == 0, f"config 5: conv_fwd_kernel launched {old} times, expected none")
+    lap("slices: configs 3, 5")
     # config 1 (supervised U-Net/R18, 8 images at 128^2): B and C once per
     # step; train.profile_steps=2 traces steps 2-4 (the slice's own profile
     # takes steps 6 and 7); eval: 32 synthetic val images, 4 batches, one
@@ -525,17 +542,21 @@ def main() -> None:
           f"ms/step on 1024^2 canvases, {report['slice_config4_1024x2048']['ms_per_step']:.1f} on "
           f"1024x2048; val pass windows {windows[0]} and {windows[1]}", flush=True)
     report["slice_config4_1024x2048"]["eval_windows"] = windows[1]
+    lap("slices: configs 1, 2, 4, 4 at 1024x2048")
 
     # --------------------------------------------------------------- 5. ddp
     report["ddp"] = ddp = ddp_phase(torch, counters)
+    lap("ddp")
     # ----------------------------------------------------------- 6. spatial
     # (c)'s one-process config 5 run is (e)'s and (f)'s reference too
     vecs = {label: ddp.get(label, {}).pop("one_vec", None) for label in DDP_SLICES}
     one5 = (ddp["config 5"]["one"], vecs["config 5"]) if vecs["config 5"] is not None else None
     report["spatial"] = spatial = spatial_phase(torch, counters, one5)
     del vecs, one5
+    lap("spatial")
     # ------------------------------------------------------- 7. remat_norm
     report["remat_norm"] = rn = remat_norm_phase(torch, counters)
+    lap("remat_norm")
 
     runs = {"config 1": (launches1, eval1, 8), "config 2": (launches2, eval2, 8),
             "config 3": (launches3, eval3, 8), "config 4": (launches4, eval4, 8),
@@ -805,7 +826,7 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
     g = torch.Generator(device=dev).manual_seed(5)
     d_rows, e_rows, e_plans, d_plans = {}, {}, {}, {}
     f = bc.conv3x3_fwd_cuda
-    names = {bc.C96: "conv_fwd96_kernel", bc.C48: "conv_fwd48_kernel", 0: "conv_fwd_kernel"}
+    names = {bc.C96: "conv_d96_kernel", bc.C48: "conv_fwd48_kernel", 0: "conv_fwd_kernel"}
 
     def taken(before, kern, times=1):
         """Did the last ``times`` launches go to ``kern``'s counters alone?"""
@@ -897,6 +918,10 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
             del yo, y2
             nbytes = 2 * act + w.numel() * 4 + (2 * c * 4 if pre else 0) + (2 * c * 4 if stats else 0)
             row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf16_peak)
+            if kern == bc.C96:
+                row["phases"] = d96_phases(torch, bc, lambda: bc.conv3x3_fwd_cuda(
+                    src, w, *pre, stats=stats, flip=flip, cycles=True)[2])
+                print(f"[kernel D96 phases] {tag} {mode}: {row['phases']}", flush=True)
             d_rows[f"{tag} {mode}"] = row
             print(f"[kernel D branch_conv_fwd] {tag} {mode}: {row['kernel']} max|dy|="
                   f"{row['max_abs_err']:.3g}, two launches bit-equal  kernel {row['ms']:.3f} ms  "
@@ -1098,6 +1123,29 @@ def dw96_phases(torch, bc, x, dy, y, ds, pre) -> dict:
             "end_spread_us": round((ns[:, 4].max() - ns[:, 4].min()).item(), 2)}
 
 
+def d96_phases(torch, bc, launch) -> dict:
+    """D96's phases in one launch from its stamps (``bc.D96_PHASES``):
+    ``launch()`` returns the [CTAs, 12] stamps.  Per CTA (mean): the clock64
+    sums of the x producer's wait (for the tile's TMA box and the released
+    operand) and its filling, the weight producer's wait for an empty slab
+    and the consumer's waits,
+    products and epilogue, each phase's share of the consumer's tile loop;
+    on the global timer the microseconds before the loop, in it and after
+    it, and the spread of the CTAs' ends."""
+    cyc = launch()
+    torch.cuda.synchronize()
+    names = bc.D96_PHASES
+    sums = dict(zip(names[:8], cyc[:, :8].double().mean(dim=0).tolist()))
+    loop = sums["consumer: tile loop"]
+    ns = cyc[:, 8:12].double() / 1e3
+    gaps = (ns[:, 1:] - ns[:, :-1]).mean(dim=0).tolist()
+    return {"ctas": cyc.shape[0], "mean_cycles": {k: round(v) for k, v in sums.items()},
+            "share": {k: round(sums[k] / loop, 3) for k in names[:7]},
+            "us_per_cta": dict(zip(("before the loop", "tile loop", "after the loop"),
+                                   [round(v, 2) for v in gaps])),
+            "end_spread_us": round((ns[:, 3].max() - ns[:, 3].min()).item(), 2)}
+
+
 def dx_post_row(torch, bc, tag, x, w, mul, add, dY, time_ms, bound, bf16_peak, lib_fwd, flops,
                 old, kern, kname):
     """D's post mode at one shape on D's kernel ``kern`` (named ``kname``):
@@ -1167,6 +1215,10 @@ def dx_post_row(torch, bc, tag, x, w, mul, add, dY, time_ms, bound, bf16_peak, l
         "kernel": lambda: bc.conv3x3_dx_post_cuda(dY, w, x, mul, add),
         "old_kernel": lambda: bc.conv3x3_dx_post_cuda(dYm, w, xm, mul, add),
         "library": lambda: torch.nn.functional.conv2d(dY, w_bf, padding=1)})
+    if kern == bc.C96:
+        row["phases"] = d96_phases(torch, bc, lambda: bc.conv3x3_dx_post_cuda(
+            dY, w, x, mul, add, cycles=True)[2])
+        print(f"[kernel D96 phases] {tag} post: {row['phases']}", flush=True)
     # dY and x read, dx written; the weights, (mul, add) and (dmul, dadd)
     nbytes = 3 * x.numel() * 2 + w.numel() * 4 + 2 * c * 4 + 2 * c * 4
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf16_peak)
@@ -1464,7 +1516,7 @@ def d_eval_rows(torch, dev, bc, time_ms, bound, bf16_peak, shapes: list) -> dict
     F = torch.nn.functional
     bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(11)
-    names = {bc.C96: "conv_fwd96_kernel", bc.C48: "conv_fwd48_kernel", 0: "conv_fwd_kernel"}
+    names = {bc.C96: "conv_d96_kernel", bc.C48: "conv_fwd48_kernel", 0: "conv_fwd_kernel"}
     rows = {}
     for n, c, h, w_ in sorted({sh for fwd in shapes for sh in fwd["shapes"]}):
         tag = f"N{n}_C{c}_{h}x{w_}"
@@ -2410,7 +2462,7 @@ def synthetic_canvas_hw(hw):
 # lower-cased kernel-name fragments -> group, first match wins
 GROUPS = [
     ("E at C = 96 (E96)", ("conv_dw96_kernel",)),
-    ("D at C = 96 (D96 and its weight pack)", ("conv_fwd96_kernel", "pack_w_kernel<96>")),
+    ("D at C = 96 (D96 and its weight pack)", ("conv_d96_kernel", "pack_w96_kernel")),
     ("D at C = 48 (D48 and its weight pack)", ("conv_fwd48_kernel", "pack_w_kernel<48>")),
     ("stem kernels (B, C)", ("stem_fwd_kernel", "stem_dw_kernel", "reduce_partials_kernel")),
     ("branch conv kernels (D's conv_fwd_kernel, E; both D's reduction)",

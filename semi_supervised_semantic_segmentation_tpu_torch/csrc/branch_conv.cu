@@ -28,7 +28,8 @@
 //      in f32, t as in D.
 //
 // Design: implicit GEMMs on the tensor cores (mma.sync m16n8k16 bf16 -> f32,
-// operands from shared memory with ldmatrix).  A block stages the halo'd,
+// operands from shared memory with ldmatrix; D96 below: wgmma on shared-
+// memory descriptors).  A block stages the halo'd,
 // transformed input tile of 8 (D) or 4 (E) x 32 output pixels in shared
 // memory once, in pixel-major layout with the channels contiguous ([pixel][C], padded to 16
 // channels plus an 8-channel skew so ldmatrix rows hit distinct banks).  A
@@ -42,36 +43,66 @@
 //      persistent over tiles.  Statistics are per-block partials of the
 //      rounded y, reduced by a second kernel in a fixed order (no atomics:
 //      the same inputs give the same bits).
-//   D96 (conv_fwd96_kernel, D at Cp = 96 with W % 8 == 0 and 16-byte
-//      aligned activations; the wrapper picks it, or D48 below, and
-//      conv_fwd_kernel serves every other shape): one persistent block per
-//      SM, tiles of 4 x 32 pixels x all 96 C_out, so x is staged once per
-//      tile (not once per 48-row C_out block).  Warp = (C_out half, tile
-//      row) with D's MT = 3 accumulators and product loop.  x goes through
-//      E's pieces: raw rows by cp.async 16-byte copies (dw_issue's x loop,
-//      issue_x_rows), then dw_transform (position masks, packed-bf16 pre
-//      arithmetic) into the operand tile.
-//      A small kernel packs the weights once per call, flip applied, into
-//      a bf16 scratch [9][96][104] (tap-major, rows C_out); each tap's
-//      19,968-byte slab streams from L2 into a 3-stage ring, two taps
-//      ahead, as one cp.async.bulk completing on the stage's mbarrier.  So
-//      a tap waits for its slab alone: the next tile's x copies (issued
-//      into the one raw stage as soon as the transform has emptied it) are
-//      a separate cp.async group, waited only at that tile.  The epilogue
-//      rounds y (post: dt) into per-warp staging rows and writes 16-byte
-//      chunks (post reads x in the same chunks); the per-element post chain,
-//      the statistics of the rounded y and their fixed-order partials (4
-//      warps of a C_out half in row order) are conv_fwd_kernel's, so y and
-//      post's dx are bit-equal to it.  192,984 shared bytes.  Per
-//      [8,96,128,128] call: 21.7 GFLOP (~22 us, the bound: operations),
-//      ~51 MB of x and y (~15 us); the staging reads x 2.25 x (halo and the
-//      48-column raw row, ~57 MB) and the weight slabs ~184 MB from L2 (9
-//      slabs per tile, 1,024 tiles).
+//   D96 (conv_d96_kernel, D at Cp = 96 with W % 8 == 0 and 16-byte aligned
+//      activations, every mode; the wrapper picks it, or D48 below, and
+//      conv_fwd_kernel serves every other shape): the GEMM turned round for
+//      Hopper's warpgroup MMA.  M = 64 output pixels of one row, N = the 96
+//      C_out, K = 9 taps x 96 ci, tap-major and ci ascending as in
+//      conv_fwd_kernel (y and post's dx come out bit-equal to it).  One
+//      persistent CTA of three warpgroups per SM walks tiles of 4 output
+//      rows x 64 pixels x 96 C_out.  wgmma.mma_async m64n96k16 (bf16 -> f32)
+//      reads both operands from shared memory by descriptor, K-major without
+//      swizzle.  A, the transformed x: [ci/8][halo row][halo column][8 ci],
+//      16 bytes a pixel, so 8 pixels of a row are one core matrix and tap
+//      (kh, kw) is a start offset of (kh * row + kw) x 16 bytes -- no
+//      im2col, no shifted copy (ops/branch_conv.py d96_operand_plan computes
+//      the offsets and hands them to the kernel).  B: a tap's slab of the
+//      weights, packed once per call by pack_w96_kernel as [ci/8][C_out][8
+//      ci].  Roles: warp 0 streams the nine 18,432-byte slabs of every tile
+//      through a 3-stage ring (cp.async.bulk; ~85 MB of L2 reads a
+//      [8,96,128,128] call); warps 1-3 transform x from a raw stage that one
+//      TMA box a tile fills ({72, 6, 96}: rows oy0-1 .. oy0+4, columns ox0
+//      .. ox0+71, zero outside the tensor; the left halo column by plain
+//      loads) into the operand with byte permutes, pre's packed bf16
+//      arithmetic and masks by position (halo, columns >= W, channels >= C
+//      are 0, never relu(add)); consumer warpgroups 1 and 2 multiply two
+//      output rows each (two m64n96 accumulators, 96 f32 a thread; 108
+//      wgmma a tile) and write them out: the rounded y (post: dt) into
+//      per-warp staging by stmatrix.trans, 16-byte chunks out, post's chain
+//      per element on x's chunk, the statistics in a fixed order (a lane's
+//      chunks, lane pairs, the 8 consumer warps, the CTAs in the reduce
+//      kernel: no atomics, two launches give the same bits).  setmaxnreg
+//      moves registers from the producer warpgroup (96) to the consumers
+//      (200).  Barriers (mbarrier; every wait traps after ~10 s, so a fault
+//      of the protocol fails the launch): rawfull (the producers' thread 0
+//      with the box's bytes), xfull (the 96 transforming threads), xempty
+//      (one thread per consumer warpgroup after its products), wfull[3]
+//      (warp 0's lane 0 with the slab's bytes), wempty[3] (one thread per
+//      consumer warpgroup after the wgmma that read the slab completed); a
+//      named barrier of the transforming threads before the next box
+//      overwrites the raw stage.  Shared bytes: raw 82,944 + operand 77,184
+//      (halo rows 67 pixels apart: the 8 lanes of a store phase fall on 8
+//      banks) + weight ring 55,296 + staging 12,288 + (mul, add) 1,536 +
+//      barriers and stamps 168 + alignment 128 = 229,544.  Bound per
+//      [8,96,128,128] call: 21.7 GFLOP (~22 us at 989 TFLOP/s) against ~51
+//      MB of x and y (~15 us): operations.  Tried on the card and dropped:
+//      x by 16-byte global loads straight into two operand buffers (the
+//      loads an SM keeps in flight could not keep pace: consumers waited
+//      for x ~39 % of the tile loop, whether one or two octs were in
+//      flight); L2 prefetches of the next tiles' x by bulk copies (they
+//      queued ahead of the weight slabs); a fourth transforming warp (warp
+//      0 between its slabs) and two octs in flight in the transform (no
+//      faster); post's x preloaded for a whole tile (the registers
+//      spilled).  What holds it above its bound: one operand buffer, so
+//      the next tile's transform follows the products and overlaps only
+//      the epilogue (consumers wait for x ~22 % of the loop); the epilogue
+//      itself (~19 %, post ~46 %) with the tensor cores idle; slab waits
+//      (~7 %: a 3-stage ring leads by about one tap).
 //   D48 (conv_fwd48_kernel, D at Cp = 48 under D96's conditions; the note
-//      above it): D96's parts at one width where all nine weight slabs fit
-//      in shared memory, so they are bulk-copied once per block and stay
-//      resident; D's 8 x 32-pixel tiles (warp = tile row) with x staged
-//      two tiles ahead, and D96's 16-byte epilogue.
+//      above it): D's products (mma.sync) with the nine weight slabs
+//      resident in shared memory, bulk-copied once per block; D's 8 x
+//      32-pixel tiles (warp = tile row) with x staged two tiles ahead, and
+//      a 16-byte epilogue through per-warp staging rows.
 //   D post: the epilogue reads x at each output element of the dx conv,
 //      applies the mask and the scale to the rounded dt in registers, writes
 //      dx in dt's place and sums (dmul, dadd) into the statistics' partials
@@ -862,23 +893,15 @@ conv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
 }
 
 // ---------------------------------------------------------------------------
-// D96: kernel D at Cp = 96 (every mode), one block per SM
+// D48's weight pack and barriers (D96 below keeps CP96)
 // ---------------------------------------------------------------------------
 
 #define CP96 96
-#define CPS96 (CP96 + 8)                 // operand and weight row stride (elements)
-#define SLAB96 (CP96 * CPS96)            // one tap's packed weights [C_out][CPS96]
-#define WST96 3                          // weight ring stages
-#define XRAW96 (CP96 * (ETH + 2) * XRW)  // the raw x stage: dw_issue's layout
-#define XOP96 ((ETH + 2) * HW2 * CPS96)  // the transformed operand tile
-#define YST96 (TW + 8)                   // a warp's y staging row (elements)
-#define D96_SMEM                                                                  \
-  ((XRAW96 + XOP96 + WST96 * SLAB96 + 8 * 48 * YST96) * 2 + (8 * 2 * 48 + 3 * CP96) * 4 + \
-   2 * CP96 * 2 + WST96 * 8)
+#define CPS96 (CP96 + 8)                 // E96's operand row stride (elements)
 
-// The weights of one call at padded width CP (D96: 96, D48: 48), packed
-// once: wp[tap][co][ci] = bf16(w[co][ci][tap]), with flip
-// bf16(w[ci][co][8 - tap]); 0 for co or ci >= C and in the 8-column skew.
+// The weights of one call at padded width CP (D48: 48), packed once:
+// wp[tap][co][ci] = bf16(w[co][ci][tap]), with flip bf16(w[ci][co][8 -
+// tap]); 0 for co or ci >= C and in the 8-column skew.
 template <int CP>
 __global__ void pack_w_kernel(const float* __restrict__ w, bf16* __restrict__ wp, int C,
                               int flip) {
@@ -893,25 +916,11 @@ __global__ void pack_w_kernel(const float* __restrict__ w, bf16* __restrict__ wp
   wp[e] = __float2bfloat16(v);
 }
 
-// A ring stage's barrier: count arrivals per phase (D96's and D48's: one,
-// the issuing thread's, with the slab's byte count; the bulk copy
-// completes the bytes).
+// A barrier that counts arrivals per phase (D48's: one, the issuing
+// thread's, with the slab's byte count; the bulk copy completes the bytes).
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count = 1) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
                : "memory");
-}
-
-// One tap's packed weights (a contiguous slab) -> a weight ring stage, as
-// one bulk copy by the calling thread, completing on the stage's barrier.
-__device__ __forceinline__ void d96_issue_w(bf16* st, const bf16* __restrict__ wp, int tap,
-                                            uint64_t* bar) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after the stage's last reads
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(SLAB96 * 2) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(st)), "l"(wp + (size_t)tap * SLAB96), "r"(SLAB96 * 2), "r"(smem_addr(bar))
-      : "memory");
 }
 
 // Wait for the phase of the stage's barrier with this parity to complete.
@@ -941,214 +950,6 @@ __device__ __forceinline__ void issue_x_rows(bf16* st, const bf16* __restrict__ 
   }
 }
 
-// The blocks walk the tiles slab, slab + nslab, ... (E's 4 x 32-pixel
-// tiles, all 96 C_out).  Warp = (C_out half hh, tile row wr): 48 rows x 32
-// pixels, D's MT = 3 accumulators and product loop.  Each step s = 9 * tile
-// + tap waits for its weight slab (on the stage's barrier), then thread 0
-// issues the slab of step s + 2 into the stage step s - 1 read.  A tile's
-// first step waits for its raw x (cp.async, this tile's only copy group),
-// transforms it (dw_transform: the halo, columns >= W and channels >= C
-// are 0 by position) and issues the next tile's x into the emptied stage,
-// so those copies have the whole tile's products to land.
-__global__ void __launch_bounds__(NT, 1)
-conv_fwd96_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
-                  const float* __restrict__ mul, const float* __restrict__ add,
-                  const bf16* __restrict__ xpost, bf16* __restrict__ y,
-                  float* __restrict__ partial, Geo g, int pre, int stats, int post) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* raw = reinterpret_cast<bf16*>(smem_raw);                   // [Cp][ETH+2][XRW]
-  bf16* xop = raw + XRAW96;                                         // [(ETH+2)*HW2][CPS96]
-  bf16* wring = xop + XOP96;                                        // [WST96][Cp][CPS96]
-  bf16* ystage = wring + WST96 * SLAB96;                            // [8][48][YST96]
-  float* red = reinterpret_cast<float*>(ystage + 8 * 48 * YST96);   // [8][2][48]
-  float* pm = red + 8 * 2 * 48;                                     // post: [3][Cp]
-  bf16* pmb = reinterpret_cast<bf16*>(pm + 3 * CP96);               // pre: [2][Cp]
-  uint64_t* wbar = reinterpret_cast<uint64_t*>(pmb + 2 * CP96);     // [WST96]
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int hh = warp >> 2, wr = warp & 3;
-  const int slab = blockIdx.x, nslab = gridDim.x, C = g.C;
-  if (post) {
-    // pm[ci] = bf16(mul[ci]), pm[Cp + ci] = bf16(add[ci]), pm[2Cp + ci] = mul[ci]
-    for (int e = t; e < 3 * CP96; e += NT) {
-      const int which = e / CP96, ci = e - which * CP96;
-      const float v = ci < C ? (which == 1 ? add : mul)[ci] : 0.f;
-      pm[e] = which == 2 ? v : bf16r(v);
-    }
-  }
-  for (int e = t; e < 2 * CP96; e += NT) {
-    const int which = e / CP96, ci = e - which * CP96;
-    pmb[e] = __float2bfloat16((pre && ci < C) ? (which ? add : mul)[ci] : 0.f);
-  }
-  if (t == 0) {
-    for (int k = 0; k < WST96; ++k) mbar_init(&wbar[k]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
-  const int b_n = (lane & 7) + (lane >> 4) * 8, b_k = ((lane >> 3) & 1) * 8;
-  const uint32_t a_off = ((hh * 48 + a_row) * CPS96 + a_col) * 2;
-  const uint32_t wring_s = smem_addr(wring), xop_s = smem_addr(xop);
-  float s1[3][2], s2[3][2];
-#pragma unroll
-  for (int m = 0; m < 3; ++m) s1[m][0] = s1[m][1] = s2[m][0] = s2[m][1] = 0.f;
-
-  // Stage s % WST96 holds step s's slab; its (s / WST96)-th barrier phase
-  // completes when the slab has landed.
-  const int ntl = (g.ntiles - slab + nslab - 1) / nslab;  // this block's tiles
-  const int nsteps = 9 * ntl;
-  {
-    int n0, oy, ox;
-    dw_tile_coords(g, slab, n0, oy, ox);
-    issue_x_rows<ETH>(raw, x, g, n0, oy, ox);
-    cp_async_commit();
-  }
-  if (t == 0)
-    for (int k = 0; k < WST96 - 1 && k < nsteps; ++k)
-      d96_issue_w(wring + k * SLAB96, wp, k % 9, &wbar[k]);
-
-  for (int i = 0; i < ntl; ++i) {
-    int n, oy0, ox0;
-    dw_tile_coords(g, slab + i * nslab, n, oy0, ox0);
-    int n1 = 0, oy1 = 0, ox1 = 0;
-    if (i + 1 < ntl) dw_tile_coords(g, slab + (i + 1) * nslab, n1, oy1, ox1);
-    float acc[3][4][4];
-#pragma unroll
-    for (int m = 0; m < 3; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
-
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int s = 9 * i + tap;
-      if (tap == 0) cp_async_wait<0>();  // this thread's copies of tile i's x landed
-      mbar_wait(&wbar[s % WST96], (s / WST96) & 1);  // slab s landed
-      __syncthreads();  // every thread's x copies landed; step s-1's products are done
-      if (tap == 0) {
-        dw_transform<CP96 / 16>(xop, raw, pmb, pre != 0, g, oy0, ox0);
-        __syncthreads();  // the operand tile is ready; the raw stage is free
-        if (i + 1 < ntl) issue_x_rows<ETH>(raw, x, g, n1, oy1, ox1);
-        cp_async_commit();
-      }
-      if (t == 0 && s + WST96 - 1 < nsteps)  // into the stage step s-1 read
-        d96_issue_w(wring + ((s + WST96 - 1) % WST96) * SLAB96, wp, (s + WST96 - 1) % 9,
-                    &wbar[(s + WST96 - 1) % WST96]);
-
-      const int kh = tap / 3, kw = tap - kh * 3;
-      const uint32_t arow = wring_s + (s % WST96) * SLAB96 * 2 + a_off;
-      const uint32_t brow = xop_s + (((wr + kh) * HW2 + b_n + kw) * CPS96 + b_k) * 2;
-#pragma unroll
-      for (int cc = 0; cc < CP96; cc += 16) {
-        uint32_t af[3][4], bfr[4][2];
-#pragma unroll
-        for (int m = 0; m < 3; ++m) ldsm_x4(af[m], arow + (m * 16 * CPS96 + cc) * 2);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t r[4];
-          ldsm_x4(r, brow + (np * 16 * CPS96 + cc) * 2);
-          bfr[2 * np][0] = r[0]; bfr[2 * np][1] = r[1];
-          bfr[2 * np + 1][0] = r[2]; bfr[2 * np + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int m = 0; m < 3; ++m)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(acc[m][j], af[m], bfr[j]);
-      }
-    }
-
-    // Epilogue: the rounded y (post: dt) of the warp's 48 rows x 32
-    // pixels into its own staging rows, with the statistics of the rounded
-    // y as conv_fwd_kernel takes them; then 16-byte chunks of a row out
-    // (W % 8 == 0: a chunk is all inside or all outside).  post reads x in
-    // the same chunks and applies conv_fwd_kernel's per-element chain, so
-    // dx is bit-equal to it; (dmul, dadd) sum in the chunks' order.
-    bf16* ysm = ystage + warp * 48 * YST96;
-#pragma unroll
-    for (int m = 0; m < 3; ++m)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m * 16 + half * 8 + (lane >> 2);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = j * 8 + (lane & 3) * 2;
-          const float v0 = acc[m][j][2 * half], v1 = acc[m][j][2 * half + 1];
-          *reinterpret_cast<uint32_t*>(&ysm[r * YST96 + c]) = pack_bf16(v0, v1);
-          if (!post) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              if (ox0 + c + e < g.W) {
-                const float f = bf16r(e ? v1 : v0);
-                s1[m][half] += f;
-                s2[m][half] += f * f;
-              }
-            }
-          }
-        }
-      }
-    __syncwarp();
-    const int oy = oy0 + wr, q = lane & 3, ox = ox0 + 8 * q;
-#pragma unroll
-    for (int m = 0; m < 3; ++m)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m * 16 + half * 8 + (lane >> 2), co = hh * 48 + r;
-        if (co >= C || ox >= g.W) continue;
-        const size_t at = (((size_t)n * C + co) * g.H + oy) * g.W + ox;
-        uint4 v = *reinterpret_cast<const uint4*>(&ysm[r * YST96 + 8 * q]);
-        if (post) {
-          const float mr = pm[co], ar = pm[CP96 + co], mw = pm[2 * CP96 + co];
-          const uint4 xv = *reinterpret_cast<const uint4*>(&xpost[at]);
-          uint32_t* vw = reinterpret_cast<uint32_t*>(&v);
-          const uint32_t* xw = reinterpret_cast<const uint32_t*>(&xv);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            float o[2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float dt = __uint_as_float(e ? vw[k] & 0xffff0000u : vw[k] << 16);
-              const float xf = __uint_as_float(e ? xw[k] & 0xffff0000u : xw[k] << 16);
-              const float t2 = bf16r(__fadd_rn(bf16r(__fmul_rn(xf, mr)), ar));
-              const float dtm = t2 > 0.f ? dt : 0.f;
-              o[e] = __fmul_rn(dtm, mw);
-              s1[m][half] = __fadd_rn(s1[m][half], __fmul_rn(dtm, xf));
-              s2[m][half] = __fadd_rn(s2[m][half], dtm);
-            }
-            vw[k] = pack_bf16(o[0], o[1]);
-          }
-        }
-        *reinterpret_cast<uint4*>(&y[at]) = v;
-      }
-  }
-  if (!stats && !post) return;
-
-  // Block partial: sum the 4 lanes of a row, then the 4 warps of a C_out
-  // half in row order.
-#pragma unroll
-  for (int m = 0; m < 3; ++m)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float a = s1[m][half], b = s2[m][half];
-      a += __shfl_xor_sync(0xffffffffu, a, 1);
-      a += __shfl_xor_sync(0xffffffffu, a, 2);
-      b += __shfl_xor_sync(0xffffffffu, b, 1);
-      b += __shfl_xor_sync(0xffffffffu, b, 2);
-      if ((lane & 3) == 0) {
-        const int r = m * 16 + half * 8 + (lane >> 2);
-        red[(warp * 2 + 0) * 48 + r] = a;
-        red[(warp * 2 + 1) * 48 + r] = b;
-      }
-    }
-  __syncthreads();
-  for (int e = t; e < 2 * CP96; e += NT) {
-    const int which = e / CP96, co = e - which * CP96;
-    if (co >= C) continue;
-    const int h2 = co / 48, r = co - h2 * 48;
-    float sum = 0.f;
-    for (int w4 = 0; w4 < 4; ++w4) sum += red[((h2 * 4 + w4) * 2 + which) * 48 + r];
-    partial[((size_t)slab * 2 + which) * C + co] = sum;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // D48: kernel D at Cp = 48 (every mode), one block per SM
 // ---------------------------------------------------------------------------
@@ -1170,8 +971,8 @@ conv_fwd96_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
 // outside the image) are issued XS48 tiles ahead, into the stage the
 // transform (dw_transform: position masks, packed bf16 pre arithmetic) has
 // just emptied, so they land while the tiles between run their products.
-// Two block barriers per tile.  The epilogue is D96's: the rounded y (post:
-// dt) through per-warp staging rows and out in 16-byte chunks; post's x in
+// Two block barriers per tile.  The epilogue: the rounded y (post: dt)
+// through per-warp staging rows and out in 16-byte chunks; post's x in
 // the same chunks, loaded before the tile's products.  The k order
 // (tap-major, then 16-channel steps) and the mma.sync m16n8k16 shape are
 // conv_fwd_kernel's, so y, the dx conv and post's dx are bit-equal to it;
@@ -1323,7 +1124,7 @@ conv_fwd48_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
       }
     }
 
-    // Epilogue (D96's): the rounded y (post: dt) of the warp's 48 rows x 32
+    // Epilogue: the rounded y (post: dt) of the warp's 48 rows x 32
     // pixels into its staging rows, with the statistics of the rounded y as
     // conv_fwd_kernel takes them; then 16-byte chunks out (W % 8 == 0: a
     // chunk is all inside or all outside), post's chain per element on x's
@@ -1883,6 +1684,580 @@ conv_dw96_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant_
 }
 
 // ---------------------------------------------------------------------------
+// D96: kernel D at Cp = 96 (every mode): wgmma, warp-specialised, persistent
+// ---------------------------------------------------------------------------
+//
+// Replaces, at channels that pad to 96 (HRNet-W48's branch 1), the TPU
+// kernels D replaces: pallas_conv.py:328 _conv3x3_nchw_impl (-> _kernel_kstack)
+// and its post mode, pallas_conv.py:223 _kernel_kstack(post=True).  The
+// design, its barriers and its shared-memory budget are in the note at the
+// top (D96).
+
+#define D96_NT 384                         // threads: a producer warpgroup, two consumer warpgroups
+#define D96_TR 4                           // output rows per tile (two per consumer warpgroup)
+#define D96_TC 64                          // output pixels per tile row: one wgmma's M
+#define D96_XR (D96_TR + 2)                // halo rows of the x operand
+#define D96_XP 67                          // halo row pitch (pixels): 66 used, odd so that the
+                                           // producer's stores of 8 rows spread over the banks
+#define D96_CG (CP96 / 8)                  // channel groups: the core matrices' K chunks
+#define D96_PLANE (D96_XR * D96_XP * 16)   // bytes of one channel group's plane (A's LBO)
+#define D96_XBUF (D96_CG * D96_PLANE)      // the x operand buffer
+#define D96_RAWC 72                        // raw x columns: ox0 .. ox0+71 (halo columns 1 .. 72)
+#define D96_RAW (CP96 * D96_XR * D96_RAWC * 2)  // the raw x stage: one TMA box, bytes
+#define D96_WLBO (CP96 * 16)               // bytes of one channel group of a slab (B's LBO)
+#define D96_SLAB (D96_CG * D96_WLBO)       // one tap's packed weights, bytes
+#define D96_WST 3                          // weight ring stages
+#define D96_STG (48 * 16 * 2)              // a consumer warp's staging: 48 C_out x 16 pixels bf16
+#define D96_NCY 12                         // stamps per CTA
+#define D96_SMEM_BYTES                                                                 \
+  (128 + D96_RAW + D96_XBUF + D96_WST * D96_SLAB + 8 * D96_STG + 3 * CP96 * 4 + \
+   2 * CP96 * 2 + 9 * 8 + D96_NCY * 8)
+
+// The x operand's addressing, from the host (ops/branch_conv.py,
+// d96_operand_plan): bytes between channel-group planes (A's leading byte
+// offset), between halo rows, and from a tile row's first halo pixel to the
+// first pixel tap (kh, kw) reads.
+struct D96Ops {
+  int plane, row, tap[9];
+};
+
+static Geo make_d96_geo(int N, int C, int H, int W) {
+  Geo g = make_geo(N, C, H, W);
+  g.ntx = (W + D96_TC - 1) / D96_TC;
+  g.nty = H / D96_TR;
+  g.ntiles = N * g.nty * g.ntx;
+  return g;
+}
+
+__device__ __forceinline__ void d96_tile(const Geo& g, int tile, int& n, int& oy0, int& ox0) {
+  const int tx = tile % g.ntx;
+  const int r = tile / g.ntx;
+  oy0 = (r % g.nty) * D96_TR;
+  n = r / g.nty;
+  ox0 = tx * D96_TC;
+}
+
+// D96's packed weights: wp[tap][ci / 8][co][ci % 8] = bf16(w[co][ci][tap]),
+// with flip bf16(w[ci][co][8 - tap]); 0 for co or ci >= C.  A tap's slab
+// is wgmma's B (N = C_out, K = ci) in core matrices of 8 C_out x 8 ci.
+__global__ void pack_w96_kernel(const float* __restrict__ w, bf16* __restrict__ wp, int C,
+                                int flip) {
+  constexpr int SLAB = D96_SLAB / 2, GRP = CP96 * 8;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= 9 * SLAB) return;
+  const int tap = e / SLAB, rem = e - tap * SLAB;
+  const int grp = rem / GRP, r2 = rem - grp * GRP;
+  const int co = r2 >> 3, ci = grp * 8 + (r2 & 7);
+  float v = 0.f;
+  if (co < C && ci < C)
+    v = flip ? w[((size_t)ci * C + co) * 9 + 8 - tap] : w[((size_t)co * C + ci) * 9 + tap];
+  wp[e] = __float2bfloat16(v);
+}
+
+// A wgmma descriptor of a K-major operand without swizzle at shared address
+// addr: core matrices of 8 rows x 16 bytes, 8-row groups 128 bytes apart
+// (the stride byte offset), the two 8-element K halves lbo bytes apart.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// The accumulators stay where the asynchronous products left them: no
+// read or write of d is moved across this point.
+__device__ __forceinline__ void wg_hold(float (&d)[48]) {
+#pragma unroll
+  for (int i = 0; i < 48; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (+)= A * B, m64n96k16, bf16 in, f32 accumulators (scale_d = 0: d = A * B).
+__device__ __forceinline__ void wgmma96(float (&d)[48], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Four 8 x 8 bf16 matrices in mma fragment layout -> shared memory
+// transposed: lane 8i + b gives the address of row b of matrix i.
+__device__ __forceinline__ void stsm_x4_trans(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                              uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Generic-proxy accesses of shared memory ordered with the async proxy's
+// (wgmma's reads, a TMA box's writes).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t u4w(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// The input transform's operands and the channel masks of channel group grp.
+struct D96Group {
+  uint4 m4, a4;
+  uint32_t keep[4];
+};
+
+__device__ __forceinline__ void d96_group(D96Group& gr, const bf16* pmb, bool pre, int C, int grp) {
+  gr.m4 = make_uint4(0, 0, 0, 0);
+  gr.a4 = gr.m4;
+  if (pre) {
+    gr.m4 = *reinterpret_cast<const uint4*>(&pmb[grp * 8]);
+    gr.a4 = *reinterpret_cast<const uint4*>(&pmb[CP96 + grp * 8]);
+  }
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int ci = grp * 8 + 2 * jj;
+    gr.keep[jj] = (ci < C ? 0xffffu : 0u) | (ci + 1 < C ? 0xffff0000u : 0u);
+  }
+}
+
+// One pixel vector (8 channels, two a word) of the operand: pre's packed
+// bf16 arithmetic, then the masks (the halo, columns >= W and channels >=
+// C are 0 by position, never by value).
+__device__ __forceinline__ void d96_put(unsigned char* dst, uint32_t (&w)[4], const D96Group& gr,
+                                        bool pre, uint32_t in) {
+  if (pre) {
+    w[0] = pre2(w[0], gr.m4.x, gr.a4.x);
+    w[1] = pre2(w[1], gr.m4.y, gr.a4.y);
+    w[2] = pre2(w[2], gr.m4.z, gr.a4.z);
+    w[3] = pre2(w[3], gr.m4.w, gr.a4.w);
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0] & gr.keep[0] & in, w[1] & gr.keep[1] & in,
+                                              w[2] & gr.keep[2] & in, w[3] & gr.keep[3] & in);
+}
+
+// The producer's part of a tile, from the raw stage (raw[ci][r][q] = x[n,
+// ci, oy0-1+r, ox0+q], zero outside the image and past C, as the TMA box
+// lands it): an oct is 8 channels (one group) x 8 pixels of halo row r,
+// columns c = 8k-7 .. 8k (k = 1..8, raw q = 8k-8 .. 8k-1: a 16-byte chunk of
+// each channel row), 8 loads of 16 bytes transposed by byte permutes into 8
+// pixel vectors.  Warp-item wi (0..17) of a tile: 8 consecutive (group,
+// row) planes idx = 8*(wi % 9) + lane % 8 by 4 chunks k = 4*(wi / 9) + lane
+// / 8 + 1, so the 8 lanes of a store phase hit 8 rows (the odd pitch puts
+// them on distinct banks) and those of a load phase at most 2 to a bank.
+__device__ __forceinline__ void d96_oct(unsigned char* xop, const unsigned char* raw,
+                                        const bf16* pmb, bool pre, const Geo& g,
+                                        const D96Ops& ops, int oy0, int ox0, int wi, int lane) {
+  const int idx = 8 * (wi % 9) + (lane & 7), k = 4 * (wi / 9) + (lane >> 3) + 1;
+  const int grp = idx / D96_XR, r = idx - grp * D96_XR;
+  const int iy = oy0 - 1 + r, ix = ox0 + 8 * k - 8;
+  const uint32_t in = iy >= 0 && iy < g.H && ix < g.W ? 0xffffffffu : 0u;
+  const unsigned char* src = raw + ((grp * 8 * D96_XR + r) * D96_RAWC + 8 * k - 8) * 2;
+  uint4 v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    v[j] = *reinterpret_cast<const uint4*>(src + j * (D96_XR * D96_RAWC * 2));
+  D96Group gr;
+  d96_group(gr, pmb, pre, g.C, grp);
+  unsigned char* row = xop + grp * ops.plane + r * ops.row + (8 * k - 7) * 16;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    uint32_t w[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      w[jj] = __byte_perm(u4w(v[2 * jj], e >> 1), u4w(v[2 * jj + 1], e >> 1),
+                          (e & 1) ? 0x7632u : 0x5410u);
+    d96_put(row + e * 16, w, gr, pre, in);
+  }
+}
+
+// The halo's single columns of (group, row) idx: c = 0 (x column ox0-1,
+// left of the raw box) from device memory, loaded into h before the raw
+// stage is waited for; c = 65 (ox0+64) from the raw stage.
+__device__ __forceinline__ void d96_left_load(uint32_t (&h)[8], const bf16* __restrict__ x,
+                                              const Geo& g, int n, int oy0, int ox0, int idx) {
+  const int grp = idx / D96_XR, r = idx - grp * D96_XR;
+  const int iy = oy0 - 1 + r, ix = ox0 - 1;
+  const bool ok = idx >= 0 && iy >= 0 && iy < g.H && ix >= 0;
+  const uint16_t* src = reinterpret_cast<const uint16_t*>(x) +
+                        (((size_t)n * g.C + grp * 8) * g.H + iy) * g.W + ix;
+  const size_t plane = (size_t)g.H * g.W;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    h[j] = (ok && grp * 8 + j < g.C) ? (uint32_t)__ldg(src + j * plane) : 0u;
+}
+
+__device__ __forceinline__ void d96_singles(unsigned char* xop, const unsigned char* raw,
+                                            const uint32_t (&h)[8], const bf16* pmb, bool pre,
+                                            const Geo& g, const D96Ops& ops, int oy0, int ox0,
+                                            int idx) {
+  const int grp = idx / D96_XR, r = idx - grp * D96_XR;
+  const int iy = oy0 - 1 + r;
+  const bool row_in = iy >= 0 && iy < g.H;
+  D96Group gr;
+  d96_group(gr, pmb, pre, g.C, grp);
+  uint32_t w[4];
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) w[jj] = h[2 * jj] | (h[2 * jj + 1] << 16);
+  unsigned char* at = xop + grp * ops.plane + r * ops.row;
+  d96_put(at, w, gr, pre, row_in && ox0 >= 1 ? 0xffffffffu : 0u);
+  const uint16_t* rw = reinterpret_cast<const uint16_t*>(raw) + (grp * 8 * D96_XR + r) * D96_RAWC +
+                       D96_TC;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+    w[jj] = (uint32_t)rw[2 * jj * D96_XR * D96_RAWC] |
+            ((uint32_t)rw[(2 * jj + 1) * D96_XR * D96_RAWC] << 16);
+  d96_put(at + (D96_TC + 1) * 16, w, gr, pre, row_in && ox0 + D96_TC < g.W ? 0xffffffffu : 0u);
+}
+
+// The CTAs walk the tiles slab, slab + nslab, ... (4 output rows x 64
+// pixels x all 96 C_out).  Warp 0 streams tap slabs (step s = 9 * tile +
+// tap) into the weight ring.  Warps 1-3 transform tile j's raw stage (one
+// TMA box of tmx [N,C,H,W], box {72, 6, 96, 1}, issued by their thread 0)
+// into the x operand once the consumers have released tile j - 1's, then
+// issue tile j + 1's box into the raw stage.  Consumer warpgroup wg (warps
+// 4-7, 8-11) multiplies tile rows 2wg and 2wg+1 and writes them out; its
+// epilogue overlaps the next tile's transform.  Barriers: rawfull (the
+// box's bytes), xfull (96 producer arrivals), xempty (one per consumer
+// warpgroup, after its products), wfull[st] (the slab's bytes), wempty[st]
+// (one per consumer warpgroup, after the wgmma that read the slab
+// completed).  cycles (or null): [gridDim.x][D96_NCY] (ops/branch_conv.py,
+// D96_PHASES).
+__global__ void __launch_bounds__(D96_NT, 1)
+conv_d96_kernel(const __grid_constant__ CUtensorMap tmx, const bf16* __restrict__ x,
+                const bf16* __restrict__ wp, const float* __restrict__ mul,
+                const float* __restrict__ add, const bf16* __restrict__ xpost,
+                bf16* __restrict__ y, float* __restrict__ partial,
+                long long* __restrict__ cycles, Geo g, D96Ops ops, int pre, int stats, int post) {
+  static_assert(D96_SMEM_BYTES <= SMEM_MAX, "D96's shared memory");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the TMA box lands at a 128-byte aligned offset
+  unsigned char* raw = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);  // [96][6][72]
+  unsigned char* xbuf = raw + D96_RAW;                               // the x operand
+  unsigned char* wring = xbuf + D96_XBUF;                            // [D96_WST][D96_SLAB]
+  unsigned char* stg = wring + D96_WST * D96_SLAB;                   // [8][D96_STG]
+  float* pm = reinterpret_cast<float*>(stg + 8 * D96_STG);           // post: [3][Cp]
+  bf16* pmb = reinterpret_cast<bf16*>(pm + 3 * CP96);                // pre: [2][Cp]
+  uint64_t* rawfull = reinterpret_cast<uint64_t*>(pmb + 2 * CP96);
+  uint64_t* xfull = rawfull + 1;
+  uint64_t* xempty = xfull + 1;
+  uint64_t* wfull = xempty + 1;                                      // [D96_WST]
+  uint64_t* wempty = wfull + D96_WST;                                // [D96_WST]
+  long long* cyc = reinterpret_cast<long long*>(wempty + D96_WST);   // [D96_NCY]
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const long long t_start = globaltimer_ns();
+  const int C = g.C, slab = blockIdx.x, nslab = gridDim.x;
+  const bool stamp = cycles != nullptr;
+  if (post) {
+    // pm[ci] = bf16(mul[ci]), pm[Cp + ci] = bf16(add[ci]), pm[2Cp + ci] = mul[ci]
+    for (int e = t; e < 3 * CP96; e += D96_NT) {
+      const int which = e / CP96, ci = e - which * CP96;
+      const float v = ci < C ? (which == 1 ? add : mul)[ci] : 0.f;
+      pm[e] = which == 2 ? v : bf16r(v);
+    }
+  }
+  for (int e = t; e < 2 * CP96; e += D96_NT) {
+    const int which = e / CP96, ci = e - which * CP96;
+    pmb[e] = __float2bfloat16((pre && ci < C) ? (which ? add : mul)[ci] : 0.f);
+  }
+  if (t < D96_NCY) cyc[t] = 0;
+  if (t == 0) {
+    mbar_init(rawfull);         // the issuing thread (+ the box's bytes)
+    mbar_init(xfull, 96);       // every x producer thread, after its stores
+    mbar_init(xempty, 2);       // each consumer warpgroup, after its products
+    for (int k = 0; k < D96_WST; ++k) {
+      mbar_init(&wfull[k]);     // the issuing thread (+ the slab's bytes)
+      mbar_init(&wempty[k], 2); // each consumer warpgroup, after its products
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int ntl = (g.ntiles - slab + nslab - 1) / nslab;  // this CTA's tiles
+
+  // The roles never meet again: the producer warpgroup hands registers to
+  // the consumers' accumulators (128 x 96 + 256 x 200 <= 65,536), and each
+  // role writes its own stamps.
+  long long* out = stamp ? cycles + (size_t)blockIdx.x * D96_NCY : nullptr;
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 96;\n" ::: "memory");
+    if (warp == 0) {
+      // ------------------------------------------------------- weight slabs
+      const int nsteps = 9 * ntl;
+      for (int s = 0; s < nsteps; ++s) {
+        const int st = s % D96_WST;
+        if (s >= D96_WST) {  // the slab of step s - 3 released by both consumer warpgroups
+          const long long c0 = stamp ? clock64() : 0;
+          mbar_wait_bounded<false>(&wempty[st], (s / D96_WST - 1) & 1);
+          if (stamp && lane == 0) cyc[2] += clock64() - c0;
+        }
+        if (lane == 0)
+          bulk_load(wring + st * D96_SLAB, wp + (size_t)(s % 9) * (D96_SLAB / 2), D96_SLAB,
+                    &wfull[st]);
+        __syncwarp();
+      }
+      if (stamp && lane == 0) out[2] = cyc[2];
+    } else {
+      // ---------------------------------------------------------- x operand
+      const int pt = t - 32, pw = pt >> 5;
+      auto issue = [&](int j) {  // tile j's raw box, by thread 0 of the producers
+        int n, oy0, ox0;
+        d96_tile(g, slab + j * nslab, n, oy0, ox0);
+        mbar_arrive_expect_tx(rawfull, D96_RAW);
+        tma_load_4d(raw, &tmx, rawfull, ox0, oy0 - 1, 0, n);
+      };
+      if (pt == 0 && ntl > 0) issue(0);
+      for (int j = 0; j < ntl; ++j) {
+        int n, oy0, ox0;
+        d96_tile(g, slab + j * nslab, n, oy0, ox0);
+        // the left halo column's loads are in flight through the waits
+        const int idx = pt < D96_CG * D96_XR ? pt : -1;
+        uint32_t h[8];
+        d96_left_load(h, x, g, n, oy0, ox0, idx);
+        const long long c0 = stamp ? clock64() : 0;
+        mbar_wait_bounded<false>(rawfull, j & 1);  // tile j's box has landed
+        if (j >= 1)  // tile j - 1's operand released by both consumer warpgroups
+          mbar_wait_bounded<false>(xempty, (j - 1) & 1);
+        const long long c1 = stamp ? clock64() : 0;
+        if (stamp && pt == 0) cyc[0] += c1 - c0;
+        fence_async_shared();  // wgmma's reads of the operand before these writes
+#pragma unroll 1
+        for (int u = 0; u < 6; ++u)  // one oct live at a time: the registers are the consumers'
+          d96_oct(xbuf, raw, pmb, pre != 0, g, ops, oy0, ox0, pw * 6 + u, lane);
+        if (idx >= 0) d96_singles(xbuf, raw, h, pmb, pre != 0, g, ops, oy0, ox0, idx);
+        fence_async_shared();  // these writes before wgmma's reads
+        mbar_arrive(xfull);
+        // every producer thread is past its reads of the raw stage
+        asm volatile("bar.sync 2, 96;\n" ::: "memory");
+        if (pt == 0 && j + 1 < ntl) {
+          fence_async_shared();
+          issue(j + 1);
+        }
+        if (stamp && pt == 0) cyc[1] += clock64() - c1;
+      }
+      if (stamp && pt == 0) {
+        out[0] = cyc[0];
+        out[1] = cyc[1];
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n" ::: "memory");
+    // ---------------------------------------------------------- consumers
+    const int cw = warp - 4, wg = cw >> 2, q = cw & 3, wt = t & 127;
+    const bool st0 = stamp && t == 128;
+    float acc[2][48];
+#pragma unroll
+    for (int i = 0; i < 48; ++i) acc[0][i] = acc[1][i] = 0.f;
+    // statistics of this lane's chunks: C_out 48*hf + lane/2 + 16*k, pixel
+    // half lane % 2 of the warp's 16 (index 3 * hf + k)
+    float s1[6], s2[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) s1[k] = s2[k] = 0.f;
+    const uint32_t xbuf_s = smem_addr(xbuf), wring_s = smem_addr(wring);
+    unsigned char* ws = stg + cw * D96_STG;
+    const uint32_t ws_s = smem_addr(ws);
+    if (st0) {
+      cyc[7] = -clock64();
+      cyc[9] = globaltimer_ns();
+    }
+    for (int i = 0; i < ntl; ++i) {
+      int n, oy0, ox0;
+      d96_tile(g, slab + i * nslab, n, oy0, ox0);
+      long long c0 = st0 ? clock64() : 0;
+      mbar_wait_bounded<false>(xfull, i & 1);
+      if (st0) cyc[3] += clock64() - c0;
+      // this warpgroup's first row of the tile: halo row 2 * wg; taken
+      // through an opaque move each tile, so the 54 descriptors built from
+      // it are not hoisted out of the tile loop (108 registers held across
+      // it spill)
+      uint32_t xa;
+      asm volatile("mov.b32 %0, %1;\n" : "=r"(xa) : "r"(xbuf_s + 2 * wg * ops.row));
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int s = 9 * i + tap, st = s % D96_WST;
+        c0 = st0 ? clock64() : 0;
+        mbar_wait_bounded<false>(&wfull[st], (s / D96_WST) & 1);
+        const long long c1 = st0 ? clock64() : 0;
+        wg_fence();
+        const uint32_t wa = wring_s + st * D96_SLAB;
+#pragma unroll
+        for (int ks = 0; ks < CP96 / 16; ++ks) {
+          const uint64_t da = wg_desc(xa + ops.tap[tap] + 2 * ks * ops.plane, ops.plane);
+          const uint64_t db = wg_desc(wa + 2 * ks * D96_WLBO, D96_WLBO);
+          wgmma96(acc[0], da, db, tap | ks);
+          wgmma96(acc[1], da + (uint64_t)(ops.row >> 4), db, tap | ks);  // the next output row
+        }
+        wg_commit();
+        if (tap > 0) {  // tap - 1's products are done: its slab is free
+          wg_wait<1>();
+          if (wt == 0) mbar_arrive(&wempty[(s - 1) % D96_WST]);
+        }
+        if (st0) {
+          const long long c2 = clock64();
+          cyc[4] += c1 - c0;
+          cyc[5] += c2 - c1;
+        }
+      }
+      // post: the epilogue's x chunks of a lane, one row pass (rr, hf) ahead
+      // of the pass that uses them; pass 0's in flight through the last
+      // tap's products
+      uint4 xv[2][3];
+      auto load_x = [&](uint4 (&xb)[3], int rr, int hf) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const int e = lane + 32 * k, co = 48 * hf + (e >> 1);
+          const int ox = ox0 + 16 * q + 8 * (e & 1), oy = oy0 + 2 * wg + rr;
+          xb[k] = make_uint4(0, 0, 0, 0);
+          if (co < C && ox < g.W)
+            xb[k] = *reinterpret_cast<const uint4*>(
+                &xpost[(((size_t)n * C + co) * g.H + oy) * g.W + ox]);
+        }
+      };
+      if (post) load_x(xv[0], 0, 0);
+      c0 = st0 ? clock64() : 0;
+      wg_wait<0>();
+      wg_hold(acc[0]);
+      wg_hold(acc[1]);
+      if (wt == 0) {
+        mbar_arrive(&wempty[(9 * i + 8) % D96_WST]);
+        mbar_arrive(xempty);
+      }
+      const long long c1 = st0 ? clock64() : 0;
+      if (st0) cyc[5] += c1 - c0;
+
+      // Epilogue: each warp's 16 pixels of a row, 48 C_out at a time: the
+      // rounded y (post: dt) by stmatrix.trans into [48 C_out][16 pixels]
+      // (a row's two 16-byte halves swapped on every other 4-row group, so
+      // the 8 rows of a matrix hit distinct banks), then 16-byte chunks out
+      // (W % 8 == 0: a chunk is all inside or all outside); post's chain
+      // per element on x's chunk.  The statistics of the rounded y (post:
+      // (dmul, dadd)) per lane, in a fixed order.
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int oy = oy0 + 2 * wg + rr;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int pass = 2 * rr + hf;
+          if (post && pass < 3) load_x(xv[(pass + 1) & 1], (pass + 1) >> 1, (pass + 1) & 1);
+#pragma unroll
+          for (int s4 = 0; s4 < 3; ++s4) {
+            uint32_t r[4];
+#pragma unroll
+            for (int i4 = 0; i4 < 4; ++i4) {
+              const int idx = 4 * s4 + i4, j = 6 * hf + (idx >> 1), pg = idx & 1;
+              r[i4] = pack_bf16(acc[rr][4 * j + 2 * pg], acc[rr][4 * j + 2 * pg + 1]);
+            }
+            const int idx = 4 * s4 + (lane >> 3), col = 8 * (idx >> 1) + (lane & 7);
+            stsm_x4_trans(ws_s + col * 32 + (((idx & 1) ^ ((col >> 2) & 1)) << 4), r[0], r[1],
+                          r[2], r[3]);
+          }
+          __syncwarp();
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            const int e = lane + 32 * k, col = e >> 1, h = e & 1;
+            const int co = 48 * hf + col, ox = ox0 + 16 * q + 8 * h;
+            uint4 v =
+                *reinterpret_cast<const uint4*>(ws + col * 32 + ((h ^ ((col >> 2) & 1)) << 4));
+            if (co < C && ox < g.W) {
+              const size_t at = (((size_t)n * C + co) * g.H + oy) * g.W + ox;
+              uint32_t* vw = reinterpret_cast<uint32_t*>(&v);
+              if (post) {
+                const float mr = pm[co], ar = pm[CP96 + co], mw = pm[2 * CP96 + co];
+                const uint32_t* xw = reinterpret_cast<const uint32_t*>(&xv[pass & 1][k]);
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+                  float o[2];
+#pragma unroll
+                  for (int e2 = 0; e2 < 2; ++e2) {
+                    const float dt = __uint_as_float(e2 ? vw[kk] & 0xffff0000u : vw[kk] << 16);
+                    const float xf = __uint_as_float(e2 ? xw[kk] & 0xffff0000u : xw[kk] << 16);
+                    const float t2 = bf16r(__fadd_rn(bf16r(__fmul_rn(xf, mr)), ar));
+                    const float dtm = t2 > 0.f ? dt : 0.f;
+                    o[e2] = __fmul_rn(dtm, mw);
+                    s1[3 * hf + k] = __fadd_rn(s1[3 * hf + k], __fmul_rn(dtm, xf));
+                    s2[3 * hf + k] = __fadd_rn(s2[3 * hf + k], dtm);
+                  }
+                  vw[kk] = pack_bf16(o[0], o[1]);
+                }
+              } else if (stats) {
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+                  const float f0 = __uint_as_float(vw[kk] << 16);
+                  const float f1 = __uint_as_float(vw[kk] & 0xffff0000u);
+                  s1[3 * hf + k] = __fadd_rn(__fadd_rn(s1[3 * hf + k], f0), f1);
+                  s2[3 * hf + k] = __fadd_rn(__fadd_rn(s2[3 * hf + k], __fmul_rn(f0, f0)),
+                                             __fmul_rn(f1, f1));
+                }
+              }
+              *reinterpret_cast<uint4*>(&y[at]) = v;
+            }
+          }
+          __syncwarp();
+        }
+      }
+      if (st0) cyc[6] += clock64() - c1;
+    }
+    if (st0) {
+      cyc[7] += clock64();
+      cyc[10] = globaltimer_ns();
+    }
+    if (stats || post) {
+      // CTA partial: the two pixel halves of a C_out (lanes l, l ^ 1), then
+      // the 8 consumer warps in order, through the x operand (every
+      // warpgroup is past its last products at the named barrier, and the
+      // producers past their last transform)
+      float* red = reinterpret_cast<float*>(xbuf);  // [8][2][Cp]
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        const float a = s1[k] + __shfl_xor_sync(0xffffffffu, s1[k], 1);
+        const float b2 = s2[k] + __shfl_xor_sync(0xffffffffu, s2[k], 1);
+        if ((lane & 1) == 0) {
+          const int co = 48 * (k / 3) + (lane >> 1) + 16 * (k % 3);
+          red[(cw * 2 + 0) * CP96 + co] = a;
+          red[(cw * 2 + 1) * CP96 + co] = b2;
+        }
+      }
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      for (int e = t - 128; e < 2 * CP96; e += 256) {
+        const int which = e / CP96, co = e - which * CP96;
+        if (co >= C) continue;
+        float sum = 0.f;
+        for (int w8 = 0; w8 < 8; ++w8) sum += red[(w8 * 2 + which) * CP96 + co];
+        partial[((size_t)slab * 2 + which) * C + co] = sum;
+      }
+    }
+    if (stamp) {
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // every partial stored
+      if (st0) {
+        cyc[8] = t_start;
+        cyc[11] = globaltimer_ns();
+        for (int k = 3; k < D96_NCY; ++k) out[k] = cyc[k];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fixed-order reductions of the per-block partials
 // ---------------------------------------------------------------------------
 
@@ -2001,19 +2376,86 @@ static int run_fwd(const void* x, const void* w, const void* mul, const void* ad
 
 static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-// D96's plan: out[0] = shared bytes, out[1] = x stages, out[2] = weight
-// stages, out[3] = tile rows, out[4] = tiles per image plane (for the
-// grid), out[5] = packed weight elements (the wpack buffer).
+// D96's plan: out[0] = shared bytes, out[1] = x operand buffers, out[2] =
+// weight stages, out[3] = tile rows, out[4] = tile pixels per row, out[5]
+// = warpgroups (one producer, two consumers), out[6] = CTAs per SM (the
+// occupancy calculator's: 0 if the plan does not fit), out[7] = tiles per
+// image plane (for the grid), out[8] = packed weight elements (the wpack
+// buffer), out[9] = the x operand's halo row pitch (pixels), out[10] = the
+// raw x stage's bytes (one TMA box a tile).
 extern "C" int branch_conv_fwd96_plan(int C, int H, int W, int* out) {
-  const Geo g = make_dw_geo(1, C, H, W);
+  const Geo g = make_d96_geo(1, C, H, W);
   if (C < 1 || g.Cp != CP96) return (int)cudaErrorInvalidValue;
-  out[0] = D96_SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_d96_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, D96_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  int bps = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, conv_d96_kernel, D96_NT,
+                                                      D96_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = D96_SMEM_BYTES;
   out[1] = 1;
-  out[2] = WST96;
-  out[3] = ETH;
-  out[4] = g.ntiles;
-  out[5] = 9 * SLAB96;
+  out[2] = D96_WST;
+  out[3] = D96_TR;
+  out[4] = D96_TC;
+  out[5] = D96_NT / 128;
+  out[6] = bps;
+  out[7] = g.ntiles;
+  out[8] = 9 * D96_SLAB / 2;
+  out[9] = D96_XP;
+  out[10] = D96_RAW;
   return 0;
+}
+
+// The host's x operand addressing (ops: plane, row, tap[9] bytes) against
+// the buffers this source lays out: the planes and rows its producer
+// writes, and every tap of every tile row inside its channel group's plane.
+static bool d96_ops_ok(const int* ops, D96Ops& o) {
+  if (!ops) return false;
+  o.plane = ops[0];
+  o.row = ops[1];
+  if (o.plane != D96_PLANE || o.row != D96_XP * 16) return false;
+  for (int k = 0; k < 9; ++k) {
+    o.tap[k] = ops[2 + k];
+    if (o.tap[k] < 0 || o.tap[k] % 16 != 0 ||
+        o.tap[k] + (D96_TR - 1) * o.row + D96_TC * 16 > o.plane)
+      return false;
+  }
+  return true;
+}
+
+static int encode_act(CUtensorMap* map, const void* p, const Geo& g, int bw, int bh, int bc);
+
+// D96: x's tensor map (box {72, 6, 96, 1}), the weights packed into wpack,
+// the persistent CTAs (grid nslab <=
+// tiles, one per SM), then with sums the fixed-order reduction.
+static int run_d96(const void* x, const void* w, const void* mul, const void* add,
+                   const void* xpost, void* y, void* partial, void* sums, void* wpack,
+                   void* cycles, const int* ops, int N, int C, int H, int W, int pre, int stats,
+                   int flip, int post, int nslab, cudaStream_t s) {
+  const Geo g = make_d96_geo(N, C, H, W);
+  D96Ops o;
+  if (g.Cp != CP96 || W % 8 != 0 || nslab > g.ntiles || !aligned16(x) || !aligned16(y) ||
+      !aligned16(wpack) || (xpost && !aligned16(xpost)) || !d96_ops_ok(ops, o))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tmx;
+  const int e = encode_act(&tmx, x, g, D96_RAWC, D96_XR, CP96);
+  if (e) return e;
+  pack_w96_kernel<<<(9 * D96_SLAB / 2 + 255) / 256, 256, 0, s>>>((const float*)w, (bf16*)wpack,
+                                                                 C, flip);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(conv_d96_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             D96_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  conv_d96_kernel<<<nslab, D96_NT, D96_SMEM_BYTES, s>>>(
+      tmx, (const bf16*)x, (const bf16*)wpack, (const float*)mul, (const float*)add,
+      (const bf16*)xpost, (bf16*)y, (float*)partial, (long long*)cycles, g, o, pre, stats, post);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !sums) return (int)err;
+  reduce_rows_kernel<<<(2 * C + 255) / 256, 256, 0, s>>>((const float*)partial, nslab, 2 * C,
+                                                        (float*)sums);
+  return (int)cudaGetLastError();
 }
 
 // D48's plan: out[0] = shared bytes, out[1] = x stages, out[2] = tile
@@ -2038,42 +2480,40 @@ extern "C" int branch_conv_fwd48_plan(int C, int H, int W, int* out) {
   return 0;
 }
 
-// The weight pack of D96 or D48 (cp = its padded width) into wpack.
-static cudaError_t launch_pack(const void* w, void* wpack, int C, int flip, int cp,
-                               cudaStream_t s) {
-  if (cp == CP96)
-    pack_w_kernel<CP96><<<(9 * SLAB96 + 255) / 256, 256, 0, s>>>((const float*)w, (bf16*)wpack,
-                                                                 C, flip);
-  else
-    pack_w_kernel<CP48><<<(9 * SLAB48 + 255) / 256, 256, 0, s>>>((const float*)w, (bf16*)wpack,
-                                                                 C, flip);
+// D48's weight pack into wpack.
+static cudaError_t launch_pack48(const void* w, void* wpack, int C, int flip, cudaStream_t s) {
+  pack_w_kernel<CP48><<<(9 * SLAB48 + 255) / 256, 256, 0, s>>>((const float*)w, (bf16*)wpack, C,
+                                                               flip);
   return cudaGetLastError();
 }
 
 // D96 or D48 (kern = its padded width, 96 or 48): the weights packed into
 // wpack, then the persistent blocks (grid nslab <= tiles), then with sums
 // the fixed-order reduction.  Needs C padding to kern, W % 8 == 0 and the
-// activations and wpack 16-byte aligned.
+// activations and wpack 16-byte aligned; cycles (D96's stamps) or null.
 static int run_fwd_packed(int kern, const void* x, const void* w, const void* mul,
                           const void* add, const void* xpost, void* y, void* partial, void* sums,
-                          void* wpack, int N, int C, int H, int W, int pre, int stats, int flip,
-                          int post, int nslab, void* stream) {
+                          void* wpack, void* cycles, const int* ops, int N, int C, int H, int W,
+                          int pre, int stats, int flip, int post, int nslab, void* stream) {
   if (!geo_ok(N, C, H, W) || nslab < 1 || (kern != CP96 && kern != CP48))
     return (int)cudaErrorInvalidValue;
-  const Geo g = kern == CP96 ? make_dw_geo(N, C, H, W) : make_geo(N, C, H, W);
-  if (g.Cp != kern || W % 8 != 0 || nslab > g.ntiles || !aligned16(x) || !aligned16(y) ||
-      !aligned16(wpack) || (xpost && !aligned16(xpost)))
-    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = launch_pack(w, wpack, C, flip, kern, s);
+  if (kern == CP96)
+    return run_d96(x, w, mul, add, xpost, y, partial, sums, wpack, cycles, ops, N, C, H, W, pre,
+                   stats, flip, post, nslab, s);
+  const Geo g = make_geo(N, C, H, W);
+  if (g.Cp != CP48 || W % 8 != 0 || nslab > g.ntiles || !aligned16(x) || !aligned16(y) ||
+      !aligned16(wpack) || (xpost && !aligned16(xpost)) || cycles)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = launch_pack48(w, wpack, C, flip, s);
   if (err != cudaSuccess) return (int)err;
-  const auto kernel = kern == CP96 ? conv_fwd96_kernel : conv_fwd48_kernel;
-  const int smem = kern == CP96 ? D96_SMEM : D48_SMEM;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = cudaFuncSetAttribute(conv_fwd48_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             D48_SMEM);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<nslab, NT, smem, s>>>((const bf16*)x, (const bf16*)wpack, (const float*)mul,
-                                 (const float*)add, (const bf16*)xpost, (bf16*)y,
-                                 (float*)partial, g, pre, stats, post);
+  conv_fwd48_kernel<<<nslab, NT, D48_SMEM, s>>>((const bf16*)x, (const bf16*)wpack,
+                                                (const float*)mul, (const float*)add,
+                                                (const bf16*)xpost, (bf16*)y, (float*)partial, g,
+                                                pre, stats, post);
   err = cudaGetLastError();
   if (err != cudaSuccess || !sums) return (int)err;
   reduce_rows_kernel<<<(2 * C + 255) / 256, 256, 0, s>>>((const float*)partial, nslab, 2 * C,
@@ -2085,14 +2525,18 @@ static int run_fwd_packed(int kern, const void* x, const void* w, const void* mu
 // y [N,C,H,W] bf16; partial [nslab][2][C] f32; sums [2][C] f32 (stats).
 // kern = 96 takes D96, 48 D48 (wpack: bf16 scratch of the plan's size; the
 // grid is nslab), 0 conv_fwd_kernel (the grid is nslab * D's C_out split);
-// nslab <= tiles of the kernel taken.
+// nslab <= tiles of the kernel taken.  D96 only: ops, the x operand's
+// addressing (int[11]: plane, row, tap[9] bytes; anything but this
+// source's layout is refused), and cycles, null or [nslab][12] int64
+// stamps; a tensor map that fails to encode returns TMAP_ERR + its
+// CUresult.
 extern "C" int branch_conv_fwd(const void* x, const void* w, const void* mul, const void* add,
-                               void* y, void* partial, void* sums, void* wpack, int N, int C,
-                               int H, int W, int pre, int stats, int flip, int nslab, int kern,
-                               void* stream) {
+                               void* y, void* partial, void* sums, void* wpack, void* cycles,
+                               const int* ops, int N, int C, int H, int W, int pre, int stats,
+                               int flip, int nslab, int kern, void* stream) {
   if (kern)
     return run_fwd_packed(kern, x, w, mul, add, nullptr, y, partial, stats ? sums : nullptr,
-                          wpack, N, C, H, W, pre, stats, flip, 0, nslab, stream);
+                          wpack, cycles, ops, N, C, H, W, pre, stats, flip, 0, nslab, stream);
   return run_fwd(x, w, mul, add, nullptr, y, partial, stats ? sums : nullptr, N, C, H, W, pre,
                  stats, flip, 0, nslab, stream);
 }
@@ -2100,24 +2544,29 @@ extern "C" int branch_conv_fwd(const void* x, const void* w, const void* mul, co
 // Kernel D's post mode: the dx conv of dY [N,C,H,W] bf16 with the flipped
 // w [C,C,3,3] f32, its epilogue fused: x [N,C,H,W] bf16 and mul, add [C]
 // f32 (raw) of the forward conv's input transform; dx [N,C,H,W] bf16;
-// partial [nslab][2][C] f32; sums [2][C] f32 = (dmul, dadd).  wpack and
-// kern as in branch_conv_fwd.
+// partial [nslab][2][C] f32; sums [2][C] f32 = (dmul, dadd).  wpack,
+// cycles, ops and kern as in branch_conv_fwd.
 extern "C" int branch_conv_dx_post(const void* dY, const void* w, const void* x,
                                    const void* mul, const void* add, void* dx, void* partial,
-                                   void* sums, void* wpack, int N, int C, int H, int W,
-                                   int nslab, int kern, void* stream) {
+                                   void* sums, void* wpack, void* cycles, const int* ops, int N,
+                                   int C, int H, int W, int nslab, int kern, void* stream) {
   if (kern)
-    return run_fwd_packed(kern, dY, w, mul, add, x, dx, partial, sums, wpack, N, C, H, W, 0, 0,
-                          1, 1, nslab, stream);
+    return run_fwd_packed(kern, dY, w, mul, add, x, dx, partial, sums, wpack, cycles, ops, N, C,
+                          H, W, 0, 0, 1, 1, nslab, stream);
   return run_fwd(dY, w, mul, add, x, dx, partial, sums, N, C, H, W, 0, 0, 1, 1, nslab, stream);
 }
 
-// The weight pack alone, for C padding to 96 or 48: wpack [9][Cp][Cp + 8]
-// bf16 from w [C,C,3,3] f32.
+// The weight pack alone from w [C,C,3,3] f32: C padding to 96, wpack
+// [9][12][96][8] bf16 (pack_w96_kernel); to 48, [9][48][56].
 extern "C" int branch_conv_pack(const void* w, void* wpack, int C, int flip, void* stream) {
   const int cp = (C + 15) / 16 * 16;
   if (C < 1 || (cp != CP96 && cp != CP48)) return (int)cudaErrorInvalidValue;
-  return (int)launch_pack(w, wpack, C, flip, cp, (cudaStream_t)stream);
+  if (cp == CP96) {
+    pack_w96_kernel<<<(9 * D96_SLAB / 2 + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)w, (bf16*)wpack, C, flip);
+    return (int)cudaGetLastError();
+  }
+  return (int)launch_pack48(w, wpack, C, flip, (cudaStream_t)stream);
 }
 
 template <int K16>

@@ -44,10 +44,12 @@ tensor map that fails to encode, raises; nothing gives way to another
 kernel.  D has three kernels, picked before the
 launch by :func:`fwd_kernel`, where W % 8 == 0 and the activations are
 16-byte aligned: at channels padded to 96 (C = 81..96) D96
-(``conv_fwd96_kernel``: one block per SM, 4 x 32-pixel tiles of all 96
-output channels, x staged once per tile through E's ``cp.async`` copies and
-transform, the weights packed once per call into a bf16 scratch and
-streamed per tap); at channels padded to 48 (C = 33..48) D48
+(``conv_d96_kernel``: one persistent CTA per SM of a producer and two
+consumer warpgroups, 4 x 64-pixel tiles of all 96 output channels, wgmma
+m64n96k16 on shared-memory descriptors; x by one TMA box a tile,
+transformed into the operand whose addressing :func:`d96_operand_plan`
+gives; the weights packed once per call and streamed per tap; stamps on
+request, :data:`D96_PHASES`); at channels padded to 48 (C = 33..48) D48
 (``conv_fwd48_kernel``: one block per SM, 8 x 32-pixel tiles of all 48
 output channels, the packed weights resident in shared memory, x staged two
 tiles ahead); else ``conv_fwd_kernel``.  Counters:
@@ -144,16 +146,54 @@ def _padded(c: int) -> int:
 
 
 def pack_weights_plain(w: torch.Tensor, flip: bool = False) -> torch.Tensor:
-    """D96's and D48's packed weights: [9, Cp, Cp + 8] bf16 with Cp = C
-    padded to 16, tap-major, rows C_out, with wp[kh*3 + kw, co, ci] =
-    bf16(w'[co, ci, kh, kw]) for w' = w or :func:`flip_weight` (w); 0 for co
-    or ci >= C and in the 8-column skew."""
+    """The packed weights of D96 and D48, bf16, tap-major, with w' = w or
+    :func:`flip_weight` (w) and 0 for co or ci >= C.  D96 (C padding to 96):
+    [9, 12, 96, 8], wp[kh*3 + kw, ci // 8, co, ci % 8] = bf16(w'[co, ci, kh,
+    kw]) -- a tap's slab is wgmma's B operand in core matrices of 8 C_out x 8
+    ci (:func:`d96_operand_plan`).  D48: [9, 48, 56], wp[kh*3 + kw, co, ci] =
+    bf16(w'[co, ci, kh, kw]), 0 in the 8-column skew."""
     c = w.shape[0]
     cp = _padded(c)
     wf = (flip_weight(w) if flip else w).to(torch.bfloat16)
+    if cp == C96:
+        full = torch.zeros((9, cp, cp), dtype=torch.bfloat16, device=w.device)
+        full[:, :c, :c] = wf.permute(2, 3, 0, 1).reshape(9, c, c)
+        return full.reshape(9, cp, cp // 8, 8).permute(0, 2, 1, 3).contiguous()
     out = torch.zeros((9, cp, cp + 8), dtype=torch.bfloat16, device=w.device)
     out[:, :c, :c] = wf.permute(2, 3, 0, 1).reshape(9, c, c)
     return out
+
+
+# D96's tile: output rows, and pixels of a row (one wgmma's M); the x
+# operand's halo rows are padded to an odd pitch of pixels
+D96_TILE = (4, 64)
+D96_ROW_PIXELS = 67
+
+
+def d96_operand_plan() -> dict:
+    """D96's x operand as its wgmma reads it, in bytes (the kernel takes
+    these and checks them against its buffers).  The producer writes the
+    transformed, halo'd tile of channel group g (8 channels), halo row r,
+    column c at ``g * plane + r * row + c * 16``: one 16-byte pixel vector of
+    8 channels, so 8 consecutive pixels are one core matrix (K-major, no
+    swizzle: ``sbo`` between 8-pixel groups, ``lbo`` = plane between the two
+    8-channel halves of a k16 step).  Tile row rr's product at tap (kh, kw)
+    and k16 step s reads the 64 pixels from ``tap[kh*3 + kw] + rr * row + 2 *
+    s * plane``: a tap is a start offset, no im2col and no shifted copy.
+    ``w_lbo`` is the same step for the packed weights
+    (:func:`pack_weights_plain`: 96 C_out of 16 bytes per channel group)."""
+    rows, cols = D96_TILE
+    row = D96_ROW_PIXELS * 16
+    plane = (rows + 2) * row
+    tap = tuple(kh * row + kw * 16 for kh in range(3) for kw in range(3))
+    return {"pixel": 16, "row": row, "plane": plane, "lbo": plane, "sbo": 128, "tap": tap,
+            "channel_groups": C96 // 8, "halo": (rows + 2, cols + 2), "w_lbo": C96 * 16}
+
+
+def _d96_ops():
+    """The kernel's int[11] of :func:`d96_operand_plan`: plane, row, tap[9]."""
+    p = d96_operand_plan()
+    return (ctypes.c_int * 11)(p["plane"], p["row"], *p["tap"])
 
 
 def conv3x3_dx_post_plain(dY, w, x, mul, add):
@@ -175,9 +215,9 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.branch_conv_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.branch_conv_plan.restype = i
-        lib.branch_conv_fwd.argtypes = [vp] * 8 + [i] * 9 + [vp]
+        lib.branch_conv_fwd.argtypes = [vp] * 10 + [i] * 9 + [vp]
         lib.branch_conv_fwd.restype = i
-        lib.branch_conv_dx_post.argtypes = [vp] * 9 + [i] * 6 + [vp]
+        lib.branch_conv_dx_post.argtypes = [vp] * 11 + [i] * 6 + [vp]
         lib.branch_conv_dx_post.restype = i
         lib.branch_conv_fwd96_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.branch_conv_fwd96_plan.restype = i
@@ -253,14 +293,29 @@ def dw_async(shape, ptrs) -> bool:
     return shape[3] % 8 == 0 and all(p % 16 == 0 for p in ptrs)
 
 
-FWD96_PLAN_KEYS = ("smem", "x_stages", "w_stages", "tile_rows", "tiles", "wpack")
+FWD96_PLAN_KEYS = ("smem", "x_buffers", "w_stages", "tile_rows", "tile_pixels", "warpgroups",
+                   "ctas_per_sm", "tiles", "wpack", "row_pixels", "raw_bytes")
 
 
 def fwd96_plan(c: int, h: int, w: int) -> dict:
     """D96's plan for C channels (padded to 96) at H x W, from the kernel
-    source: shared bytes, x stages, weight stages, tile rows, tiles per
-    image, packed weight elements."""
+    source: shared bytes, x operand buffers, weight stages, tile rows and
+    pixels per row, warpgroups (one producer, two consumers), CTAs per SM
+    (the occupancy calculator's: 0 where the plan does not fit), tiles per
+    image, packed weight elements, the x operand's halo row pitch, the raw
+    x stage's bytes (one TMA box a tile)."""
     return _plan_dict(FWD96_PLAN_KEYS, "branch_conv_fwd96_plan", c, h, w)
+
+
+# D96's stamps per CTA, in the kernel's order (csrc/branch_conv.cu,
+# conv_d96_kernel): clock64 sums of one thread of each role (the x
+# producer's lane 0 of warp 1, the weight producer's lane 0 of warp 0, the
+# first consumer warpgroup's thread 0), then global-timer marks
+D96_PHASES = ("x producer: wait for the raw box and the operand", "x producer: fill",
+              "weights: wait for an empty slab", "consumer: wait for x",
+              "consumer: wait for a slab", "consumer: products", "consumer: epilogue",
+              "consumer: tile loop", "start (global ns)", "loop start (global ns)",
+              "loop end (global ns)", "end (global ns)")
 
 
 FWD48_PLAN_KEYS = ("smem", "x_stages", "tile_rows", "blocks_per_sm", "tiles", "wpack")
@@ -354,9 +409,21 @@ def _fwd_slabs(device: torch.device, smem: int, split: int, tiles: int) -> int:
     return _slabs(device, 2 if 2 * smem <= 227 * 1024 else 1, split, tiles)
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stamps(device, kern: int, nslab: int, cycles: bool) -> Optional[torch.Tensor]:
+    _check(not cycles or kern == C96, "stamps are D96's")
+    return torch.zeros((nslab, len(D96_PHASES)), dtype=torch.int64,
+                       device=device) if cycles else None
+
+
 def conv3x3_fwd_cuda(x: torch.Tensor, w: torch.Tensor, mul=None, add=None, stats: bool = True,
-                     flip: bool = False):
-    """Kernel D: x bf16 NCHW, w f32 OIHW -> (y bf16, [2,C] f32 or None)."""
+                     flip: bool = False, cycles: bool = False):
+    """Kernel D: x bf16 NCHW, w f32 OIHW -> (y bf16, [2,C] f32 or None);
+    with ``cycles`` (D96 only) also an int64 [CTAs, 12] tensor of each
+    CTA's stamps (:data:`D96_PHASES`)."""
     n, c, h, wd = _geometry(x, w)
     if mul is not None:
         _check_vec("mul", mul, (c,), x.device)
@@ -364,19 +431,20 @@ def conv3x3_fwd_cuda(x: torch.Tensor, w: torch.Tensor, mul=None, add=None, stats
     y = torch.empty_like(x)
     kern = fwd_kernel(x.shape, (x.data_ptr(), y.data_ptr()))
     nslab, wpack = _fwd_launch_plan(x.device, n, c, h, wd, kern)
+    cyc = _stamps(x.device, kern, nslab, cycles)
     sums = partial = None
     if stats:
         sums = torch.empty((2, c), dtype=torch.float32, device=x.device)
         partial = torch.empty((nslab, 2, c), dtype=torch.float32, device=x.device)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    ops = _d96_ops()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib().branch_conv_fwd(x.data_ptr(), w.data_ptr(), ptr(mul), ptr(add), y.data_ptr(),
-                                 ptr(partial), ptr(sums), ptr(wpack), n, c, h, wd,
-                                 int(mul is not None), int(stats), int(flip), nslab, kern,
-                                 stream)
+    err = _lib().branch_conv_fwd(x.data_ptr(), w.data_ptr(), _ptr(mul), _ptr(add), y.data_ptr(),
+                                 _ptr(partial), _ptr(sums), _ptr(wpack), _ptr(cyc),
+                                 ctypes.addressof(ops), n, c, h, wd, int(mul is not None),
+                                 int(stats), int(flip), nslab, kern, stream)
     _raise_on(err, "branch_conv_fwd")
     _count(kern, post=False)
-    return y, sums
+    return (y, sums, cyc) if cycles else (y, sums)
 
 
 conv3x3_fwd_cuda.launches = 0
@@ -403,8 +471,10 @@ def _fwd_launch_plan(device, n: int, c: int, h: int, wd: int, kern: int, post: b
     for D's kernel ``kern`` at [n, c, h, wd]."""
     if kern:
         plan = (fwd96_plan if kern == C96 else fwd48_plan)(c, h, wd)
+        per_sm = plan["blocks_per_sm"] if kern == C48 else plan["ctas_per_sm"]
+        _check(per_sm > 0, f"{'D96' if kern == C96 else 'D48'}'s plan ({plan['smem']} shared "
+               f"bytes) does not fit on this card")
         wpack = torch.empty(plan["wpack"], dtype=torch.bfloat16, device=device)
-        per_sm = plan["blocks_per_sm"] if kern == C48 else 1
         return _slabs(device, per_sm, 1, n * plan["tiles"]), wpack
     smem, nmt, _, _, tiles, smem_post = _plan(c, h, wd)
     return _fwd_slabs(device, smem_post if post else smem, nmt, n * tiles), None
@@ -413,12 +483,13 @@ def _fwd_launch_plan(device, n: int, c: int, h: int, wd: int, kern: int, post: b
 def pack_weights_cuda(w: torch.Tensor, flip: bool = False) -> torch.Tensor:
     """The weight pack of D96 or D48 alone (the kernel each of their
     launches runs first): w f32 OIHW on the card, C padding to 96 or 48 ->
-    [9, Cp, Cp + 8] bf16 (:func:`pack_weights_plain`)."""
+    :func:`pack_weights_plain`'s layout."""
     c = w.shape[0]
     cp = _padded(c)
     _check_vec("w", w, (c, c, 3, 3), w.device)
     _check(w.is_cuda and cp in (C96, C48), f"needs a CUDA w with C padding to {C96} or {C48}")
-    out = torch.empty((9, cp, cp + 8), dtype=torch.bfloat16, device=w.device)
+    shape = (9, cp // 8, cp, 8) if cp == C96 else (9, cp, cp + 8)
+    out = torch.empty(shape, dtype=torch.bfloat16, device=w.device)
     err = _lib().branch_conv_pack(w.data_ptr(), out.data_ptr(), c, int(flip),
                                   torch.cuda.current_stream(w.device).cuda_stream)
     _raise_on(err, "branch_conv_pack")
@@ -426,9 +497,10 @@ def pack_weights_cuda(w: torch.Tensor, flip: bool = False) -> torch.Tensor:
 
 
 def conv3x3_dx_post_cuda(dY: torch.Tensor, w: torch.Tensor, x: torch.Tensor, mul: torch.Tensor,
-                         add: torch.Tensor):
+                         add: torch.Tensor, cycles: bool = False):
     """Kernel D's post mode: dY, x bf16 NCHW, w f32 OIHW (the forward conv's),
-    mul, add f32 [C] (raw) -> (dx bf16, [2,C] f32 (dmul, dadd))."""
+    mul, add f32 [C] (raw) -> (dx bf16, [2,C] f32 (dmul, dadd)); with
+    ``cycles`` (D96 only) also the CTAs' stamps, as :func:`conv3x3_fwd_cuda`."""
     n, c, h, wd = _geometry(dY, w)
     _check_act("x", x, dY.shape)
     _check_vec("mul", mul, (c,), dY.device)
@@ -436,16 +508,18 @@ def conv3x3_dx_post_cuda(dY: torch.Tensor, w: torch.Tensor, x: torch.Tensor, mul
     dx = torch.empty_like(dY)
     kern = fwd_kernel(dY.shape, (dY.data_ptr(), dx.data_ptr(), x.data_ptr()))
     nslab, wpack = _fwd_launch_plan(dY.device, n, c, h, wd, kern, post=True)
+    cyc = _stamps(dY.device, kern, nslab, cycles)
     sums = torch.empty((2, c), dtype=torch.float32, device=dY.device)
     partial = torch.empty((nslab, 2, c), dtype=torch.float32, device=dY.device)
+    ops = _d96_ops()
     stream = torch.cuda.current_stream(dY.device).cuda_stream
     err = _lib().branch_conv_dx_post(dY.data_ptr(), w.data_ptr(), x.data_ptr(), mul.data_ptr(),
                                      add.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-                                     sums.data_ptr(), None if wpack is None else wpack.data_ptr(),
-                                     n, c, h, wd, nslab, kern, stream)
+                                     sums.data_ptr(), _ptr(wpack), _ptr(cyc),
+                                     ctypes.addressof(ops), n, c, h, wd, nslab, kern, stream)
     _raise_on(err, "branch_conv_dx_post")
     _count(kern, post=True)
-    return dx, sums
+    return (dx, sums, cyc) if cycles else (dx, sums)
 
 
 def conv3x3_dw_cuda(x: torch.Tensor, dy: torch.Tensor, y=None, ds=None, mul=None, add=None):
@@ -501,12 +575,11 @@ def conv3x3_dw_launch(x: torch.Tensor, dy: torch.Tensor, y=None, ds=None, mul=No
     partial = torch.empty((nslab, cp, 9 * cp), dtype=torch.float32, device=x.device)
     cyc = torch.zeros((3 * nslab, len(DW96_PHASES)), dtype=torch.int64,
                       device=x.device) if cycles else None
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib().branch_conv_dw(x.data_ptr(), dy.data_ptr(), ptr(y), ptr(ds), ptr(mul), ptr(add),
-                                ptr(dY), partial.data_ptr(), dk.data_ptr(), ptr(cyc), n, c, h, wd,
-                                int(mul is not None), int(fuse), nslab, int(kernel == "ring"),
-                                int(kernel == "e96"), stream)
+    err = _lib().branch_conv_dw(x.data_ptr(), dy.data_ptr(), _ptr(y), _ptr(ds), _ptr(mul),
+                                _ptr(add), _ptr(dY), partial.data_ptr(), dk.data_ptr(), _ptr(cyc),
+                                n, c, h, wd, int(mul is not None), int(fuse), nslab,
+                                int(kernel == "ring"), int(kernel == "e96"), stream)
     _raise_on(err, "branch_conv_dw")
     f = conv3x3_dw_cuda
     f.launches += 1

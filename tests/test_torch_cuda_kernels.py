@@ -320,9 +320,9 @@ def test_d_outside_d96_takes_conv_fwd_kernel(dev, n, c, h, w, shift):
 @pytest.mark.parametrize("c,flip", [(96, False), (96, True), (88, True), (48, False), (48, True),
                                     (40, True)])
 def test_d96_packed_weights_equal_the_plain_pack(dev, c, flip):
-    """The pack kernel of D96 and of D48 writes flip_weight(w).to(bf16) (or
-    w) tap-major, rows C_out, zero beyond C and in the skew: the plain pack,
-    bit for bit."""
+    """The pack kernels of D96 and of D48 write flip_weight(w).to(bf16) (or
+    w) tap-major in their layouts, zero beyond C (and, at 48, in the skew):
+    the plain pack, bit for bit."""
     wt = _branch_inputs(dev, 1, c, 8, 8)[1]
     assert torch.equal(bc.pack_weights_cuda(wt, flip), bc.pack_weights_plain(wt, flip))
 
