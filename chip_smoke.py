@@ -30,8 +30,8 @@ Phases; any failure exits non-zero and prints no result:
                 reordering), which is timed beside it, in every mode, also
                 back to back in turns with it and ``F.conv2d`` ("b2b_ms",
                 behind a device spin), with the count of elements whose bits
-                differ from it and D96's stamps (``d96_phases``); D's
-                post mode also
+                differ from it, and the stamps of D96 (``d96_phases``)
+                and D48 (``d48_phases``); D's post mode also
                 bit-equal to D's dx conv followed by ``pre_backward`` on the
                 card, twice on the same inputs, with the times of
                 ``pre_backward`` alone and of that unfused chain; E also twice
@@ -120,7 +120,8 @@ Phases; any failure exits non-zero and prints no result:
                 bit) against the run with no group, twice (the card's
                 run-to-run control).  (b) config 3 (8 + 8, each rank
                 4 + 4) and (c) config 5 (4 + 4, each rank 2 + 2; OHEM,
-                branch_conv pallas, remat stages:3) through ``Trainer.fit``
+                branch_conv pallas, remat stages:3; one HR module a stage,
+                ``DDP_DEPTH5``) through ``Trainer.fit``
                 on two ranks that share the card over gloo, started as
                 ``chip_smoke.py --ddp-rank`` subprocesses under
                 ``torch.distributed.run``'s environment, against one
@@ -133,26 +134,30 @@ Phases; any failure exits non-zero and prints no result:
                 within ``F32_GRAD0_LIMIT`` of one process's and, with each
                 of three planted faults (``planted_faults``), outside it;
                 the ranks' states bit-equal (sha256), A 1 / B 2 / C 1
-                (config 3) and D 448 / E 128 (config 5: E96 64, the ring
-                64, from ``e_launches``) per rank and step,
+                (config 3) and D 160 / E 48 (config 5 at that depth: D96
+                80, D48 80, 12 post each; E96 24, the ring 24; from
+                ``d_launches`` and ``e_launches``) per rank and step,
                 collectives and bytes reduced, stream, kernel and wall ms
                 per step, kernel A with the other rank's partner row
                 against its plain version, the val pass's confusion matrix
                 (its total, and the pixels classified differently), the
                 OHEM threshold, and rank 0's records alone in
                 ``metrics.jsonl``.  (d) (b)'s rolling slot, written by rank 0,
-                restored by a one-process Trainer bit-equal.
+                restored by a one-process Trainer bit-equal.  The one-process
+                runs of (b) and (c) run while their ranks run (config 3's
+                f32 fault ranks beside them too), each sub-part's seconds
+                printed.
  6. spatial  -- HRNet's stem H-sharded over a model axis
                 (``…_torch/parallel/spatial.py``), ranks started as in
                 phase 5 on the one card.  (e) config 5 (4 + 4, OHEM,
-                branch_conv pallas, remat stages:3) with
+                branch_conv pallas, remat stages:3, phase 5's depth) with
                 ``parallel.model_parallel: 2`` on D = 1 x M = 2 and (f) on
                 D = 2 x M = 2 through ``Trainer`` for 2 steps ((e) with its
                 val pass and rolling slot; (f) the steps alone), against one
                 process on the whole batch from the same weights: the loss
                 within ``DDP_LIMITS["config 5"]``, the ranks' states
-                bit-equal, D 448 / E 128 (E96 64, the ring 64) per rank and
-                step, the collectives
+                bit-equal, D 160 / E 48 (as in phase 5) per rank and step,
+                the collectives
                 and bytes with the halo and ``gather_h`` launches apart (5
                 and 2 per step), the val pass's matrix, the OHEM threshold,
                 world rank 0's records alone, the peak memory per rank.
@@ -167,11 +172,13 @@ Phases; any failure exits non-zero and prints no result:
                 with ``blocks`` against ``none`` for 4 steps from the same
                 seeds: A 1 / B 2 / C 1 per step in both, step 0's loss and
                 the running statistics after it bit-equal (else within
-                ``REMAT_LIMIT``), the later losses within it, a second
-                ``none`` run beside as the card's run-to-run control, and a
-                run with the re-run's marker planted off outside it
+                ``REMAT_LIMIT``), the later losses printed beside a second
+                ``none`` run (the card's run-to-run control), and a run
+                with the re-run's marker planted off outside the limit
                 (statistics updated twice); wall and device ms/step and
-                peak of both.
+                peak of both; then the same pair on config 3's f32 path
+                (``REMAT_F32``: A 1 a step), whose later losses are held
+                within ``REMAT_LIMIT``.
                 (b) config 4 (CPS, R101 + DLv3+, 4 + 4 at 768^2) in the
                 ``stacked`` form with ``blocks`` against ``stacked`` with
                 ``none`` and ``separate`` with ``blocks``, 2 steps each: B 2
@@ -462,11 +469,12 @@ def main() -> None:
     # eval (8 val images, one batch, 6 scales, flip, sliding): each scale's
     # windows of both views in one forward, 128 D launches each, on the
     # kernel fwd_kernel picks for each eligible branch shape (phase 2b)
+    d5 = {"branch_conv_fwd": 448, "branch_conv_dx_post": 64, "branch_conv_fwd_c96": 224,
+          "branch_conv_dx_post_c96": 32, "branch_conv_fwd_c48": 224, "branch_conv_dx_post_c48": 32}
+    check(d_launches(cfg5, branch_conv) == d5, f"d_launches derives "
+          f"{d_launches(cfg5, branch_conv)} for config 5 as shipped, expected {d5}")
     report["slice_config5"], launches5, eval5 = slice_phase(torch, "config 5", CONFIG5, slice5,
-        counters,
-        {**none, "branch_conv_fwd": 448, "branch_conv_dx_post": 64, "branch_conv_fwd_c96": 224,
-         "branch_conv_dx_post_c96": 32, "branch_conv_fwd_c48": 224, "branch_conv_dx_post_c48": 32,
-         **e_launches(cfg5, branch_conv)},
+        counters, {**none, **d5, **e_launches(cfg5, branch_conv)},
         steps=8, eval_expected={**none, **eval_d_launches(eval5_shapes, branch_conv, cfg5)})
     old_eval = eval5["branch_conv_fwd"] - eval5["branch_conv_fwd_c96"] - eval5["branch_conv_fwd_c48"]
     print(f"[slice] config 5 eval: conv_fwd_kernel launched {old_eval} times per val pass "
@@ -581,7 +589,7 @@ def main() -> None:
                 run, none, DDP_STEPS)
     # remat_norm: (a)'s and (b)'s runs ((c) launches none; the planted
     # fault's run is a control)
-    for part, keys in (("a", ("none", "blocks")),
+    for part, keys in (("a", ("none", "blocks", "f32_none", "f32_blocks")),
                        ("b", ("stacked_none", "stacked_blocks", "separate_blocks"))):
         for key in keys:
             run = rn.get(part, {}).get(key)
@@ -826,7 +834,7 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
     g = torch.Generator(device=dev).manual_seed(5)
     d_rows, e_rows, e_plans, d_plans = {}, {}, {}, {}
     f = bc.conv3x3_fwd_cuda
-    names = {bc.C96: "conv_d96_kernel", bc.C48: "conv_fwd48_kernel", 0: "conv_fwd_kernel"}
+    names = {bc.C96: "conv_d96_kernel", bc.C48: "conv_d48_kernel", 0: "conv_fwd_kernel"}
 
     def taken(before, kern, times=1):
         """Did the last ``times`` launches go to ``kern``'s counters alone?"""
@@ -918,10 +926,11 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
             del yo, y2
             nbytes = 2 * act + w.numel() * 4 + (2 * c * 4 if pre else 0) + (2 * c * 4 if stats else 0)
             row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf16_peak)
-            if kern == bc.C96:
-                row["phases"] = d96_phases(torch, bc, lambda: bc.conv3x3_fwd_cuda(
-                    src, w, *pre, stats=stats, flip=flip, cycles=True)[2])
-                print(f"[kernel D96 phases] {tag} {mode}: {row['phases']}", flush=True)
+            row["phases"] = (d96_phases if kern == bc.C96 else d48_phases)(
+                torch, bc, lambda: bc.conv3x3_fwd_cuda(src, w, *pre, stats=stats, flip=flip,
+                                                       cycles=True)[2])
+            print(f"[kernel {'D96' if kern == bc.C96 else 'D48'} phases] {tag} {mode}: "
+                  f"{row['phases']}", flush=True)
             d_rows[f"{tag} {mode}"] = row
             print(f"[kernel D branch_conv_fwd] {tag} {mode}: {row['kernel']} max|dy|="
                   f"{row['max_abs_err']:.3g}, two launches bit-equal  kernel {row['ms']:.3f} ms  "
@@ -1123,27 +1132,42 @@ def dw96_phases(torch, bc, x, dy, y, ds, pre) -> dict:
             "end_spread_us": round((ns[:, 4].max() - ns[:, 4].min()).item(), 2)}
 
 
-def d96_phases(torch, bc, launch) -> dict:
-    """D96's phases in one launch from its stamps (``bc.D96_PHASES``):
-    ``launch()`` returns the [CTAs, 12] stamps.  Per CTA (mean): the clock64
-    sums of the x producer's wait (for the tile's TMA box and the released
-    operand) and its filling, the weight producer's wait for an empty slab
-    and the consumer's waits,
-    products and epilogue, each phase's share of the consumer's tile loop;
-    on the global timer the microseconds before the loop, in it and after
-    it, and the spread of the CTAs' ends."""
+def _wgd_phases(torch, names, launch) -> dict:
+    """The phases of one launch of D96 or D48 from its stamps (``names``:
+    the kernel's clock64 sums up to the consumer's tile loop, then four
+    global-timer marks; ``launch()`` returns the [CTAs, len(names)]
+    stamps).  Per CTA (mean): each clock64 sum and its share of the
+    consumer's tile loop; on the global timer the microseconds before the
+    loop, in it and after it, and the spread of the CTAs' ends."""
     cyc = launch()
     torch.cuda.synchronize()
-    names = bc.D96_PHASES
-    sums = dict(zip(names[:8], cyc[:, :8].double().mean(dim=0).tolist()))
+    nl = names.index("consumer: tile loop") + 1
+    sums = dict(zip(names[:nl], cyc[:, :nl].double().mean(dim=0).tolist()))
     loop = sums["consumer: tile loop"]
-    ns = cyc[:, 8:12].double() / 1e3
+    ns = cyc[:, nl:nl + 4].double() / 1e3
     gaps = (ns[:, 1:] - ns[:, :-1]).mean(dim=0).tolist()
     return {"ctas": cyc.shape[0], "mean_cycles": {k: round(v) for k, v in sums.items()},
-            "share": {k: round(sums[k] / loop, 3) for k in names[:7]},
+            "share": {k: round(sums[k] / loop, 3) for k in names[:nl - 1]},
             "us_per_cta": dict(zip(("before the loop", "tile loop", "after the loop"),
                                    [round(v, 2) for v in gaps])),
             "end_spread_us": round((ns[:, 3].max() - ns[:, 3].min()).item(), 2)}
+
+
+def d96_phases(torch, bc, launch) -> dict:
+    """D96's phases (``bc.D96_PHASES``): the x producer's wait (for the
+    tile's TMA box and the released operand) and its filling, the weight
+    producer's wait for an empty slab, the consumer's waits, products and
+    epilogue (:func:`_wgd_phases`)."""
+    return _wgd_phases(torch, bc.D96_PHASES, launch)
+
+
+def d48_phases(torch, bc, launch) -> dict:
+    """D48's phases (``bc.D48_PHASES``): the producers' waits for the raw
+    box and for an empty operand buffer, and their filling; the consumer's
+    waits for the weights, for x and for its turn at the tensor cores, the
+    products' issue and the wait for them, and the epilogue
+    (:func:`_wgd_phases`)."""
+    return _wgd_phases(torch, bc.D48_PHASES, launch)
 
 
 def dx_post_row(torch, bc, tag, x, w, mul, add, dY, time_ms, bound, bf16_peak, lib_fwd, flops,
@@ -1215,10 +1239,10 @@ def dx_post_row(torch, bc, tag, x, w, mul, add, dY, time_ms, bound, bf16_peak, l
         "kernel": lambda: bc.conv3x3_dx_post_cuda(dY, w, x, mul, add),
         "old_kernel": lambda: bc.conv3x3_dx_post_cuda(dYm, w, xm, mul, add),
         "library": lambda: torch.nn.functional.conv2d(dY, w_bf, padding=1)})
-    if kern == bc.C96:
-        row["phases"] = d96_phases(torch, bc, lambda: bc.conv3x3_dx_post_cuda(
-            dY, w, x, mul, add, cycles=True)[2])
-        print(f"[kernel D96 phases] {tag} post: {row['phases']}", flush=True)
+    row["phases"] = (d96_phases if kern == bc.C96 else d48_phases)(
+        torch, bc, lambda: bc.conv3x3_dx_post_cuda(dY, w, x, mul, add, cycles=True)[2])
+    print(f"[kernel {'D96' if kern == bc.C96 else 'D48'} phases] {tag} post: {row['phases']}",
+          flush=True)
     # dY and x read, dx written; the weights, (mul, add) and (dmul, dadd)
     nbytes = 3 * x.numel() * 2 + w.numel() * 4 + 2 * c * 4 + 2 * c * 4
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf16_peak)
@@ -1516,7 +1540,7 @@ def d_eval_rows(torch, dev, bc, time_ms, bound, bf16_peak, shapes: list) -> dict
     F = torch.nn.functional
     bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(11)
-    names = {bc.C96: "conv_d96_kernel", bc.C48: "conv_fwd48_kernel", 0: "conv_fwd_kernel"}
+    names = {bc.C96: "conv_d96_kernel", bc.C48: "conv_d48_kernel", 0: "conv_fwd_kernel"}
     rows = {}
     for n, c, h, w_ in sorted({sh for fwd in shapes for sh in fwd["shapes"]}):
         tag = f"N{n}_C{c}_{h}x{w_}"
@@ -2462,8 +2486,8 @@ def synthetic_canvas_hw(hw):
 # lower-cased kernel-name fragments -> group, first match wins
 GROUPS = [
     ("E at C = 96 (E96)", ("conv_dw96_kernel",)),
-    ("D at C = 96 (D96 and its weight pack)", ("conv_d96_kernel", "pack_w96_kernel")),
-    ("D at C = 48 (D48 and its weight pack)", ("conv_fwd48_kernel", "pack_w_kernel<48>")),
+    ("D at C = 96 (D96 and its weight pack)", ("conv_d96_kernel", "pack_wg_kernel<96>")),
+    ("D at C = 48 (D48 and its weight pack)", ("conv_d48_kernel", "pack_wg_kernel<48>")),
     ("stem kernels (B, C)", ("stem_fwd_kernel", "stem_dw_kernel", "reduce_partials_kernel")),
     ("branch conv kernels (D's conv_fwd_kernel, E; both D's reduction)",
      ("conv_fwd_kernel", "conv_dw_kernel", "reduce_rows_kernel", "reduce_dk_kernel")),
@@ -2561,12 +2585,10 @@ def ddp_counters(stem, branch_conv, cmn) -> dict:
 
 # expected launches per training step of each slice the ddp phase runs
 # (each rank launches as many as one process, each launch on its rows);
-# config 5's E launches come from its model (step_expected)
+# config 5's D and E launches come from its model (step_expected)
 DDP_EXPECTED = {
     "config 3": {"cutmix_normalize": 1, "stem_fwd": 2, "stem_dw": 1},
-    "config 5": {"branch_conv_fwd": 448, "branch_conv_dx_post": 64, "branch_conv_fwd_c96": 224,
-                 "branch_conv_dx_post_c96": 32, "branch_conv_fwd_c48": 224,
-                 "branch_conv_dx_post_c48": 32},
+    "config 5": {},
 }
 
 
@@ -2601,6 +2623,42 @@ def e_launches(cfg, bc) -> dict:
     return out
 
 
+def d_launches(cfg, bc) -> dict:
+    """Kernel D's launches per training step of an HRNet config, derived
+    from the model as :func:`e_launches` derives E's: per fused conv of the
+    branches the fused flow takes, the teacher's forward, the student's
+    forward, the re-run of the stages ``model.remat`` checkpoints, and the
+    student's dx conv, which runs in D's post mode for each block's second
+    conv (the one with the input transform); each on D96 or D48 where
+    ``bc.fwd_kernel`` takes the branch's shape, else on conv_fwd_kernel
+    (config 5 as shipped: 448 a step, 64 in post mode, half at C = 96 and
+    half at C = 48)."""
+    import inspect
+
+    from semi_supervised_semantic_segmentation_tpu_torch.models.hrnet import HRModule
+    from semi_supervised_semantic_segmentation_tpu_torch.models.registry import remat_stages
+
+    blocks = inspect.signature(HRModule).parameters["num_blocks"].default
+    rerun = remat_stages(cfg.model.remat)
+    widths = [cfg.model.hrnet_width * 2 ** i for i in range(4)]
+    out = {k: 0 for k in ("branch_conv_fwd", "branch_conv_dx_post", "branch_conv_fwd_c96",
+                          "branch_conv_dx_post_c96", "branch_conv_fwd_c48",
+                          "branch_conv_dx_post_c48")}
+    for stage, modules in zip((2, 3, 4), cfg.model.hrnet_modules):
+        for i in range(stage):
+            side = cfg.data.crop_size // 4 // 2 ** i
+            shape = (1, widths[i], side, side)
+            if not bc.supported(shape, widths[i], widths[i]):
+                continue
+            convs = modules * blocks * 2
+            launches = 3 * convs + (convs if stage in rerun else 0)
+            kern = {bc.C96: "_c96", bc.C48: "_c48"}.get(bc.fwd_kernel(shape, (0, 0, 0)))
+            for suffix in ("",) + ((kern,) if kern else ()):
+                out["branch_conv_fwd" + suffix] += launches
+                out["branch_conv_dx_post" + suffix] += convs // 2
+    return out
+
+
 def step_expected(label: str) -> dict:
     """Launches per training step of the ddp and spatial phases' slice
     ``label`` on each rank: :data:`DDP_EXPECTED`, with config 5's E
@@ -2611,7 +2669,8 @@ def step_expected(label: str) -> dict:
     out = dict(DDP_EXPECTED[label])
     if label == "config 5":
         path, overrides, _ = DDP_SLICES[label]
-        out.update(e_launches(load_config(path, {"data.dataset": "synthetic", **overrides}), bc))
+        cfg = load_config(path, {"data.dataset": "synthetic", **overrides})
+        out.update({**d_launches(cfg, bc), **e_launches(cfg, bc)})
     return out
 
 
@@ -2630,6 +2689,13 @@ def launch_ranks(job: str, world: int = 2, timeout: float = DDP_TIMEOUT_S) -> li
     that exits non-zero, or outlives ``timeout``, fails the phase; the
     others are then killed.  Returns the results in rank order (None for a
     rank that failed)."""
+    return wait_ranks(start_ranks(job, world, timeout))
+
+
+def start_ranks(job: str, world: int = 2, timeout: float = DDP_TIMEOUT_S) -> dict:
+    """:func:`launch_ranks`' processes, started and not waited for (the
+    caller runs its one-process references meanwhile): a handle for
+    :func:`wait_ranks`."""
     port = _free_port()
     procs, logs, outs = [], [], []
     for r in range(world):
@@ -2647,8 +2713,16 @@ def launch_ranks(job: str, world: int = 2, timeout: float = DDP_TIMEOUT_S) -> li
                                       cwd=REPO))
         logs.append((f, log))
         outs.append(out)
-    deadline = time.time() + timeout
-    codes = [None] * world
+    return {"job": job, "timeout": timeout, "t0": time.time(), "procs": procs, "logs": logs,
+            "outs": outs}
+
+
+def wait_ranks(handle: dict) -> list:
+    """Wait for the ranks of :func:`start_ranks` (``handle["seconds"]``: from
+    their start to their end) -> the results in rank order."""
+    job, timeout, procs = handle["job"], handle["timeout"], handle["procs"]
+    deadline = handle["t0"] + timeout
+    codes = [None] * len(procs)
     while any(c is None for c in codes):
         for i, p in enumerate(procs):
             if codes[i] is None:
@@ -2661,8 +2735,9 @@ def launch_ranks(job: str, world: int = 2, timeout: float = DDP_TIMEOUT_S) -> li
             codes = [p.wait() for p in procs]
             break
         time.sleep(0.5)
+    handle["seconds"] = time.time() - handle["t0"]
     results = []
-    for r, ((f, log), out) in enumerate(zip(logs, outs)):
+    for r, ((f, log), out) in enumerate(zip(handle["logs"], handle["outs"])):
         f.close()
         ok = codes[r] == 0 and os.path.exists(out)
         check(ok, f"ddp {job}: rank {r} exited with {codes[r]} (timeout {timeout} s); log "
@@ -2687,6 +2762,13 @@ def _ddp_cfg(config_path: str, overrides: dict, work_dir: str):
         "train.work_dir": work_dir, **overrides})
 
 
+# Config 5 in the ddp and spatial phases (and the one-process runs they are
+# held to) with one HR module in each of stages 2-4 (the YAML's 1, 4, 3):
+# every width, branch, kernel and mode of the shipped path, at a third of
+# its HR modules, so that phases 5 and 6 fit the script's time limit (their
+# checks hold the ranks to one process, and the stem H-sharding to one
+# process; the depth of stages 3 and 4 changes neither)
+DDP_DEPTH5 = {"model.hrnet_modules": (1, 1, 1)}
 # the card's bf16 run and the control's f32 run of each slice: the kernels
 # take bf16 only, so the f32 control runs the plain convs (cuDNN)
 DDP_SLICES = {
@@ -2694,7 +2776,8 @@ DDP_SLICES = {
                            "data.cutmix_impl": "pallas", "model.stem_impl": "pallas"},
                  {"model.compute_dtype": "float32", "model.stem_impl": "conv"}),
     "config 5": (CONFIG5, {"data.synthetic_canvas": 1024, "data.synthetic_size": 8,
-                           "train.labeled_batch_size": 4, "train.unlabeled_batch_size": 4},
+                           "train.labeled_batch_size": 4, "train.unlabeled_batch_size": 4,
+                           **DDP_DEPTH5},
                  {"model.compute_dtype": "float32", "model.branch_conv": "xla"}),
 }
 
@@ -2851,7 +2934,9 @@ def ddp_run(torch, label: str, overrides: dict, work_dir: str, counters: dict,
 
     config_path, base, _ = DDP_SLICES[label]
     cfg = _ddp_cfg(config_path, {**base, **overrides}, work_dir)
+    laps = [time.time()]
     trainer = Trainer(cfg)
+    laps.append(time.time())
     check(trainer.mesh.size == mesh_ranks, f"ddp {label}: mesh {trainer.mesh.shape}, expected "
           f"{mesh_ranks} rank(s)")
     p0, _ = _state_vector(torch, trainer.state)
@@ -2913,6 +2998,7 @@ def ddp_run(torch, label: str, overrides: dict, work_dir: str, counters: dict,
                     trainer.close()
     finally:
         losses.kth_smallest_nonneg_f32 = kth
+    laps.append(time.time())
     p1, rest = _state_vector(torch, trainer.state)
     cm = np.zeros((1, 1), np.int64)
     if evaluate:
@@ -2923,7 +3009,10 @@ def ddp_run(torch, label: str, overrides: dict, work_dir: str, counters: dict,
                 loader, trainer.device, mesh=trainer.mesh)
         finally:
             loader.close()
+    laps.append(time.time())
     out = {"steps": steps, "kth": kths, "cm": np.asarray(cm).tolist(),
+           "seconds": dict(zip(("trainer", "fit", "second val pass"),
+                               [round(b - a, 1) for a, b in zip(laps, laps[1:])])),
            "checksum": _state_checksum(torch, trainer.state), "step": trainer.state.step,
            "rank": trainer.mesh.rank, "world_rank": trainer.mesh.world_rank,
            "mesh": trainer.mesh.shape, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -2984,7 +3073,7 @@ def ddp_rank_main(job: str, out_path: str) -> None:
                                    dist.get_world_size(), evaluate=False)
             grads[name] = vec["grad0"]
             res["variants"][name] = {"loss": run["steps"][0]["loss"],
-                                     "checksum": run["checksum"]}
+                                     "checksum": run["checksum"], "seconds": run["seconds"]}
         if rank == 0:
             torch.save(grads, out_path + ".pt")
     else:
@@ -3049,7 +3138,9 @@ def ddp_phase(torch, counters: dict) -> dict:
     print(f"[ddp] step 0: nvidia-smi name,power.limit,compute_mode: {mode_line}", flush=True)
     print(f"[ddp] step 0: torch.distributed.is_nccl_available() {dist.is_nccl_available()}, "
           f"is_gloo_available() {dist.is_gloo_available()}", flush=True)
+    t0 = time.time()
     probe = launch_ranks("probe", timeout=180)
+    probe_s = time.time() - t0
     report["step0"] = {"compute_mode": mode_line, "nccl": dist.is_nccl_available(),
                        "gloo": dist.is_gloo_available(), "probe": probe}
     if all(p is not None for p in probe):
@@ -3065,7 +3156,9 @@ def ddp_phase(torch, counters: dict) -> dict:
     # (a) config 3 with a one-rank NCCL group: every collective through
     # NCCL, bit-equal to the run with no group (twice: the control of the
     # card's own run-to-run reproducibility)
+    t0 = time.time()
     report["a"] = nccl_one_rank(torch, counters)
+    print(f"[ddp] seconds: probe {probe_s:.1f}, (a) {time.time() - t0:.1f}", flush=True)
     if exclusive:
         print("[ddp] the card is in Exclusive_Process mode: two ranks cannot share it, "
               "(b)-(d) are left out", flush=True)
@@ -3074,7 +3167,9 @@ def ddp_phase(torch, counters: dict) -> dict:
 
     for job, label in (("config3", "config 3"), ("config5", "config 5")):
         report[label] = ddp_compare(torch, job, label, counters)
+    t0 = time.time()
     report["d"] = cross_world_resume(torch)
+    print(f"[ddp] seconds: (d) {time.time() - t0:.1f}", flush=True)
     return report
 
 
@@ -3182,18 +3277,16 @@ def _rel(torch, a, b) -> float:
     return float((a - b).norm() / b.norm().clamp(min=1e-30))
 
 
-def fault_readings(torch, ref_grad0) -> dict:
-    """Config 3's step 0 through its f32 path on two ranks, correct and with
-    each planted fault: the relative distance of the gradient summed over
-    the ranks to ``ref_grad0`` (one process on the gathered batch, the same
+def fault_readings(torch, ref_grad0, pending: dict) -> dict:
+    """Config 3's step 0 through its f32 path on two ranks (``pending``: the
+    "faults" job's ranks, started by the caller), correct and with each
+    planted fault: the relative distance of the gradient summed over the
+    ranks to ``ref_grad0`` (one process on the gathered batch, the same
     path).  The correct run must sit within ``F32_GRAD0_LIMIT`` and every
     fault outside it; the ranks' checksums say which faults they see."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.time()
     job, limit = "faults", F32_GRAD0_LIMIT
-    ranks = launch_ranks(job)
-    out = {"seconds": time.time() - t0, "limit": limit}
+    ranks = wait_ranks(pending)
+    out = {"seconds": pending["seconds"], "limit": limit}
     if any(r is None for r in ranks):
         return out
     grads = torch.load(os.path.join(REPO, "build", f"ddp_{job}_rank0.json.pt"))
@@ -3209,6 +3302,8 @@ def fault_readings(torch, ref_grad0) -> dict:
             check(rel > limit, f"ddp {job}: the planted fault '{name}' gives a step-0 gradient "
                   f"{rel:.3g} from one process, within the limit {limit:.3g}: the check cannot "
                   f"see it")
+    print(f"[ddp] {job}: seconds of rank 0 per variant (Trainer, step, -): "
+          f"{[v['seconds'] for v in ranks[0]['variants'].values()]}", flush=True)
     print(f"[ddp] {job}: config 3 step 0, f32 path, on 2 ranks against one process "
           f"({out['seconds']:.1f} s with process start), relative distance of the summed "
           f"gradient (limit "
@@ -3226,24 +3321,34 @@ def ddp_compare(torch, job: str, label: str, counters: dict) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.time()
-    ranks = launch_ranks(job)
-    ranks_s = time.time() - t0
+    # the ranks (and, for config 3, the f32 fault runs' ranks) run while
+    # this process runs the one-process references they are held to
+    pending = start_ranks(job)
+    faults = start_ranks("faults") if label == "config 3" else None
     torch.cuda.reset_peak_memory_stats()
+    laps = [time.time()]
     one, one_vec = ddp_run(torch, label, {},
                            os.path.join(REPO, "build", f"chip_smoke_ddp_{job}_one"), counters, 1)
+    laps.append(time.time())
     ctrl, ctrl_vec = ddp_run(torch, label, DDP_SLICES[label][2],
                              os.path.join(REPO, "build", f"chip_smoke_ddp_{job}_f32"),
                              counters, 1, evaluate=False)
+    laps.append(time.time())
     again, again_vec = ddp_run(torch, label, {},
                                os.path.join(REPO, "build", f"chip_smoke_ddp_{job}_again"),
                                counters, 1, evaluate=False)
-    out = {"one": one, "one_vec": one_vec, "control_f32": {k: ctrl[k] for k in ("steps", "kth")},
-           "again": {k: again[k] for k in ("steps", "kth")}, "ranks_seconds": ranks_s}
-    if label == "config 3":
-        out["faults_f32"] = fault_readings(torch, ctrl_vec["grad0"])
+    laps.append(time.time())
     gc.collect()
     torch.cuda.empty_cache()
+    ranks = wait_ranks(pending)
+    ranks_s = pending["seconds"]
+    out = {"one": one, "one_vec": one_vec, "control_f32": {k: ctrl[k] for k in ("steps", "kth")},
+           "again": {k: again[k] for k in ("steps", "kth")}, "ranks_seconds": ranks_s,
+           "one_process_seconds": [round(b - a, 1) for a, b in zip(laps, laps[1:])]}
+    print(f"[ddp] {label}: ranks {ranks_s:.1f} s; one process (with its val pass), f32 "
+          f"control, again, beside them: {out['one_process_seconds']} s", flush=True)
+    if faults is not None:
+        out["faults_f32"] = fault_readings(torch, ctrl_vec["grad0"], faults)
     if any(r is None for r in ranks):
         return out
     vec = torch.load(os.path.join(REPO, "build", f"ddp_{job}_rank0.json.pt"))
@@ -3298,6 +3403,9 @@ def ddp_compare(torch, job: str, label: str, counters: dict) -> dict:
     check(train_recs == list(range(DDP_STEPS)) and sum("val" in r for r in recs) == 1,
           f"ddp {label}: metrics.jsonl holds train steps {train_recs} and "
           f"{sum('val' in r for r in recs)} val records (rank 0 alone writes them)")
+    print(f"[ddp] {label}: seconds per rank (Trainer, fit, second val pass) "
+          f"{[r['seconds'] for r in ranks]}, init {[round(r['init_s'], 1) for r in ranks]}; "
+          f"one process {one['seconds']}", flush=True)
     for r in ranks:
         for i, s in enumerate(r["steps"]):
             kms = "" if s["kernel_ms"] is None else f", kernels {s['kernel_ms']:.1f} ms"
@@ -3463,7 +3571,8 @@ def spatial_rank(torch, job: str, rank: int, out_path: str) -> dict:
                                data_ranks, evaluate=False, stem=True)
         keep[name] = {"grad0": vec["grad0"], "grad0_stem": vec["grad0_stem"],
                       "stem": vec["stem"]["outs"][1], "rows": vec["stem"]["rows"]}
-        res["variants"][name] = {"loss": run["steps"][0]["loss"], "checksum": run["checksum"]}
+        res["variants"][name] = {"loss": run["steps"][0]["loss"], "checksum": run["checksum"],
+                                 "seconds": run["seconds"]}
     if rank == 0:
         torch.save(keep, out_path + ".pt")
     return res
@@ -3548,6 +3657,9 @@ def spatial_compare(torch, job: str, ranks: list, seconds: float, one: dict, one
         out.update({"cm_total": int(cm2.sum()), "cm_differ": differ})
         cm_line = f"; val pass: {int(cm2.sum())} pixels on both, {differ} classified differently"
     _per_step_lines(label, ranks)
+    print(f"[spatial] {label}: seconds per rank (Trainer, fit, second val pass) "
+          f"{[r['seconds'] for r in ranks]}, init {[round(r['init_s'], 1) for r in ranks]}",
+          flush=True)
     print(f"[spatial] {label}: {world} ranks (gloo, one card; {seconds:.1f} s with process "
           f"start) vs one process over {DDP_STEPS} steps: loss distance {loss:.3g} (limit "
           f"{lim:.3g}), step-0 gradient distance {grad0:.3g}, update distance {update:.3g}; "
@@ -3560,19 +3672,23 @@ def spatial_compare(torch, job: str, ranks: list, seconds: float, one: dict, one
     return out
 
 
-def spatial_fault_readings(torch, ranks: list, seconds: float, counters: dict) -> dict:
-    """(g): the readings of the correct run and each planted fault against
-    one process on config 5's f32 path (and one process against itself, the
-    card's run-to-run control)."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    out = {"seconds": seconds, "limits": SPATIAL_LIMITS}
+def spatial_g_references(torch, counters: dict) -> list:
+    """(g)'s one-process runs on config 5's f32 path: the reference, and
+    the same again (the card's run-to-run control)."""
     refs = []
     for tag in ("one", "again"):
         _, v = ddp_run(torch, "config 5", SPATIAL_F32,
                        os.path.join(REPO, "build", f"chip_smoke_spatial_g_{tag}"), counters, 1,
                        evaluate=False, stem=True)
         refs.append(v)
+    return refs
+
+
+def spatial_fault_readings(torch, ranks: list, seconds: float, refs: list) -> dict:
+    """(g): the readings of the correct run and each planted fault against
+    one process on config 5's f32 path (and one process against itself, the
+    card's run-to-run control; ``refs``: :func:`spatial_g_references`)."""
+    out = {"seconds": seconds, "limits": SPATIAL_LIMITS}
     ref, again = refs
 
     def readings(v, rows):
@@ -3600,6 +3716,9 @@ def spatial_fault_readings(torch, ranks: list, seconds: float, counters: dict) -
         else:
             check(bool(outside), f"spatial (g): the planted fault '{name}' reads {got}, within "
                   f"every limit {SPATIAL_LIMITS}: the checks cannot see it")
+    print(f"[spatial] (g) seconds of rank 0 per variant (Trainer, step, -): "
+          f"{[v['seconds'] for v in ranks[0]['variants'].values()]}, init "
+          f"{[round(r['init_s'], 1) for r in ranks]}", flush=True)
     print(f"[spatial] (g) config 5 step 0, f32 path at crop 512, D=2 x M=2 against one process "
           f"({seconds:.1f} s with process start); limits {SPATIAL_LIMITS}; one process against "
           f"itself {out['control']}; " + "; ".join(
@@ -3645,22 +3764,42 @@ def spatial_phase(torch, counters: dict, one5=None) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     report, ranks = {}, {}
+    # beside (e)'s ranks: the one-process config 5 run where phase 5 gave
+    # none; (g)'s one-process f32 references after its four ranks (beside
+    # them they slowed the ranks more than they took)
+    one, one_vec = one5 or (None, None)
     for job, (world, _) in SPATIAL_JOBS.items():
-        t0 = time.time()
-        ranks[job] = (launch_ranks(job, world), time.time() - t0)
+        pending = start_ranks(job, world)
+        if one is None:
+            t0 = time.time()
+            torch.cuda.reset_peak_memory_stats()
+            one, one_vec = ddp_run(torch, "config 5", {},
+                                   os.path.join(REPO, "build", "chip_smoke_spatial_one"),
+                                   counters, 1)
+            report["one_process_seconds"] = round(time.time() - t0, 1)
+            gc.collect()
+            torch.cuda.empty_cache()
+        ranks[job] = (wait_ranks(pending), pending["seconds"])
     t0 = time.time()
     g_ranks = launch_ranks("spatial_g", 4)
     g_seconds = time.time() - t0
-    torch.cuda.reset_peak_memory_stats()
-    one, one_vec = one5 or ddp_run(torch, "config 5", {},
-                                   os.path.join(REPO, "build", "chip_smoke_spatial_one"),
-                                   counters, 1)
+    t0 = time.time()
+    refs = spatial_g_references(torch, counters)
+    refs_s = round(time.time() - t0, 1)
     for job, (rk, secs) in ranks.items():
         report[job] = spatial_compare(torch, job, rk, secs, one, one_vec, counters)
         report[job]["ranks"] = rk
     del one_vec
-    report["g"] = spatial_fault_readings(torch, g_ranks, g_seconds, counters)
+    report["g"] = spatial_fault_readings(torch, g_ranks, g_seconds, refs)
+    report["g"]["references_seconds"] = refs_s
+    del refs
+    t0 = time.time()
     report["h"] = spatial_resume(torch)
+    report["h"]["seconds"] = round(time.time() - t0, 1)
+    print(f"[spatial] seconds: (e) {ranks['spatial_e'][1]:.1f}, (f) {ranks['spatial_f'][1]:.1f}, "
+          f"(g) ranks {g_seconds:.1f} and references {refs_s}, one process "
+          f"{report.get('one_process_seconds', 'from phase 5')}, (h) "
+          f"{report['h']['seconds']}", flush=True)
     return report
 
 
@@ -3671,15 +3810,19 @@ def spatial_phase(torch, counters: dict, one5=None) -> dict:
 # (a) config 3 with blocks against none: 4 steps, step 2 timed on the host
 # clock, 3-4 profiled; (b) config 4's forms, 2 steps, step 2 profiled
 REMAT_STEPS, REMAT_CPS_STEPS = 4, 2
-# (a): the later losses, and step 0's loss and running statistics where
-# they are not bit-equal, within config 3's bf16 control limit (the ddp
-# phase's: 2x the card's bf16-vs-f32 reading of config 3's loss), the
-# statistics as two vectors (running means, running variances).  A second
-# run with none, from the same seeds, is the card's run-to-run control:
-# F.interpolate's backward adds with atomics, and a random bf16 net carries
-# that apart over steps (6 steps of blocks against none read 0.0097 at
-# step 5 on NVIDIA H100 80GB HBM3, 700.00 W)
+# (a): step 0's loss and running statistics where they are not bit-equal,
+# and the later losses of the f32 pair, within config 3's bf16 control
+# limit (the ddp phase's: 2x the card's bf16-vs-f32 reading of config 3's
+# loss), the statistics as two vectors (running means, running variances).
+# The later losses are held on config 3's f32 path (model.compute_dtype
+# float32, the stem as a plain conv): F.interpolate's backward adds with
+# atomics, and a random bf16 net carries that apart over steps, so the bf16
+# pair's later distances sit at the limit on a correct tree (0.009707 at
+# step 3 in one of three runs, 6 steps read 0.0097 at step 5, on NVIDIA
+# H100 80GB HBM3, 700.00 W); they are printed beside a second bf16 run with
+# none from the same seeds, the card's run-to-run control
 REMAT_LIMIT = DDP_LIMITS["config 3"]["loss"]
+REMAT_F32 = {"model.compute_dtype": "float32", "model.stem_impl": "conv"}
 
 
 def _running_stats(torch, model) -> dict:
@@ -3758,16 +3901,29 @@ def remat_norm_phase(torch, counters: dict, dev="cuda") -> dict:
         fault = trainer_steps(torch, cfg_of(CONFIG3, "3_fault", {**c3, "model.remat": "blocks"}),
                               counters, 1, 0,
                               after_step0=lambda tr: _running_stats(torch, tr.state.model))
+    # the same pair on config 3's f32 path (the stem a plain conv: B and C
+    # take bf16 only), for the later losses
+    want3f = {**none, "cutmix_normalize": 1}
+    f32 = {}
+    for key in ("none", "blocks"):
+        f32[key] = trainer_steps(
+            torch, cfg_of(CONFIG3, f"3_f32_{key}", {**c3, **REMAT_F32, "model.remat": key}),
+            counters, REMAT_STEPS, 0)
+        del f32[key]["trainer"]
+        launches_ok(f"(a) config 3 f32 {key}", f32[key], want3f, REMAT_STEPS)
+        print(f"[remat_norm] (a) {_run_line(f'config 3 f32 {key} (remat={key})', f32[key])}",
+              flush=True)
     n, b = runs["none"], runs["blocks"]
 
-    def loss_rel(run):
-        return [abs(x - y) / max(abs(y), 1e-3) for x, y in zip(run["losses"], n["losses"])]
+    def loss_rel(run, ref=n):
+        return [abs(x - y) / max(abs(y), 1e-3) for x, y in zip(run["losses"], ref["losses"])]
 
     stats_equal = all(torch.equal(b["step0"][k], v) for k, v in n["step0"].items())
     a = {"loss0_equal": b["losses"][0] == n["losses"][0], "stats0_equal": stats_equal,
          "stats0_rel": _stats_rel(b["step0"], n["step0"]), "loss_rel": loss_rel(b),
          "control_loss_rel": loss_rel(runs["none_again"]),
          "control_stats0_rel": _stats_rel(runs["none_again"]["step0"], n["step0"]),
+         "f32_loss_rel": loss_rel(f32["blocks"], f32["none"]),
          "fault_stats0_rel": _stats_rel(fault["step0"], n["step0"]),
          "fault_loss0": fault["losses"][0], "limit": REMAT_LIMIT}
     check(a["loss0_equal"] or a["loss_rel"][0] <= REMAT_LIMIT,
@@ -3775,20 +3931,23 @@ def remat_norm_phase(torch, counters: dict, dev="cuda") -> dict:
     check(stats_equal or a["stats0_rel"] <= REMAT_LIMIT,
           f"remat_norm (a): running statistics after step 0 {a['stats0_rel']:.4g} from none's "
           f"(limit {REMAT_LIMIT})")
-    check(max(a["loss_rel"]) <= REMAT_LIMIT,
-          f"remat_norm (a): losses {a['loss_rel']} from none's (limit {REMAT_LIMIT})")
+    check(max(a["f32_loss_rel"]) <= REMAT_LIMIT,
+          f"remat_norm (a): f32 losses {a['f32_loss_rel']} from none's (limit {REMAT_LIMIT})")
     check(a["fault_stats0_rel"] > REMAT_LIMIT,
           f"remat_norm (a): the re-run's marker planted off moved the running statistics "
           f"only {a['fault_stats0_rel']:.4g} (limit {REMAT_LIMIT})")
     print(f"[remat_norm] (a) config 3 blocks vs none: step 0 loss bit-equal "
           f"{a['loss0_equal']}, running statistics after step 0 bit-equal {stats_equal} "
-          f"({a['stats0_rel']:.4g}); loss distances {[f'{v:.3g}' for v in a['loss_rel']]} "
-          f"(limit {REMAT_LIMIT}); the control (none again): losses "
-          f"{[f'{v:.3g}' for v in a['control_loss_rel']]}, statistics "
+          f"({a['stats0_rel']:.4g}); f32 loss distances "
+          f"{[f'{v:.3g}' for v in a['f32_loss_rel']]} (limit {REMAT_LIMIT}); bf16 loss "
+          f"distances {[f'{v:.3g}' for v in a['loss_rel']]}, beside the bf16 control (none "
+          f"again): losses {[f'{v:.3g}' for v in a['control_loss_rel']]}, statistics "
           f"{a['control_stats0_rel']:.4g}; planted fault (no re-run marker): statistics "
           f"{a['fault_stats0_rel']:.4g}, step 0 loss {fault['losses'][0]:.5f}", flush=True)
     for key, run in runs.items():
         a[key] = {k: v for k, v in run.items() if k != "step0"}
+    for key, run in f32.items():
+        a[f"f32_{key}"] = run
     a["seconds"] = time.time() - t_phase
     out["a"] = a
     del runs, n, b, fault

@@ -55,9 +55,9 @@
 //      swizzle.  A, the transformed x: [ci/8][halo row][halo column][8 ci],
 //      16 bytes a pixel, so 8 pixels of a row are one core matrix and tap
 //      (kh, kw) is a start offset of (kh * row + kw) x 16 bytes -- no
-//      im2col, no shifted copy (ops/branch_conv.py d96_operand_plan computes
+//      im2col, no shifted copy (ops/branch_conv.py operand_plan computes
 //      the offsets and hands them to the kernel).  B: a tap's slab of the
-//      weights, packed once per call by pack_w96_kernel as [ci/8][C_out][8
+//      weights, packed once per call by pack_wg_kernel<96> as [ci/8][C_out][8
 //      ci].  Roles: warp 0 streams the nine 18,432-byte slabs of every tile
 //      through a 3-stage ring (cp.async.bulk; ~85 MB of L2 reads a
 //      [8,96,128,128] call); warps 1-3 transform x from a raw stage that one
@@ -98,11 +98,44 @@
 //      the epilogue (consumers wait for x ~22 % of the loop); the epilogue
 //      itself (~19 %, post ~46 %) with the tensor cores idle; slab waits
 //      (~7 %: a 3-stage ring leads by about one tap).
-//   D48 (conv_fwd48_kernel, D at Cp = 48 under D96's conditions; the note
-//      above it): D's products (mma.sync) with the nine weight slabs
-//      resident in shared memory, bulk-copied once per block; D's 8 x
-//      32-pixel tiles (warp = tile row) with x staged two tiles ahead, and
-//      a 16-byte epilogue through per-warp staging rows.
+//   D48 (conv_d48_kernel, D at Cp = 48 under D96's conditions, every
+//      mode): D96's design taken down to 48 channels, where every buffer
+//      halves and the two levers D96 could not afford fit.  The same tile
+//      (4 output rows x 64 pixels, here x 48 C_out), operand layout and
+//      plan, transform (wgd_oct, wgd_singles), k order (tap-major, ci
+//      ascending, one f32 sum per k16 step: y, the dx conv and post's dx
+//      bit-equal to conv_fwd_kernel) and epilogue (wgd_epilogue, wgd_partial)
+//      as D96, through wgmma.mma_async m64n48k16 (108 a tile).  x is double-
+//      buffered: two raw TMA stages ({72, 6, 48} boxes) and two operand
+//      buffers, so tile i + 1's box lands and its transform runs while the
+//      consumers multiply tile i.  All nine weight slabs stay resident
+//      ([9][6][48][8], packed once per call by pack_wg_kernel<48>, one bulk
+//      copy per CTA on an mbarrier): no weight ring and no weight producer.
+//      Roles: warp 0 the halo's single columns (the left one by plain loads,
+//      as a box cannot start at ox0 - 1) and, on its lane 0, the boxes and
+//      the weights' copy; warps 1-3 the octs (three warp-items each); two
+//      consumer warpgroups on every tile, two output rows each (48 f32
+//      accumulators a thread), setmaxnreg 96 / 200 as D96.  Shared bytes:
+//      2 x 41,472 (raw) + 2 x 38,592 (operand, halo rows 67 pixels apart) +
+//      41,472 (weights) + 12,288 (staging) + 768 ((mul, add)) + 160
+//      (barriers, stamps) + 128 (alignment) = 214,944.  Bound per
+//      [8,48,256,256] call: ~100.7 MB of x and y (30.1 us at 3.35 TB/s;
+//      post 151 MB, 45.1 us) against 21.7 GFLOP (22.0 us): bytes.  Tried on
+//      the card and dropped, each slower in every mode in the same call:
+//      each consumer warpgroup issuing tile i + 1's products into a second
+//      accumulator set before tile i's epilogue (the wgmma issue stalls for
+//      about as long as the products run, so nothing ran under them), and
+//      ping-pong (the two consumer warpgroups on alternate tiles, four rows
+//      each, taking turns at the tensor cores by named barriers: the
+//      four-row epilogue took three times the two-row one beside the
+//      other's products).
+//      What holds it above its bound: shared memory.  A tile moves ~550 KB
+//      through it (the products' operands 378 KB: 108 x (2 KB of x + 1.5 KB
+//      of weights), the transform 80, the boxes 41, the staging 49), ~4.3k
+//      cycles at 128 bytes a cycle against the ~6.8k a tile takes; the
+//      products run at that rate (~44 % of the consumers' tile loop), and
+//      the epilogue (~32 %; post's, with its x loads and chain, ~60 %)
+//      follows them with the tensor cores idle.
 //   D post: the epilogue reads x at each output element of the dx conv,
 //      applies the mask and the scale to the rounded dt in registers, writes
 //      dx in dt's place and sums (dmul, dadd) into the statistics' partials
@@ -893,107 +926,19 @@ conv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
 }
 
 // ---------------------------------------------------------------------------
-// D48's weight pack and barriers (D96 below keeps CP96)
+// Barriers and bulk copies (E96, D96, D48)
 // ---------------------------------------------------------------------------
 
 #define CP96 96
 #define CPS96 (CP96 + 8)                 // E96's operand row stride (elements)
+#define CP48 48
 
-// The weights of one call at padded width CP (D48: 48), packed once:
-// wp[tap][co][ci] = bf16(w[co][ci][tap]), with flip bf16(w[ci][co][8 -
-// tap]); 0 for co or ci >= C and in the 8-column skew.
-template <int CP>
-__global__ void pack_w_kernel(const float* __restrict__ w, bf16* __restrict__ wp, int C,
-                              int flip) {
-  constexpr int CPS = CP + 8, SLAB = CP * CPS;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= 9 * SLAB) return;
-  const int tap = e / SLAB, rem = e - tap * SLAB;
-  const int co = rem / CPS, ci = rem - co * CPS;
-  float v = 0.f;
-  if (co < C && ci < C)
-    v = flip ? w[((size_t)ci * C + co) * 9 + 8 - tap] : w[((size_t)co * C + ci) * 9 + tap];
-  wp[e] = __float2bfloat16(v);
-}
-
-// A barrier that counts arrivals per phase (D48's: one, the issuing
-// thread's, with the slab's byte count; the bulk copy completes the bytes).
+// A barrier that counts arrivals per phase (default: one, the issuing
+// thread's, with a copy's byte count; the copy completes the bytes).
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count = 1) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
                : "memory");
 }
-
-// Wait for the phase of the stage's barrier with this parity to complete.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra.uni DONE;\nbra.uni LAB_WAIT;\nDONE:\n}\n"
-      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-// A tile's raw x copies: dw_issue's x loop (rows oy0-1..oy0+TR of every
-// channel < C, columns ox0-8..ox0+39, zero-filled outside the image) into
-// the raw stage, x only; TR: the tile's output rows.
-template <int TR>
-__device__ __forceinline__ void issue_x_rows(bf16* st, const bf16* __restrict__ x, const Geo& g,
-                                             int n, int oy0, int ox0) {
-  constexpr int XR = TR + 2, CH = XRW / 8;
-  const uint32_t xs = smem_addr(st);
-  for (int e = threadIdx.x; e < g.C * XR * CH; e += NT) {
-    const int ch = e % CH, rr = e / CH;
-    const int r = rr % XR, ci = rr / XR;
-    const int iy = oy0 - 1 + r, ix = ox0 - 8 + 8 * ch;
-    const bool ok = iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
-    const bf16* src = x + (((size_t)n * g.C + ci) * g.H + iy) * g.W + ix;
-    cp_async16(xs + ((ci * XR + r) * XRW + 8 * ch) * 2, ok ? src : x, ok);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// D48: kernel D at Cp = 48 (every mode), one block per SM
-// ---------------------------------------------------------------------------
-//
-// Replaces, at channels that pad to 48 (HRNet-W48's branch 0), the TPU
-// kernels D replaces: pallas_conv.py:328 _conv3x3_nchw_impl (-> _kernel_kstack)
-// and its post mode, pallas_conv.py:223 _kernel_kstack(post=True).
-// Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16): [8,48,256,256] moves
-// 100.7 MB (x read once, y written once) in 30.1 us, post 151 MB (dY and x
-// read, dx written) in 45.1 us; its 21.7 GFLOP take 22.0 us: bytes.
-// Design: one persistent block per SM walks tiles of 8 x 32 output pixels x
-// all 48 C_out; warp = tile row (48 rows x 32 pixels, D's MT = 3
-// accumulators and product loop).  The weights are packed once per call
-// (pack_w_kernel<48>, flip applied) into a bf16 scratch [9][48][56] and
-// copied into shared memory once per block by one cp.async.bulk on an
-// mbarrier: all nine tap slabs (48,384 bytes) stay resident, with no
-// per-tile reload and no per-block f32 scatter.  x goes through XS48 raw
-// stages: a tile's raw rows (issue_x_rows, 16-byte cp.async zero-filled
-// outside the image) are issued XS48 tiles ahead, into the stage the
-// transform (dw_transform: position masks, packed bf16 pre arithmetic) has
-// just emptied, so they land while the tiles between run their products.
-// Two block barriers per tile.  The epilogue: the rounded y (post: dt)
-// through per-warp staging rows and out in 16-byte chunks; post's x in
-// the same chunks, loaded before the tile's products.  The k order
-// (tap-major, then 16-channel steps) and the mma.sync m16n8k16 shape are
-// conv_fwd_kernel's, so y, the dx conv and post's dx are bit-equal to it;
-// the [2,C] sums are fixed-order partials (lanes, the 8 warps in row order,
-// the blocks in order).  What still holds it above the bound, largest
-// first: the products (mma.sync, every fragment from shared memory by
-// ldmatrix, three of a k-step's five loads being weights that are the same
-// for every tile); the transform and the copies, between the two block
-// barriers of a tile; the staging reads x 1.875 x (a 48-column raw row for
-// 32 outputs, 10 rows for 8: ~94 MB); ~15.5 tiles per block, a tail of one.
-
-#define CP48 48
-#define CPS48 (CP48 + 8)                 // operand and weight row stride (elements)
-#define SLAB48 (CP48 * CPS48)            // one tap's packed weights [C_out][CPS48]
-#define XS48 2                           // raw x stages
-#define XRAW48 (CP48 * (TH + 2) * XRW)   // one raw x stage: dw_issue's layout, TH rows
-#define XOP48 ((TH + 2) * HW2 * CPS48)   // the transformed operand tile
-#define YST48 (TW + 8)                   // a warp's y staging row (elements)
-#define D48_SMEM                                                                  \
-  ((XS48 * XRAW48 + XOP48 + 9 * SLAB48 + 8 * CP48 * YST48) * 2 +                  \
-   (8 * 2 * CP48 + 3 * CP48) * 4 + 2 * CP48 * 2 + 8)
 
 // bytes of global memory -> shared memory as one bulk copy by the calling
 // thread, completing on bar (16-byte aligned, a multiple of 16 bytes).
@@ -1003,212 +948,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
-}
-
-// The blocks walk D's 8 x 32-pixel tiles slab, slab + nslab, ...  Tile i's
-// raw x is copy group i (the prologue issues tiles 0..XS48-1); it is waited,
-// transformed into the operand tile, and its stage refilled with tile i +
-// XS48, before tile i's products.
-__global__ void __launch_bounds__(NT, 1)
-conv_fwd48_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
-                  const float* __restrict__ mul, const float* __restrict__ add,
-                  const bf16* __restrict__ xpost, bf16* __restrict__ y,
-                  float* __restrict__ partial, Geo g, int pre, int stats, int post) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* raw = reinterpret_cast<bf16*>(smem_raw);                    // [XS48][Cp][TH+2][XRW]
-  bf16* xop = raw + XS48 * XRAW48;                                   // [(TH+2)*HW2][CPS48]
-  bf16* wsm = xop + XOP48;                                           // [9][Cp][CPS48]
-  bf16* ystage = wsm + 9 * SLAB48;                                   // [8][Cp][YST48]
-  float* red = reinterpret_cast<float*>(ystage + 8 * CP48 * YST48);  // [8][2][Cp]
-  float* pm = red + 8 * 2 * CP48;                                    // post: [3][Cp]
-  bf16* pmb = reinterpret_cast<bf16*>(pm + 3 * CP48);                // pre: [2][Cp]
-  uint64_t* wbar = reinterpret_cast<uint64_t*>(pmb + 2 * CP48);
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int slab = blockIdx.x, nslab = gridDim.x, C = g.C;
-  if (post) {
-    // pm[ci] = bf16(mul[ci]), pm[Cp + ci] = bf16(add[ci]), pm[2Cp + ci] = mul[ci]
-    for (int e = t; e < 3 * CP48; e += NT) {
-      const int which = e / CP48, ci = e - which * CP48;
-      const float v = ci < C ? (which == 1 ? add : mul)[ci] : 0.f;
-      pm[e] = which == 2 ? v : bf16r(v);
-    }
-  }
-  for (int e = t; e < 2 * CP48; e += NT) {
-    const int which = e / CP48, ci = e - which * CP48;
-    pmb[e] = __float2bfloat16((pre && ci < C) ? (which ? add : mul)[ci] : 0.f);
-  }
-  if (t == 0) {
-    mbar_init(wbar);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (t == 0) bulk_load(wsm, wp, 9 * SLAB48 * 2, wbar);  // the host gives every block a tile
-
-  const int ntl = (g.ntiles - slab + nslab - 1) / nslab;  // this block's tiles
-  for (int k = 0; k < XS48; ++k) {
-    if (k < ntl) {
-      int n0, oy, ox;
-      tile_coords(g, slab + k * nslab, n0, oy, ox);
-      issue_x_rows<TH>(raw + k * XRAW48, x, g, n0, oy, ox);
-    }
-    cp_async_commit();
-  }
-
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
-  const int b_n = (lane & 7) + (lane >> 4) * 8, b_k = ((lane >> 3) & 1) * 8;
-  const uint32_t a_off = (a_row * CPS48 + a_col) * 2;
-  const uint32_t wsm_s = smem_addr(wsm), xop_s = smem_addr(xop);
-  const int q = lane & 3;
-  float s1[3][2], s2[3][2];
-#pragma unroll
-  for (int m = 0; m < 3; ++m) s1[m][0] = s1[m][1] = s2[m][0] = s2[m][1] = 0.f;
-
-  for (int i = 0; i < ntl; ++i) {
-    int n, oy0, ox0;
-    tile_coords(g, slab + i * nslab, n, oy0, ox0);
-    const int oy = oy0 + warp, ox = ox0 + 8 * q;
-    // post: this lane's 16-byte chunks of x for the epilogue, in flight
-    // through the staging and the products
-    uint4 xv[3][2];
-    if (post) {
-#pragma unroll
-      for (int m = 0; m < 3; ++m)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int co = m * 16 + half * 8 + (lane >> 2);
-          xv[m][half] = make_uint4(0, 0, 0, 0);
-          if (co < C && ox < g.W)
-            xv[m][half] = *reinterpret_cast<const uint4*>(
-                &xpost[(((size_t)n * C + co) * g.H + oy) * g.W + ox]);
-        }
-    }
-    cp_async_wait<XS48 - 1>();  // this thread's copies of tile i have landed
-    __syncthreads();            // ... and every thread's; tile i-1's products are done
-    bf16* st = raw + (i % XS48) * XRAW48;
-    dw_transform<CP48 / 16, TH>(xop, st, pmb, pre != 0, g, oy0, ox0);
-    __syncthreads();  // the operand tile is ready; the raw stage is free
-    if (i + XS48 < ntl) {
-      int n2, oy2, ox2;
-      tile_coords(g, slab + (i + XS48) * nslab, n2, oy2, ox2);
-      issue_x_rows<TH>(st, x, g, n2, oy2, ox2);
-    }
-    cp_async_commit();
-    if (i == 0) mbar_wait(wbar, 0);  // the resident weights have landed
-
-    float acc[3][4][4];
-#pragma unroll
-    for (int m = 0; m < 3; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int kh = tap / 3, kw = tap - kh * 3;
-      const uint32_t arow = wsm_s + tap * SLAB48 * 2 + a_off;
-      const uint32_t brow = xop_s + (((warp + kh) * HW2 + b_n + kw) * CPS48 + b_k) * 2;
-#pragma unroll
-      for (int cc = 0; cc < CP48; cc += 16) {
-        uint32_t af[3][4], bfr[4][2];
-#pragma unroll
-        for (int m = 0; m < 3; ++m) ldsm_x4(af[m], arow + (m * 16 * CPS48 + cc) * 2);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t r[4];
-          ldsm_x4(r, brow + (np * 16 * CPS48 + cc) * 2);
-          bfr[2 * np][0] = r[0]; bfr[2 * np][1] = r[1];
-          bfr[2 * np + 1][0] = r[2]; bfr[2 * np + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int m = 0; m < 3; ++m)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(acc[m][j], af[m], bfr[j]);
-      }
-    }
-
-    // Epilogue: the rounded y (post: dt) of the warp's 48 rows x 32
-    // pixels into its staging rows, with the statistics of the rounded y as
-    // conv_fwd_kernel takes them; then 16-byte chunks out (W % 8 == 0: a
-    // chunk is all inside or all outside), post's chain per element on x's
-    // chunk, (dmul, dadd) summed in the chunks' order.
-    bf16* ysm = ystage + warp * CP48 * YST48;
-#pragma unroll
-    for (int m = 0; m < 3; ++m)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m * 16 + half * 8 + (lane >> 2);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = j * 8 + q * 2;
-          const float v0 = acc[m][j][2 * half], v1 = acc[m][j][2 * half + 1];
-          *reinterpret_cast<uint32_t*>(&ysm[r * YST48 + c]) = pack_bf16(v0, v1);
-          if (!post) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              if (ox0 + c + e < g.W) {
-                const float f = bf16r(e ? v1 : v0);
-                s1[m][half] += f;
-                s2[m][half] += f * f;
-              }
-            }
-          }
-        }
-      }
-    __syncwarp();
-#pragma unroll
-    for (int m = 0; m < 3; ++m)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int co = m * 16 + half * 8 + (lane >> 2);
-        if (co >= C || ox >= g.W) continue;
-        uint4 v = *reinterpret_cast<const uint4*>(&ysm[co * YST48 + 8 * q]);
-        if (post) {
-          const float mr = pm[co], ar = pm[CP48 + co], mw = pm[2 * CP48 + co];
-          uint32_t* vw = reinterpret_cast<uint32_t*>(&v);
-          const uint32_t* xw = reinterpret_cast<const uint32_t*>(&xv[m][half]);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            float o[2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float dt = __uint_as_float(e ? vw[k] & 0xffff0000u : vw[k] << 16);
-              const float xf = __uint_as_float(e ? xw[k] & 0xffff0000u : xw[k] << 16);
-              const float t2 = bf16r(__fadd_rn(bf16r(__fmul_rn(xf, mr)), ar));
-              const float dtm = t2 > 0.f ? dt : 0.f;
-              o[e] = __fmul_rn(dtm, mw);
-              s1[m][half] = __fadd_rn(s1[m][half], __fmul_rn(dtm, xf));
-              s2[m][half] = __fadd_rn(s2[m][half], dtm);
-            }
-            vw[k] = pack_bf16(o[0], o[1]);
-          }
-        }
-        *reinterpret_cast<uint4*>(&y[(((size_t)n * C + co) * g.H + oy) * g.W + ox]) = v;
-      }
-  }
-  if (!stats && !post) return;
-
-  // Block partial: sum the 4 lanes of a row, then the 8 warps in row order.
-#pragma unroll
-  for (int m = 0; m < 3; ++m)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float a = s1[m][half], b = s2[m][half];
-      a += __shfl_xor_sync(0xffffffffu, a, 1);
-      a += __shfl_xor_sync(0xffffffffu, a, 2);
-      b += __shfl_xor_sync(0xffffffffu, b, 1);
-      b += __shfl_xor_sync(0xffffffffu, b, 2);
-      if (q == 0) {
-        const int r = m * 16 + half * 8 + (lane >> 2);
-        red[(warp * 2 + 0) * CP48 + r] = a;
-        red[(warp * 2 + 1) * CP48 + r] = b;
-      }
-    }
-  __syncthreads();
-  for (int e = t; e < 2 * CP48; e += NT) {
-    const int which = e / CP48, co = e - which * CP48;
-    if (co >= C) continue;
-    float sum = 0.f;
-    for (int wr = 0; wr < 8; ++wr) sum += red[(wr * 2 + which) * CP48 + co];
-    partial[((size_t)slab * 2 + which) * C + co] = sum;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1684,65 +1423,84 @@ conv_dw96_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant_
 }
 
 // ---------------------------------------------------------------------------
-// D96: kernel D at Cp = 96 (every mode): wgmma, warp-specialised, persistent
+// D96 and D48: kernel D at Cp = 96 and 48 (every mode): wgmma, warp-
+// specialised, persistent
 // ---------------------------------------------------------------------------
 //
-// Replaces, at channels that pad to 96 (HRNet-W48's branch 1), the TPU
-// kernels D replaces: pallas_conv.py:328 _conv3x3_nchw_impl (-> _kernel_kstack)
-// and its post mode, pallas_conv.py:223 _kernel_kstack(post=True).  The
-// design, its barriers and its shared-memory budget are in the note at the
-// top (D96).
+// Replace, at channels that pad to 96 (HRNet-W48's branch 1) and to 48
+// (branch 0), the TPU kernels D replaces: pallas_conv.py:328
+// _conv3x3_nchw_impl (-> _kernel_kstack) and its post mode,
+// pallas_conv.py:223 _kernel_kstack(post=True).  The two share the tile
+// (4 output rows x 64 pixels x all C_out), the x operand's layout and
+// addressing, its transform, the products' k order and the epilogue
+// (wgd_* below, templated on the padded width CP where it enters); they
+// differ in their buffers and roles.  The designs, their barriers and
+// their shared-memory budgets are in the note at the top (D96, D48).
 
-#define D96_NT 384                         // threads: a producer warpgroup, two consumer warpgroups
-#define D96_TR 4                           // output rows per tile (two per consumer warpgroup)
-#define D96_TC 64                          // output pixels per tile row: one wgmma's M
-#define D96_XR (D96_TR + 2)                // halo rows of the x operand
-#define D96_XP 67                          // halo row pitch (pixels): 66 used, odd so that the
+#define WGD_TR 4                           // output rows per tile (two per consumer warpgroup)
+#define WGD_TC 64                          // output pixels per tile row: one wgmma's M
+#define WGD_XR (WGD_TR + 2)                // halo rows of the x operand
+#define WGD_XP 67                          // halo row pitch (pixels): 66 used, odd so that the
                                            // producer's stores of 8 rows spread over the banks
+#define WGD_PLANE (WGD_XR * WGD_XP * 16)   // bytes of one channel group's plane (A's LBO)
+#define WGD_RAWC 72                        // raw x columns: ox0 .. ox0+71 (halo columns 1 .. 72)
+#define WGD_STG (48 * 16 * 2)              // a consumer warp's staging: 48 C_out x 16 pixels bf16
+#define D96_NT 384                         // threads: a producer warpgroup, two consumer warpgroups
 #define D96_CG (CP96 / 8)                  // channel groups: the core matrices' K chunks
-#define D96_PLANE (D96_XR * D96_XP * 16)   // bytes of one channel group's plane (A's LBO)
-#define D96_XBUF (D96_CG * D96_PLANE)      // the x operand buffer
-#define D96_RAWC 72                        // raw x columns: ox0 .. ox0+71 (halo columns 1 .. 72)
-#define D96_RAW (CP96 * D96_XR * D96_RAWC * 2)  // the raw x stage: one TMA box, bytes
+#define D96_XBUF (D96_CG * WGD_PLANE)      // the x operand buffer
+#define D96_RAW (CP96 * WGD_XR * WGD_RAWC * 2)  // the raw x stage: one TMA box, bytes
 #define D96_WLBO (CP96 * 16)               // bytes of one channel group of a slab (B's LBO)
 #define D96_SLAB (D96_CG * D96_WLBO)       // one tap's packed weights, bytes
 #define D96_WST 3                          // weight ring stages
-#define D96_STG (48 * 16 * 2)              // a consumer warp's staging: 48 C_out x 16 pixels bf16
 #define D96_NCY 12                         // stamps per CTA
 #define D96_SMEM_BYTES                                                                 \
-  (128 + D96_RAW + D96_XBUF + D96_WST * D96_SLAB + 8 * D96_STG + 3 * CP96 * 4 + \
+  (128 + D96_RAW + D96_XBUF + D96_WST * D96_SLAB + 8 * WGD_STG + 3 * CP96 * 4 + \
    2 * CP96 * 2 + 9 * 8 + D96_NCY * 8)
+#define D48_NT 384                         // threads: a producer warpgroup, two consumer warpgroups
+#define D48_CG (CP48 / 8)                  // channel groups
+#define D48_NB 2                           // x buffers: raw stages and operand buffers
+#define D48_XBUF (D48_CG * WGD_PLANE)      // one x operand buffer
+#define D48_RAW (CP48 * WGD_XR * WGD_RAWC * 2)  // one raw x stage: one TMA box, bytes
+#define D48_WLBO (CP48 * 16)               // bytes of one channel group of a slab (B's LBO)
+#define D48_SLAB (D48_CG * D48_WLBO)       // one tap's packed weights, bytes (all 9 resident)
+#define D48_NCY 13                         // stamps per CTA
+#define D48_SMEM_BYTES                                                                     \
+  (128 + D48_NB * (D48_RAW + D48_XBUF) + 9 * D48_SLAB + 8 * WGD_STG + 3 * CP48 * 4 +  \
+   2 * CP48 * 2 + (3 * D48_NB + 1) * 8 + D48_NCY * 8)
 
 // The x operand's addressing, from the host (ops/branch_conv.py,
-// d96_operand_plan): bytes between channel-group planes (A's leading byte
+// operand_plan): bytes between channel-group planes (A's leading byte
 // offset), between halo rows, and from a tile row's first halo pixel to the
-// first pixel tap (kh, kw) reads.
-struct D96Ops {
+// first pixel tap (kh, kw) reads.  The same at both widths: a plane holds
+// one channel group.
+struct WgdOps {
   int plane, row, tap[9];
 };
 
-static Geo make_d96_geo(int N, int C, int H, int W) {
+static Geo make_wgd_geo(int N, int C, int H, int W) {
   Geo g = make_geo(N, C, H, W);
-  g.ntx = (W + D96_TC - 1) / D96_TC;
-  g.nty = H / D96_TR;
+  g.ntx = (W + WGD_TC - 1) / WGD_TC;
+  g.nty = H / WGD_TR;
   g.ntiles = N * g.nty * g.ntx;
   return g;
 }
 
-__device__ __forceinline__ void d96_tile(const Geo& g, int tile, int& n, int& oy0, int& ox0) {
+__device__ __forceinline__ void wgd_tile(const Geo& g, int tile, int& n, int& oy0, int& ox0) {
   const int tx = tile % g.ntx;
   const int r = tile / g.ntx;
-  oy0 = (r % g.nty) * D96_TR;
+  oy0 = (r % g.nty) * WGD_TR;
   n = r / g.nty;
-  ox0 = tx * D96_TC;
+  ox0 = tx * WGD_TC;
 }
 
-// D96's packed weights: wp[tap][ci / 8][co][ci % 8] = bf16(w[co][ci][tap]),
-// with flip bf16(w[ci][co][8 - tap]); 0 for co or ci >= C.  A tap's slab
-// is wgmma's B (N = C_out, K = ci) in core matrices of 8 C_out x 8 ci.
-__global__ void pack_w96_kernel(const float* __restrict__ w, bf16* __restrict__ wp, int C,
-                                int flip) {
-  constexpr int SLAB = D96_SLAB / 2, GRP = CP96 * 8;
+// D96's and D48's packed weights (CP = 96, 48): wp[tap][ci / 8][co][ci % 8]
+// = bf16(w[co][ci][tap]), with flip bf16(w[ci][co][8 - tap]); 0 for co or
+// ci >= C.  A tap's slab is wgmma's B (N = C_out, K = ci) in core matrices
+// of 8 C_out x 8 ci.
+template <int CP>
+__global__ void pack_wg_kernel(const float* __restrict__ w, bf16* __restrict__ wp, int C,
+                               int flip) {
+  constexpr int SLAB = CP * CP, GRP = CP * 8;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= 9 * SLAB) return;
   const int tap = e / SLAB, rem = e - tap * SLAB;
@@ -1775,9 +1533,10 @@ __device__ __forceinline__ void wg_wait() {
 
 // The accumulators stay where the asynchronous products left them: no
 // read or write of d is moved across this point.
-__device__ __forceinline__ void wg_hold(float (&d)[48]) {
+template <int N>
+__device__ __forceinline__ void wg_hold(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 48; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 // d (+)= A * B, m64n96k16, bf16 in, f32 accumulators (scale_d = 0: d = A * B).
@@ -1796,6 +1555,21 @@ __device__ __forceinline__ void wgmma96(float (&d)[48], uint64_t da, uint64_t db
         "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
         "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
         "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A * B, m64n48k16, bf16 in, f32 accumulators (scale_d = 0: d = A * B).
+__device__ __forceinline__ void wgmma48(float (&d)[24], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -1821,18 +1595,20 @@ __device__ __forceinline__ uint32_t u4w(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// The input transform's operands and the channel masks of channel group grp.
-struct D96Group {
+// The input transform's operands and the channel masks of channel group
+// grp (pmb: pre's [2][CP] bf16 mul_r, add_r).
+struct WgdGroup {
   uint4 m4, a4;
   uint32_t keep[4];
 };
 
-__device__ __forceinline__ void d96_group(D96Group& gr, const bf16* pmb, bool pre, int C, int grp) {
+template <int CP>
+__device__ __forceinline__ void wgd_group(WgdGroup& gr, const bf16* pmb, bool pre, int C, int grp) {
   gr.m4 = make_uint4(0, 0, 0, 0);
   gr.a4 = gr.m4;
   if (pre) {
     gr.m4 = *reinterpret_cast<const uint4*>(&pmb[grp * 8]);
-    gr.a4 = *reinterpret_cast<const uint4*>(&pmb[CP96 + grp * 8]);
+    gr.a4 = *reinterpret_cast<const uint4*>(&pmb[CP + grp * 8]);
   }
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj) {
@@ -1844,7 +1620,7 @@ __device__ __forceinline__ void d96_group(D96Group& gr, const bf16* pmb, bool pr
 // One pixel vector (8 channels, two a word) of the operand: pre's packed
 // bf16 arithmetic, then the masks (the halo, columns >= W and channels >=
 // C are 0 by position, never by value).
-__device__ __forceinline__ void d96_put(unsigned char* dst, uint32_t (&w)[4], const D96Group& gr,
+__device__ __forceinline__ void wgd_put(unsigned char* dst, uint32_t (&w)[4], const WgdGroup& gr,
                                         bool pre, uint32_t in) {
   if (pre) {
     w[0] = pre2(w[0], gr.m4.x, gr.a4.x);
@@ -1858,27 +1634,27 @@ __device__ __forceinline__ void d96_put(unsigned char* dst, uint32_t (&w)[4], co
 
 // The producer's part of a tile, from the raw stage (raw[ci][r][q] = x[n,
 // ci, oy0-1+r, ox0+q], zero outside the image and past C, as the TMA box
-// lands it): an oct is 8 channels (one group) x 8 pixels of halo row r,
-// columns c = 8k-7 .. 8k (k = 1..8, raw q = 8k-8 .. 8k-1: a 16-byte chunk of
-// each channel row), 8 loads of 16 bytes transposed by byte permutes into 8
-// pixel vectors.  Warp-item wi (0..17) of a tile: 8 consecutive (group,
-// row) planes idx = 8*(wi % 9) + lane % 8 by 4 chunks k = 4*(wi / 9) + lane
-// / 8 + 1, so the 8 lanes of a store phase hit 8 rows (the odd pitch puts
-// them on distinct banks) and those of a load phase at most 2 to a bank.
-__device__ __forceinline__ void d96_oct(unsigned char* xop, const unsigned char* raw,
+// lands it): an oct is 8 channels (group grp) x 8 pixels of halo row r
+// ((group, row) plane idx = grp * WGD_XR + r), columns c = 8k-7 .. 8k (k =
+// 1..8, raw q = 8k-8 .. 8k-1: a 16-byte chunk of each channel row), 8 loads
+// of 16 bytes transposed by byte permutes into 8 pixel vectors.  The
+// callers give 8 consecutive planes to the 8 lanes of a store phase, so
+// they hit 8 rows (the odd pitch puts them on distinct banks) and the
+// lanes of a load phase at most 2 to a bank.
+template <int CP>
+__device__ __forceinline__ void wgd_oct(unsigned char* xop, const unsigned char* raw,
                                         const bf16* pmb, bool pre, const Geo& g,
-                                        const D96Ops& ops, int oy0, int ox0, int wi, int lane) {
-  const int idx = 8 * (wi % 9) + (lane & 7), k = 4 * (wi / 9) + (lane >> 3) + 1;
-  const int grp = idx / D96_XR, r = idx - grp * D96_XR;
+                                        const WgdOps& ops, int oy0, int ox0, int idx, int k) {
+  const int grp = idx / WGD_XR, r = idx - grp * WGD_XR;
   const int iy = oy0 - 1 + r, ix = ox0 + 8 * k - 8;
   const uint32_t in = iy >= 0 && iy < g.H && ix < g.W ? 0xffffffffu : 0u;
-  const unsigned char* src = raw + ((grp * 8 * D96_XR + r) * D96_RAWC + 8 * k - 8) * 2;
+  const unsigned char* src = raw + ((grp * 8 * WGD_XR + r) * WGD_RAWC + 8 * k - 8) * 2;
   uint4 v[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j)
-    v[j] = *reinterpret_cast<const uint4*>(src + j * (D96_XR * D96_RAWC * 2));
-  D96Group gr;
-  d96_group(gr, pmb, pre, g.C, grp);
+    v[j] = *reinterpret_cast<const uint4*>(src + j * (WGD_XR * WGD_RAWC * 2));
+  WgdGroup gr;
+  wgd_group<CP>(gr, pmb, pre, g.C, grp);
   unsigned char* row = xop + grp * ops.plane + r * ops.row + (8 * k - 7) * 16;
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
@@ -1887,16 +1663,16 @@ __device__ __forceinline__ void d96_oct(unsigned char* xop, const unsigned char*
     for (int jj = 0; jj < 4; ++jj)
       w[jj] = __byte_perm(u4w(v[2 * jj], e >> 1), u4w(v[2 * jj + 1], e >> 1),
                           (e & 1) ? 0x7632u : 0x5410u);
-    d96_put(row + e * 16, w, gr, pre, in);
+    wgd_put(row + e * 16, w, gr, pre, in);
   }
 }
 
 // The halo's single columns of (group, row) idx: c = 0 (x column ox0-1,
 // left of the raw box) from device memory, loaded into h before the raw
 // stage is waited for; c = 65 (ox0+64) from the raw stage.
-__device__ __forceinline__ void d96_left_load(uint32_t (&h)[8], const bf16* __restrict__ x,
+__device__ __forceinline__ void wgd_left_load(uint32_t (&h)[8], const bf16* __restrict__ x,
                                               const Geo& g, int n, int oy0, int ox0, int idx) {
-  const int grp = idx / D96_XR, r = idx - grp * D96_XR;
+  const int grp = idx / WGD_XR, r = idx - grp * WGD_XR;
   const int iy = oy0 - 1 + r, ix = ox0 - 1;
   const bool ok = idx >= 0 && iy >= 0 && iy < g.H && ix >= 0;
   const uint16_t* src = reinterpret_cast<const uint16_t*>(x) +
@@ -1907,27 +1683,163 @@ __device__ __forceinline__ void d96_left_load(uint32_t (&h)[8], const bf16* __re
     h[j] = (ok && grp * 8 + j < g.C) ? (uint32_t)__ldg(src + j * plane) : 0u;
 }
 
-__device__ __forceinline__ void d96_singles(unsigned char* xop, const unsigned char* raw,
+template <int CP>
+__device__ __forceinline__ void wgd_singles(unsigned char* xop, const unsigned char* raw,
                                             const uint32_t (&h)[8], const bf16* pmb, bool pre,
-                                            const Geo& g, const D96Ops& ops, int oy0, int ox0,
+                                            const Geo& g, const WgdOps& ops, int oy0, int ox0,
                                             int idx) {
-  const int grp = idx / D96_XR, r = idx - grp * D96_XR;
+  const int grp = idx / WGD_XR, r = idx - grp * WGD_XR;
   const int iy = oy0 - 1 + r;
   const bool row_in = iy >= 0 && iy < g.H;
-  D96Group gr;
-  d96_group(gr, pmb, pre, g.C, grp);
+  WgdGroup gr;
+  wgd_group<CP>(gr, pmb, pre, g.C, grp);
   uint32_t w[4];
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj) w[jj] = h[2 * jj] | (h[2 * jj + 1] << 16);
   unsigned char* at = xop + grp * ops.plane + r * ops.row;
-  d96_put(at, w, gr, pre, row_in && ox0 >= 1 ? 0xffffffffu : 0u);
-  const uint16_t* rw = reinterpret_cast<const uint16_t*>(raw) + (grp * 8 * D96_XR + r) * D96_RAWC +
-                       D96_TC;
+  wgd_put(at, w, gr, pre, row_in && ox0 >= 1 ? 0xffffffffu : 0u);
+  const uint16_t* rw = reinterpret_cast<const uint16_t*>(raw) + (grp * 8 * WGD_XR + r) * WGD_RAWC +
+                       WGD_TC;
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj)
-    w[jj] = (uint32_t)rw[2 * jj * D96_XR * D96_RAWC] |
-            ((uint32_t)rw[(2 * jj + 1) * D96_XR * D96_RAWC] << 16);
-  d96_put(at + (D96_TC + 1) * 16, w, gr, pre, row_in && ox0 + D96_TC < g.W ? 0xffffffffu : 0u);
+    w[jj] = (uint32_t)rw[2 * jj * WGD_XR * WGD_RAWC] |
+            ((uint32_t)rw[(2 * jj + 1) * WGD_XR * WGD_RAWC] << 16);
+  wgd_put(at + (WGD_TC + 1) * 16, w, gr, pre, row_in && ox0 + WGD_TC < g.W ? 0xffffffffu : 0u);
+}
+
+// Post's x chunks of a consumer lane for the epilogue's row pass (rr, hf):
+// C_out 48 hf + e / 2, pixels ox0 + 16 q + 8 (e % 2) .. + 7 of output row
+// oy0 + row0 + rr, for e = lane + 32 k (zero past C and W).
+__device__ __forceinline__ void wgd_load_x(uint4 (&xb)[3], const bf16* __restrict__ xpost,
+                                           const Geo& g, int n, int oy0, int ox0, int row0, int q,
+                                           int lane, int rr, int hf) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int e = lane + 32 * k, co = 48 * hf + (e >> 1);
+    const int ox = ox0 + 16 * q + 8 * (e & 1), oy = oy0 + row0 + rr;
+    xb[k] = make_uint4(0, 0, 0, 0);
+    if (co < g.C && ox < g.W)
+      xb[k] = *reinterpret_cast<const uint4*>(
+          &xpost[(((size_t)n * g.C + co) * g.H + oy) * g.W + ox]);
+  }
+}
+
+// A consumer warp's epilogue of its two output rows of a tile, rows row0
+// and row0 + 1 (acc[rr]: wgmma's m64nCP accumulators, CP / 2 f32 a
+// thread): each warp's 16 pixels of a row, 48 C_out at a time (CP / 48 row
+// passes a row): the rounded y (post: dt) by stmatrix.trans into [48
+// C_out][16 pixels] (a row's two 16-byte halves swapped on every other
+// 4-row group, so the 8 rows of a matrix hit distinct banks), then 16-byte
+// chunks out (W % 8 == 0: a chunk is all inside or all outside); post's
+// chain per element on x's chunk (xv[p & 1]: pass p's; the caller loads
+// the first pass's, and each pass the next one's).  The statistics of the
+// rounded y (post:
+// (dmul, dadd)) per lane in a fixed order: s1/s2[3 hf + k] for C_out 48 hf
+// + lane / 2 + 16 k, pixel half lane % 2 of the warp's 16.
+template <int CP>
+__device__ __forceinline__ void wgd_epilogue(const float (&acc)[2][CP / 2],
+                                             float (&s1)[3 * CP / 48], float (&s2)[3 * CP / 48],
+                                             uint4 (&xv)[2][3], unsigned char* ws, uint32_t ws_s,
+                                             const float* pm, const bf16* __restrict__ xpost,
+                                             bf16* __restrict__ y, const Geo& g, int n, int oy0,
+                                             int ox0, int row0, int q, int lane, int stats,
+                                             int post) {
+  constexpr int NH = CP / 48;
+  const int C = g.C;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int oy = oy0 + row0 + rr;
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf) {
+      const int pass = NH * rr + hf;
+      if (post && pass < 2 * NH - 1)
+        wgd_load_x(xv[(pass + 1) & 1], xpost, g, n, oy0, ox0, row0, q, lane, (pass + 1) / NH,
+                   (pass + 1) % NH);
+#pragma unroll
+      for (int s4 = 0; s4 < 3; ++s4) {
+        uint32_t r[4];
+#pragma unroll
+        for (int i4 = 0; i4 < 4; ++i4) {
+          const int idx = 4 * s4 + i4, j = 6 * hf + (idx >> 1), pg = idx & 1;
+          r[i4] = pack_bf16(acc[rr][4 * j + 2 * pg], acc[rr][4 * j + 2 * pg + 1]);
+        }
+        const int idx = 4 * s4 + (lane >> 3), col = 8 * (idx >> 1) + (lane & 7);
+        stsm_x4_trans(ws_s + col * 32 + (((idx & 1) ^ ((col >> 2) & 1)) << 4), r[0], r[1],
+                      r[2], r[3]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int e = lane + 32 * k, col = e >> 1, h = e & 1;
+        const int co = 48 * hf + col, ox = ox0 + 16 * q + 8 * h;
+        uint4 v = *reinterpret_cast<const uint4*>(ws + col * 32 + ((h ^ ((col >> 2) & 1)) << 4));
+        if (co < C && ox < g.W) {
+          const size_t at = (((size_t)n * C + co) * g.H + oy) * g.W + ox;
+          uint32_t* vw = reinterpret_cast<uint32_t*>(&v);
+          if (post) {
+            const float mr = pm[co], ar = pm[CP + co], mw = pm[2 * CP + co];
+            const uint32_t* xw = reinterpret_cast<const uint32_t*>(&xv[pass & 1][k]);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              float o[2];
+#pragma unroll
+              for (int e2 = 0; e2 < 2; ++e2) {
+                const float dt = __uint_as_float(e2 ? vw[kk] & 0xffff0000u : vw[kk] << 16);
+                const float xf = __uint_as_float(e2 ? xw[kk] & 0xffff0000u : xw[kk] << 16);
+                const float t2 = bf16r(__fadd_rn(bf16r(__fmul_rn(xf, mr)), ar));
+                const float dtm = t2 > 0.f ? dt : 0.f;
+                o[e2] = __fmul_rn(dtm, mw);
+                s1[3 * hf + k] = __fadd_rn(s1[3 * hf + k], __fmul_rn(dtm, xf));
+                s2[3 * hf + k] = __fadd_rn(s2[3 * hf + k], dtm);
+              }
+              vw[kk] = pack_bf16(o[0], o[1]);
+            }
+          } else if (stats) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const float f0 = __uint_as_float(vw[kk] << 16);
+              const float f1 = __uint_as_float(vw[kk] & 0xffff0000u);
+              s1[3 * hf + k] = __fadd_rn(__fadd_rn(s1[3 * hf + k], f0), f1);
+              s2[3 * hf + k] = __fadd_rn(__fadd_rn(s2[3 * hf + k], __fmul_rn(f0, f0)),
+                                         __fmul_rn(f1, f1));
+            }
+          }
+          *reinterpret_cast<uint4*>(&y[at]) = v;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// The CTA partial [2][C] of the consumers' statistics (thread t, 128 ..
+// 383): the two pixel halves of a C_out (lanes l, l ^ 1), then the 8
+// consumer warps in order, through red ([8][2][CP] f32 of shared memory no
+// one else touches any more), between named barriers of the consumers.
+template <int CP>
+__device__ __forceinline__ void wgd_partial(const float (&s1)[3 * CP / 48],
+                                            const float (&s2)[3 * CP / 48], float* red,
+                                            float* __restrict__ partial, int C, int slab, int cw,
+                                            int lane, int t) {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+#pragma unroll
+  for (int k = 0; k < 3 * CP / 48; ++k) {
+    const float a = s1[k] + __shfl_xor_sync(0xffffffffu, s1[k], 1);
+    const float b2 = s2[k] + __shfl_xor_sync(0xffffffffu, s2[k], 1);
+    if ((lane & 1) == 0) {
+      const int co = 48 * (k / 3) + (lane >> 1) + 16 * (k % 3);
+      red[(cw * 2 + 0) * CP + co] = a;
+      red[(cw * 2 + 1) * CP + co] = b2;
+    }
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  for (int e = t - 128; e < 2 * CP; e += 256) {
+    const int which = e / CP, co = e - which * CP;
+    if (co >= C) continue;
+    float sum = 0.f;
+    for (int w8 = 0; w8 < 8; ++w8) sum += red[(w8 * 2 + which) * CP + co];
+    partial[((size_t)slab * 2 + which) * C + co] = sum;
+  }
 }
 
 // The CTAs walk the tiles slab, slab + nslab, ... (4 output rows x 64
@@ -1948,15 +1860,15 @@ conv_d96_kernel(const __grid_constant__ CUtensorMap tmx, const bf16* __restrict_
                 const bf16* __restrict__ wp, const float* __restrict__ mul,
                 const float* __restrict__ add, const bf16* __restrict__ xpost,
                 bf16* __restrict__ y, float* __restrict__ partial,
-                long long* __restrict__ cycles, Geo g, D96Ops ops, int pre, int stats, int post) {
+                long long* __restrict__ cycles, Geo g, WgdOps ops, int pre, int stats, int post) {
   static_assert(D96_SMEM_BYTES <= SMEM_MAX, "D96's shared memory");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the TMA box lands at a 128-byte aligned offset
   unsigned char* raw = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);  // [96][6][72]
   unsigned char* xbuf = raw + D96_RAW;                               // the x operand
   unsigned char* wring = xbuf + D96_XBUF;                            // [D96_WST][D96_SLAB]
-  unsigned char* stg = wring + D96_WST * D96_SLAB;                   // [8][D96_STG]
-  float* pm = reinterpret_cast<float*>(stg + 8 * D96_STG);           // post: [3][Cp]
+  unsigned char* stg = wring + D96_WST * D96_SLAB;                   // [8][WGD_STG]
+  float* pm = reinterpret_cast<float*>(stg + 8 * WGD_STG);           // post: [3][Cp]
   bf16* pmb = reinterpret_cast<bf16*>(pm + 3 * CP96);                // pre: [2][Cp]
   uint64_t* rawfull = reinterpret_cast<uint64_t*>(pmb + 2 * CP96);
   uint64_t* xfull = rawfull + 1;
@@ -2021,18 +1933,18 @@ conv_d96_kernel(const __grid_constant__ CUtensorMap tmx, const bf16* __restrict_
       const int pt = t - 32, pw = pt >> 5;
       auto issue = [&](int j) {  // tile j's raw box, by thread 0 of the producers
         int n, oy0, ox0;
-        d96_tile(g, slab + j * nslab, n, oy0, ox0);
+        wgd_tile(g, slab + j * nslab, n, oy0, ox0);
         mbar_arrive_expect_tx(rawfull, D96_RAW);
         tma_load_4d(raw, &tmx, rawfull, ox0, oy0 - 1, 0, n);
       };
       if (pt == 0 && ntl > 0) issue(0);
       for (int j = 0; j < ntl; ++j) {
         int n, oy0, ox0;
-        d96_tile(g, slab + j * nslab, n, oy0, ox0);
+        wgd_tile(g, slab + j * nslab, n, oy0, ox0);
         // the left halo column's loads are in flight through the waits
-        const int idx = pt < D96_CG * D96_XR ? pt : -1;
+        const int idx = pt < D96_CG * WGD_XR ? pt : -1;
         uint32_t h[8];
-        d96_left_load(h, x, g, n, oy0, ox0, idx);
+        wgd_left_load(h, x, g, n, oy0, ox0, idx);
         const long long c0 = stamp ? clock64() : 0;
         mbar_wait_bounded<false>(rawfull, j & 1);  // tile j's box has landed
         if (j >= 1)  // tile j - 1's operand released by both consumer warpgroups
@@ -2040,10 +1952,15 @@ conv_d96_kernel(const __grid_constant__ CUtensorMap tmx, const bf16* __restrict_
         const long long c1 = stamp ? clock64() : 0;
         if (stamp && pt == 0) cyc[0] += c1 - c0;
         fence_async_shared();  // wgmma's reads of the operand before these writes
+        // warp-item wi (0..17): 8 consecutive planes 8 * (wi % 9) + lane % 8
+        // by 4 chunks k = 4 * (wi / 9) + lane / 8 + 1
 #pragma unroll 1
-        for (int u = 0; u < 6; ++u)  // one oct live at a time: the registers are the consumers'
-          d96_oct(xbuf, raw, pmb, pre != 0, g, ops, oy0, ox0, pw * 6 + u, lane);
-        if (idx >= 0) d96_singles(xbuf, raw, h, pmb, pre != 0, g, ops, oy0, ox0, idx);
+        for (int u = 0; u < 6; ++u) {  // one oct live at a time: the registers are the consumers'
+          const int wi = pw * 6 + u;
+          wgd_oct<CP96>(xbuf, raw, pmb, pre != 0, g, ops, oy0, ox0, 8 * (wi % 9) + (lane & 7),
+                        4 * (wi / 9) + (lane >> 3) + 1);
+        }
+        if (idx >= 0) wgd_singles<CP96>(xbuf, raw, h, pmb, pre != 0, g, ops, oy0, ox0, idx);
         fence_async_shared();  // these writes before wgmma's reads
         mbar_arrive(xfull);
         // every producer thread is past its reads of the raw stage
@@ -2073,7 +1990,7 @@ conv_d96_kernel(const __grid_constant__ CUtensorMap tmx, const bf16* __restrict_
 #pragma unroll
     for (int k = 0; k < 6; ++k) s1[k] = s2[k] = 0.f;
     const uint32_t xbuf_s = smem_addr(xbuf), wring_s = smem_addr(wring);
-    unsigned char* ws = stg + cw * D96_STG;
+    unsigned char* ws = stg + cw * WGD_STG;
     const uint32_t ws_s = smem_addr(ws);
     if (st0) {
       cyc[7] = -clock64();
@@ -2081,7 +1998,7 @@ conv_d96_kernel(const __grid_constant__ CUtensorMap tmx, const bf16* __restrict_
     }
     for (int i = 0; i < ntl; ++i) {
       int n, oy0, ox0;
-      d96_tile(g, slab + i * nslab, n, oy0, ox0);
+      wgd_tile(g, slab + i * nslab, n, oy0, ox0);
       long long c0 = st0 ? clock64() : 0;
       mbar_wait_bounded<false>(xfull, i & 1);
       if (st0) cyc[3] += clock64() - c0;
@@ -2117,22 +2034,9 @@ conv_d96_kernel(const __grid_constant__ CUtensorMap tmx, const bf16* __restrict_
           cyc[5] += c2 - c1;
         }
       }
-      // post: the epilogue's x chunks of a lane, one row pass (rr, hf) ahead
-      // of the pass that uses them; pass 0's in flight through the last
-      // tap's products
+      // post: pass 0's x chunks in flight through the last tap's products
       uint4 xv[2][3];
-      auto load_x = [&](uint4 (&xb)[3], int rr, int hf) {
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          const int e = lane + 32 * k, co = 48 * hf + (e >> 1);
-          const int ox = ox0 + 16 * q + 8 * (e & 1), oy = oy0 + 2 * wg + rr;
-          xb[k] = make_uint4(0, 0, 0, 0);
-          if (co < C && ox < g.W)
-            xb[k] = *reinterpret_cast<const uint4*>(
-                &xpost[(((size_t)n * C + co) * g.H + oy) * g.W + ox]);
-        }
-      };
-      if (post) load_x(xv[0], 0, 0);
+      if (post) wgd_load_x(xv[0], xpost, g, n, oy0, ox0, 2 * wg, q, lane, 0, 0);
       c0 = st0 ? clock64() : 0;
       wg_wait<0>();
       wg_hold(acc[0]);
@@ -2143,115 +2047,236 @@ conv_d96_kernel(const __grid_constant__ CUtensorMap tmx, const bf16* __restrict_
       }
       const long long c1 = st0 ? clock64() : 0;
       if (st0) cyc[5] += c1 - c0;
-
-      // Epilogue: each warp's 16 pixels of a row, 48 C_out at a time: the
-      // rounded y (post: dt) by stmatrix.trans into [48 C_out][16 pixels]
-      // (a row's two 16-byte halves swapped on every other 4-row group, so
-      // the 8 rows of a matrix hit distinct banks), then 16-byte chunks out
-      // (W % 8 == 0: a chunk is all inside or all outside); post's chain
-      // per element on x's chunk.  The statistics of the rounded y (post:
-      // (dmul, dadd)) per lane, in a fixed order.
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int oy = oy0 + 2 * wg + rr;
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int pass = 2 * rr + hf;
-          if (post && pass < 3) load_x(xv[(pass + 1) & 1], (pass + 1) >> 1, (pass + 1) & 1);
-#pragma unroll
-          for (int s4 = 0; s4 < 3; ++s4) {
-            uint32_t r[4];
-#pragma unroll
-            for (int i4 = 0; i4 < 4; ++i4) {
-              const int idx = 4 * s4 + i4, j = 6 * hf + (idx >> 1), pg = idx & 1;
-              r[i4] = pack_bf16(acc[rr][4 * j + 2 * pg], acc[rr][4 * j + 2 * pg + 1]);
-            }
-            const int idx = 4 * s4 + (lane >> 3), col = 8 * (idx >> 1) + (lane & 7);
-            stsm_x4_trans(ws_s + col * 32 + (((idx & 1) ^ ((col >> 2) & 1)) << 4), r[0], r[1],
-                          r[2], r[3]);
-          }
-          __syncwarp();
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            const int e = lane + 32 * k, col = e >> 1, h = e & 1;
-            const int co = 48 * hf + col, ox = ox0 + 16 * q + 8 * h;
-            uint4 v =
-                *reinterpret_cast<const uint4*>(ws + col * 32 + ((h ^ ((col >> 2) & 1)) << 4));
-            if (co < C && ox < g.W) {
-              const size_t at = (((size_t)n * C + co) * g.H + oy) * g.W + ox;
-              uint32_t* vw = reinterpret_cast<uint32_t*>(&v);
-              if (post) {
-                const float mr = pm[co], ar = pm[CP96 + co], mw = pm[2 * CP96 + co];
-                const uint32_t* xw = reinterpret_cast<const uint32_t*>(&xv[pass & 1][k]);
-#pragma unroll
-                for (int kk = 0; kk < 4; ++kk) {
-                  float o[2];
-#pragma unroll
-                  for (int e2 = 0; e2 < 2; ++e2) {
-                    const float dt = __uint_as_float(e2 ? vw[kk] & 0xffff0000u : vw[kk] << 16);
-                    const float xf = __uint_as_float(e2 ? xw[kk] & 0xffff0000u : xw[kk] << 16);
-                    const float t2 = bf16r(__fadd_rn(bf16r(__fmul_rn(xf, mr)), ar));
-                    const float dtm = t2 > 0.f ? dt : 0.f;
-                    o[e2] = __fmul_rn(dtm, mw);
-                    s1[3 * hf + k] = __fadd_rn(s1[3 * hf + k], __fmul_rn(dtm, xf));
-                    s2[3 * hf + k] = __fadd_rn(s2[3 * hf + k], dtm);
-                  }
-                  vw[kk] = pack_bf16(o[0], o[1]);
-                }
-              } else if (stats) {
-#pragma unroll
-                for (int kk = 0; kk < 4; ++kk) {
-                  const float f0 = __uint_as_float(vw[kk] << 16);
-                  const float f1 = __uint_as_float(vw[kk] & 0xffff0000u);
-                  s1[3 * hf + k] = __fadd_rn(__fadd_rn(s1[3 * hf + k], f0), f1);
-                  s2[3 * hf + k] = __fadd_rn(__fadd_rn(s2[3 * hf + k], __fmul_rn(f0, f0)),
-                                             __fmul_rn(f1, f1));
-                }
-              }
-              *reinterpret_cast<uint4*>(&y[at]) = v;
-            }
-          }
-          __syncwarp();
-        }
-      }
+      wgd_epilogue<CP96>(acc, s1, s2, xv, ws, ws_s, pm, xpost, y, g, n, oy0, ox0, 2 * wg,
+                               q, lane, stats, post);
       if (st0) cyc[6] += clock64() - c1;
     }
     if (st0) {
       cyc[7] += clock64();
       cyc[10] = globaltimer_ns();
     }
-    if (stats || post) {
-      // CTA partial: the two pixel halves of a C_out (lanes l, l ^ 1), then
-      // the 8 consumer warps in order, through the x operand (every
-      // warpgroup is past its last products at the named barrier, and the
-      // producers past their last transform)
-      float* red = reinterpret_cast<float*>(xbuf);  // [8][2][Cp]
-      asm volatile("bar.sync 1, 256;\n" ::: "memory");
-#pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        const float a = s1[k] + __shfl_xor_sync(0xffffffffu, s1[k], 1);
-        const float b2 = s2[k] + __shfl_xor_sync(0xffffffffu, s2[k], 1);
-        if ((lane & 1) == 0) {
-          const int co = 48 * (k / 3) + (lane >> 1) + 16 * (k % 3);
-          red[(cw * 2 + 0) * CP96 + co] = a;
-          red[(cw * 2 + 1) * CP96 + co] = b2;
-        }
-      }
-      asm volatile("bar.sync 1, 256;\n" ::: "memory");
-      for (int e = t - 128; e < 2 * CP96; e += 256) {
-        const int which = e / CP96, co = e - which * CP96;
-        if (co >= C) continue;
-        float sum = 0.f;
-        for (int w8 = 0; w8 < 8; ++w8) sum += red[(w8 * 2 + which) * CP96 + co];
-        partial[((size_t)slab * 2 + which) * C + co] = sum;
-      }
-    }
+    // the CTA partial through the x operand (every warpgroup is past its
+    // last products at the named barrier, and the producers past their
+    // last transform)
+    if (stats || post)
+      wgd_partial<CP96>(s1, s2, reinterpret_cast<float*>(xbuf), partial, C, slab, cw, lane, t);
     if (stamp) {
       asm volatile("bar.sync 1, 256;\n" ::: "memory");  // every partial stored
       if (st0) {
         cyc[8] = t_start;
         cyc[11] = globaltimer_ns();
         for (int k = 3; k < D96_NCY; ++k) out[k] = cyc[k];
+      }
+    }
+  }
+}
+
+// D48: the CTAs walk D96's tiles (4 output rows x 64 pixels, here x all 48
+// C_out), slab, slab + nslab, ...  Tile i's x goes through raw stage and
+// operand buffer b = i % 2: thread 0 issues its TMA box (tmx [N,C,H,W], box
+// {72, 6, 48, 1}) once the producers have read tile i - 2's out of that
+// stage, and the producer warpgroup transforms it into operand buffer b
+// once the consumers have released tile i - 2's (warps 1-3 the octs, warp
+// 0 the halo's single columns), so tile i + 1's transform runs under tile
+// i's products.  Thread 0 also bulk-copies the nine packed weight slabs
+// once: they stay resident.  Consumer warpgroup wg (warps 4-7, 8-11)
+// multiplies rows 2wg and 2wg+1 of every tile (two m64n48 accumulators)
+// and writes them out.  Barriers: rawfull[b] (the box's bytes), xfull[b]
+// (the 128 producer threads, after their stores), xempty[b] (one thread per
+// consumer warpgroup, after its products), wfull (the weights' bytes).
+// cycles (or null): [gridDim.x][D48_NCY] (ops/branch_conv.py, D48_PHASES).
+__global__ void __launch_bounds__(D48_NT, 1)
+conv_d48_kernel(const __grid_constant__ CUtensorMap tmx, const bf16* __restrict__ x,
+                const bf16* __restrict__ wp, const float* __restrict__ mul,
+                const float* __restrict__ add, const bf16* __restrict__ xpost,
+                bf16* __restrict__ y, float* __restrict__ partial,
+                long long* __restrict__ cycles, Geo g, WgdOps ops, int pre, int stats, int post) {
+  static_assert(D48_SMEM_BYTES <= SMEM_MAX, "D48's shared memory");
+  constexpr int NPL = D48_CG * WGD_XR;  // (group, row) planes of a tile: 36
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the TMA boxes land at 128-byte aligned offsets
+  unsigned char* raw = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);  // [2][48][6][72]
+  unsigned char* xbuf = raw + D48_NB * D48_RAW;                      // [2][the x operand]
+  unsigned char* wsm = xbuf + D48_NB * D48_XBUF;                     // [9][6][48][8] bf16
+  unsigned char* stg = wsm + 9 * D48_SLAB;                           // [8][WGD_STG]
+  float* pm = reinterpret_cast<float*>(stg + 8 * WGD_STG);           // post: [3][Cp]
+  bf16* pmb = reinterpret_cast<bf16*>(pm + 3 * CP48);                // pre: [2][Cp]
+  uint64_t* rawfull = reinterpret_cast<uint64_t*>(pmb + 2 * CP48);   // [D48_NB]
+  uint64_t* xfull = rawfull + D48_NB;                                // [D48_NB]
+  uint64_t* xempty = xfull + D48_NB;                                 // [D48_NB]
+  uint64_t* wfull = xempty + D48_NB;
+  long long* cyc = reinterpret_cast<long long*>(wfull + 1);          // [D48_NCY]
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const long long t_start = globaltimer_ns();
+  const int C = g.C, slab = blockIdx.x, nslab = gridDim.x;
+  const bool stamp = cycles != nullptr;
+  if (post) {
+    // pm[ci] = bf16(mul[ci]), pm[Cp + ci] = bf16(add[ci]), pm[2Cp + ci] = mul[ci]
+    for (int e = t; e < 3 * CP48; e += D48_NT) {
+      const int which = e / CP48, ci = e - which * CP48;
+      const float v = ci < C ? (which == 1 ? add : mul)[ci] : 0.f;
+      pm[e] = which == 2 ? v : bf16r(v);
+    }
+  }
+  for (int e = t; e < 2 * CP48; e += D48_NT) {
+    const int which = e / CP48, ci = e - which * CP48;
+    pmb[e] = __float2bfloat16((pre && ci < C) ? (which ? add : mul)[ci] : 0.f);
+  }
+  if (t < D48_NCY) cyc[t] = 0;
+  if (t == 0) {
+    for (int b = 0; b < D48_NB; ++b) {
+      mbar_init(&rawfull[b]);     // the issuing thread (+ the box's bytes)
+      mbar_init(&xfull[b], 128);  // every producer thread, after its stores
+      mbar_init(&xempty[b], 2);   // each consumer warpgroup, after its products
+    }
+    mbar_init(wfull);             // the issuing thread (+ the weights' bytes)
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int ntl = (g.ntiles - slab + nslab - 1) / nslab;  // this CTA's tiles (>= 1)
+
+  // The roles never meet again: the producer warpgroup hands registers to
+  // the consumers' accumulators, and each role writes its own stamps.
+  long long* out = stamp ? cycles + (size_t)blockIdx.x * D48_NCY : nullptr;
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 96;\n" ::: "memory");
+    // ------------------------------------------------------------ x operand
+    auto issue = [&](int j) {  // tile j's raw box, by thread 0
+      int n, oy0, ox0;
+      wgd_tile(g, slab + j * nslab, n, oy0, ox0);
+      mbar_arrive_expect_tx(&rawfull[j & 1], D48_RAW);
+      tma_load_4d(raw + (j & 1) * D48_RAW, &tmx, &rawfull[j & 1], ox0, oy0 - 1, 0, n);
+    };
+    if (t == 0) {
+      bulk_load(wsm, wp, 9 * D48_SLAB, wfull);
+      for (int j = 0; j < D48_NB && j < ntl; ++j) issue(j);
+    }
+    for (int j = 0; j < ntl; ++j) {
+      const int b = j & 1;
+      int n, oy0, ox0;
+      wgd_tile(g, slab + j * nslab, n, oy0, ox0);
+      unsigned char* xop = xbuf + b * D48_XBUF;
+      const unsigned char* rs = raw + b * D48_RAW;
+      // warp 0: the single columns of planes lane and lane + 32; the left
+      // column's loads in flight through the waits
+      uint32_t h0[8], h1[8];
+      if (warp == 0) {
+        wgd_left_load(h0, x, g, n, oy0, ox0, lane);
+        wgd_left_load(h1, x, g, n, oy0, ox0, lane + 32 < NPL ? lane + 32 : -1);
+      }
+      const long long c0 = stamp ? clock64() : 0;
+      mbar_wait_bounded<false>(&rawfull[b], (j >> 1) & 1);  // tile j's box has landed
+      const long long c1 = stamp ? clock64() : 0;
+      if (j >= D48_NB)  // tile j - 2's operand released by both consumer warpgroups
+        mbar_wait_bounded<false>(&xempty[b], ((j - D48_NB) >> 1) & 1);
+      const long long c2 = stamp ? clock64() : 0;
+      fence_async_shared();  // wgmma's reads of the operand before these writes
+      if (warp == 0) {
+        wgd_singles<CP48>(xop, rs, h0, pmb, pre != 0, g, ops, oy0, ox0, lane);
+        if (lane + 32 < NPL)
+          wgd_singles<CP48>(xop, rs, h1, pmb, pre != 0, g, ops, oy0, ox0, lane + 32);
+      } else {
+        // warp-item wi (0..8): octs o = 32 wi + lane of plane o % 36 and
+        // chunk k = o / 36 + 1 (the 8 lanes of a phase: 8 consecutive planes)
+#pragma unroll 1
+        for (int u = 0; u < 3; ++u) {
+          const int o = 32 * (3 * (warp - 1) + u) + lane;
+          wgd_oct<CP48>(xop, rs, pmb, pre != 0, g, ops, oy0, ox0, o % NPL, o / NPL + 1);
+        }
+      }
+      fence_async_shared();  // these writes before wgmma's reads
+      mbar_arrive(&xfull[b]);
+      // every producer thread is past its reads of raw stage b
+      asm volatile("bar.sync 2, 128;\n" ::: "memory");
+      if (t == 0 && j + D48_NB < ntl) {
+        fence_async_shared();
+        issue(j + D48_NB);
+      }
+      if (stamp && t == 0) {
+        cyc[0] += c1 - c0;
+        cyc[1] += c2 - c1;
+        cyc[2] += clock64() - c2;
+      }
+    }
+    if (stamp && t == 0)
+      for (int k = 0; k < 3; ++k) out[k] = cyc[k];
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n" ::: "memory");
+    // ---------------------------------------------------------- consumers
+    const int cw = warp - 4, wg = cw >> 2, q = cw & 3, wt = t & 127;
+    const bool st0 = stamp && t == 128;
+    float acc[2][24];
+#pragma unroll
+    for (int i = 0; i < 24; ++i) acc[0][i] = acc[1][i] = 0.f;
+    float s1[3], s2[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) s1[k] = s2[k] = 0.f;
+    const uint32_t xbuf_s = smem_addr(xbuf), wsm_s = smem_addr(wsm);
+    unsigned char* ws = stg + cw * WGD_STG;
+    const uint32_t ws_s = smem_addr(ws);
+    if (st0) {
+      cyc[8] = -clock64();
+      cyc[10] = globaltimer_ns();
+    }
+    long long c0 = st0 ? clock64() : 0;
+    mbar_wait_bounded<false>(wfull, 0);  // the resident weights have landed
+    if (st0) cyc[3] += clock64() - c0;
+    for (int i = 0; i < ntl; ++i) {
+      int n, oy0, ox0;
+      wgd_tile(g, slab + i * nslab, n, oy0, ox0);
+      c0 = st0 ? clock64() : 0;
+      mbar_wait_bounded<false>(&xfull[i & 1], (i >> 1) & 1);
+      const long long c1 = st0 ? clock64() : 0;
+      // this warpgroup's first row of the tile: halo row 2 * wg; the bases
+      // go through opaque moves each tile, so the 54 descriptors built from
+      // them are not hoisted out of the tile loop (and spilled)
+      uint32_t xa, wa;
+      asm volatile("mov.b32 %0, %1;\n" : "=r"(xa)
+                   : "r"(xbuf_s + (i & 1) * D48_XBUF + 2 * wg * ops.row));
+      asm volatile("mov.b32 %0, %1;\n" : "=r"(wa) : "r"(wsm_s));
+      wg_fence();
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+        for (int ks = 0; ks < CP48 / 16; ++ks) {
+          const uint64_t da = wg_desc(xa + ops.tap[tap] + 2 * ks * ops.plane, ops.plane);
+          const uint64_t db = wg_desc(wa + tap * D48_SLAB + 2 * ks * D48_WLBO, D48_WLBO);
+          wgmma48(acc[0], da, db, tap | ks);
+          wgmma48(acc[1], da + (uint64_t)(ops.row >> 4), db, tap | ks);  // the next output row
+        }
+      wg_commit();
+      const long long c2 = st0 ? clock64() : 0;
+      uint4 xv[2][3];  // post: pass 0's x chunks in flight through the products
+      if (post) wgd_load_x(xv[0], xpost, g, n, oy0, ox0, 2 * wg, q, lane, 0, 0);
+      wg_wait<0>();
+      wg_hold(acc[0]);
+      wg_hold(acc[1]);
+      if (wt == 0) mbar_arrive(&xempty[i & 1]);
+      const long long c3 = st0 ? clock64() : 0;
+      wgd_epilogue<CP48>(acc, s1, s2, xv, ws, ws_s, pm, xpost, y, g, n, oy0, ox0, 2 * wg,
+                                q, lane, stats, post);
+      if (st0) {
+        cyc[4] += c1 - c0;
+        cyc[5] += c2 - c1;
+        cyc[6] += c3 - c2;
+        cyc[7] += clock64() - c3;
+      }
+    }
+    if (st0) {
+      cyc[8] += clock64();
+      cyc[11] = globaltimer_ns();
+    }
+    // the CTA partial through operand buffer 0 (every warpgroup is past its
+    // last products at the named barrier, and the producers past their
+    // last transform)
+    if (stats || post)
+      wgd_partial<CP48>(s1, s2, reinterpret_cast<float*>(xbuf), partial, C, slab, cw, lane, t);
+    if (stamp) {
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // every partial stored
+      if (st0) {
+        cyc[9] = t_start;
+        cyc[12] = globaltimer_ns();
+        for (int k = 3; k < D48_NCY; ++k) out[k] = cyc[k];
       }
     }
   }
@@ -2376,49 +2401,62 @@ static int run_fwd(const void* x, const void* w, const void* mul, const void* ad
 
 static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-// D96's plan: out[0] = shared bytes, out[1] = x operand buffers, out[2] =
-// weight stages, out[3] = tile rows, out[4] = tile pixels per row, out[5]
-// = warpgroups (one producer, two consumers), out[6] = CTAs per SM (the
-// occupancy calculator's: 0 if the plan does not fit), out[7] = tiles per
-// image plane (for the grid), out[8] = packed weight elements (the wpack
-// buffer), out[9] = the x operand's halo row pitch (pixels), out[10] = the
-// raw x stage's bytes (one TMA box a tile).
-extern "C" int branch_conv_fwd96_plan(int C, int H, int W, int* out) {
-  const Geo g = make_d96_geo(1, C, H, W);
-  if (C < 1 || g.Cp != CP96) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_d96_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, D96_SMEM_BYTES);
+// The plans of D96 (CP = 96) and D48 (CP = 48): out[0] = shared bytes,
+// out[1] = x operand buffers, out[2] = weight slabs in shared memory (D96:
+// its ring's stages; D48: all nine, resident), out[3] = tile rows, out[4]
+// = tile pixels per row, out[5] = warpgroups (one producer, two
+// consumers), out[6] = CTAs per SM (the occupancy calculator's: 0 if the
+// plan does not fit), out[7] = tiles per image plane (for the grid),
+// out[8] = packed weight elements (the wpack buffer), out[9] = the x
+// operand's halo row pitch (pixels), out[10] = one raw x stage's bytes (one
+// TMA box a tile).
+template <int CP, typename Kernel>
+static int wgd_plan(Kernel kernel, int smem, int nthreads, int xbufs, int wslabs, int raw,
+                    int C, int H, int W, int* out) {
+  const Geo g = make_wgd_geo(1, C, H, W);
+  if (C < 1 || g.Cp != CP) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int bps = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, conv_d96_kernel, D96_NT,
-                                                      D96_SMEM_BYTES);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, kernel, nthreads, smem);
   if (err != cudaSuccess) return (int)err;
-  out[0] = D96_SMEM_BYTES;
-  out[1] = 1;
-  out[2] = D96_WST;
-  out[3] = D96_TR;
-  out[4] = D96_TC;
-  out[5] = D96_NT / 128;
+  out[0] = smem;
+  out[1] = xbufs;
+  out[2] = wslabs;
+  out[3] = WGD_TR;
+  out[4] = WGD_TC;
+  out[5] = nthreads / 128;
   out[6] = bps;
   out[7] = g.ntiles;
-  out[8] = 9 * D96_SLAB / 2;
-  out[9] = D96_XP;
-  out[10] = D96_RAW;
+  out[8] = 9 * CP * CP;
+  out[9] = WGD_XP;
+  out[10] = raw;
   return 0;
 }
 
+extern "C" int branch_conv_fwd96_plan(int C, int H, int W, int* out) {
+  return wgd_plan<CP96>(conv_d96_kernel, D96_SMEM_BYTES, D96_NT, 1, D96_WST, D96_RAW, C, H, W,
+                        out);
+}
+
+extern "C" int branch_conv_fwd48_plan(int C, int H, int W, int* out) {
+  return wgd_plan<CP48>(conv_d48_kernel, D48_SMEM_BYTES, D48_NT, D48_NB, 9, D48_RAW, C,
+                        H, W, out);
+}
+
 // The host's x operand addressing (ops: plane, row, tap[9] bytes) against
-// the buffers this source lays out: the planes and rows its producer
-// writes, and every tap of every tile row inside its channel group's plane.
-static bool d96_ops_ok(const int* ops, D96Ops& o) {
+// the buffers this source lays out (the same planes at both widths): the
+// planes and rows its producers write, and every tap of every tile row
+// inside its channel group's plane.
+static bool wgd_ops_ok(const int* ops, WgdOps& o) {
   if (!ops) return false;
   o.plane = ops[0];
   o.row = ops[1];
-  if (o.plane != D96_PLANE || o.row != D96_XP * 16) return false;
+  if (o.plane != WGD_PLANE || o.row != WGD_XP * 16) return false;
   for (int k = 0; k < 9; ++k) {
     o.tap[k] = ops[2 + k];
     if (o.tap[k] < 0 || o.tap[k] % 16 != 0 ||
-        o.tap[k] + (D96_TR - 1) * o.row + D96_TC * 16 > o.plane)
+        o.tap[k] + (WGD_TR - 1) * o.row + WGD_TC * 16 > o.plane)
       return false;
   }
   return true;
@@ -2426,110 +2464,83 @@ static bool d96_ops_ok(const int* ops, D96Ops& o) {
 
 static int encode_act(CUtensorMap* map, const void* p, const Geo& g, int bw, int bh, int bc);
 
-// D96: x's tensor map (box {72, 6, 96, 1}), the weights packed into wpack,
-// the persistent CTAs (grid nslab <=
-// tiles, one per SM), then with sums the fixed-order reduction.
-static int run_d96(const void* x, const void* w, const void* mul, const void* add,
-                   const void* xpost, void* y, void* partial, void* sums, void* wpack,
-                   void* cycles, const int* ops, int N, int C, int H, int W, int pre, int stats,
-                   int flip, int post, int nslab, cudaStream_t s) {
-  const Geo g = make_d96_geo(N, C, H, W);
-  D96Ops o;
-  if (g.Cp != CP96 || W % 8 != 0 || nslab > g.ntiles || !aligned16(x) || !aligned16(y) ||
-      !aligned16(wpack) || (xpost && !aligned16(xpost)) || !d96_ops_ok(ops, o))
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap tmx;
-  const int e = encode_act(&tmx, x, g, D96_RAWC, D96_XR, CP96);
-  if (e) return e;
-  pack_w96_kernel<<<(9 * D96_SLAB / 2 + 255) / 256, 256, 0, s>>>((const float*)w, (bf16*)wpack,
-                                                                 C, flip);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(conv_d96_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             D96_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  conv_d96_kernel<<<nslab, D96_NT, D96_SMEM_BYTES, s>>>(
-      tmx, (const bf16*)x, (const bf16*)wpack, (const float*)mul, (const float*)add,
-      (const bf16*)xpost, (bf16*)y, (float*)partial, (long long*)cycles, g, o, pre, stats, post);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !sums) return (int)err;
-  reduce_rows_kernel<<<(2 * C + 255) / 256, 256, 0, s>>>((const float*)partial, nslab, 2 * C,
-                                                        (float*)sums);
-  return (int)cudaGetLastError();
-}
-
-// D48's plan: out[0] = shared bytes, out[1] = x stages, out[2] = tile
-// rows, out[3] = blocks per SM (the occupancy calculator's, for the grid),
-// out[4] = tiles per image plane (for the grid), out[5] = packed weight
-// elements (the wpack buffer).
-extern "C" int branch_conv_fwd48_plan(int C, int H, int W, int* out) {
-  const Geo g = make_geo(1, C, H, W);
-  if (C < 1 || g.Cp != CP48) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(conv_fwd48_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, D48_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  int bps = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, conv_fwd48_kernel, NT, D48_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = D48_SMEM;
-  out[1] = XS48;
-  out[2] = TH;
-  out[3] = bps;
-  out[4] = g.ntiles;
-  out[5] = 9 * SLAB48;
-  return 0;
-}
-
-// D48's weight pack into wpack.
-static cudaError_t launch_pack48(const void* w, void* wpack, int C, int flip, cudaStream_t s) {
-  pack_w_kernel<CP48><<<(9 * SLAB48 + 255) / 256, 256, 0, s>>>((const float*)w, (bf16*)wpack, C,
+// The weight pack of D96 or D48 into wpack.
+template <int CP>
+static cudaError_t launch_pack_wg(const void* w, void* wpack, int C, int flip, cudaStream_t s) {
+  pack_wg_kernel<CP><<<(9 * CP * CP + 255) / 256, 256, 0, s>>>((const float*)w, (bf16*)wpack, C,
                                                                flip);
   return cudaGetLastError();
 }
 
-// D96 or D48 (kern = its padded width, 96 or 48): the weights packed into
-// wpack, then the persistent blocks (grid nslab <= tiles), then with sums
-// the fixed-order reduction.  Needs C padding to kern, W % 8 == 0 and the
-// activations and wpack 16-byte aligned; cycles (D96's stamps) or null.
-static int run_fwd_packed(int kern, const void* x, const void* w, const void* mul,
-                          const void* add, const void* xpost, void* y, void* partial, void* sums,
-                          void* wpack, void* cycles, const int* ops, int N, int C, int H, int W,
-                          int pre, int stats, int flip, int post, int nslab, void* stream) {
-  if (!geo_ok(N, C, H, W) || nslab < 1 || (kern != CP96 && kern != CP48))
+// D96 (CP = 96) or D48 (CP = 48): x's tensor map (box {72, 6, CP, 1}), the weights packed
+// into wpack, the persistent CTAs (grid nslab <= tiles, one per SM), then
+// with sums the fixed-order reduction.
+template <int CP>
+static int run_wgd(const void* x, const void* w, const void* mul, const void* add,
+                   const void* xpost, void* y, void* partial, void* sums, void* wpack,
+                   void* cycles, const int* ops, int N, int C, int H, int W, int pre, int stats,
+                   int flip, int post, int nslab, cudaStream_t s) {
+  const Geo g = make_wgd_geo(N, C, H, W);
+  WgdOps o;
+  if (g.Cp != CP || W % 8 != 0 || nslab > g.ntiles || !aligned16(x) || !aligned16(y) ||
+      !aligned16(wpack) || (xpost && !aligned16(xpost)) || !wgd_ops_ok(ops, o))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (kern == CP96)
-    return run_d96(x, w, mul, add, xpost, y, partial, sums, wpack, cycles, ops, N, C, H, W, pre,
-                   stats, flip, post, nslab, s);
-  const Geo g = make_geo(N, C, H, W);
-  if (g.Cp != CP48 || W % 8 != 0 || nslab > g.ntiles || !aligned16(x) || !aligned16(y) ||
-      !aligned16(wpack) || (xpost && !aligned16(xpost)) || cycles)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = launch_pack48(w, wpack, C, flip, s);
+  CUtensorMap tmx;
+  const int e = encode_act(&tmx, x, g, WGD_RAWC, WGD_XR, CP);
+  if (e) return e;
+  cudaError_t err = launch_pack_wg<CP>(w, wpack, C, flip, s);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(conv_fwd48_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             D48_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  conv_fwd48_kernel<<<nslab, NT, D48_SMEM, s>>>((const bf16*)x, (const bf16*)wpack,
-                                                (const float*)mul, (const float*)add,
-                                                (const bf16*)xpost, (bf16*)y, (float*)partial, g,
-                                                pre, stats, post);
+  const bf16 *xb = (const bf16*)x, *wb = (const bf16*)wpack, *xpb = (const bf16*)xpost;
+  const float *mf = (const float*)mul, *af = (const float*)add;
+  if constexpr (CP == CP96) {
+    err = cudaFuncSetAttribute(conv_d96_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               D96_SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    conv_d96_kernel<<<nslab, D96_NT, D96_SMEM_BYTES, s>>>(
+        tmx, xb, wb, mf, af, xpb, (bf16*)y, (float*)partial, (long long*)cycles, g, o, pre, stats,
+        post);
+  } else {
+    err = cudaFuncSetAttribute(conv_d48_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, D48_SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    conv_d48_kernel<<<nslab, D48_NT, D48_SMEM_BYTES, s>>>(
+        tmx, xb, wb, mf, af, xpb, (bf16*)y, (float*)partial, (long long*)cycles, g, o, pre, stats,
+        post);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || !sums) return (int)err;
   reduce_rows_kernel<<<(2 * C + 255) / 256, 256, 0, s>>>((const float*)partial, nslab, 2 * C,
                                                         (float*)sums);
   return (int)cudaGetLastError();
+}
+
+// D96 or D48 (kern = its padded width, 96 or 48): needs C padding to kern,
+// W % 8 == 0, the activations and wpack 16-byte aligned and this source's
+// operand plan in ops; cycles (the stamps) or null.
+static int run_fwd_packed(int kern, const void* x, const void* w, const void* mul,
+                          const void* add, const void* xpost, void* y, void* partial, void* sums,
+                          void* wpack, void* cycles, const int* ops, int N, int C, int H, int W,
+                          int pre, int stats, int flip, int post, int nslab, void* stream) {
+  if (!geo_ok(N, C, H, W) || nslab < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define WGD_ARGS x, w, mul, add, xpost, y, partial, sums, wpack, cycles, ops, N, C, H, W, pre, \
+                 stats, flip, post, nslab, s
+  switch (kern) {
+    case CP96: return run_wgd<CP96>(WGD_ARGS);
+    case CP48: return run_wgd<CP48>(WGD_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef WGD_ARGS
 }
 
 // Kernel D.  x [N,C,H,W] bf16; w [C,C,3,3] f32 (OIHW); mul, add [C] f32 (pre);
 // y [N,C,H,W] bf16; partial [nslab][2][C] f32; sums [2][C] f32 (stats).
 // kern = 96 takes D96, 48 D48 (wpack: bf16 scratch of the plan's size; the
-// grid is nslab), 0 conv_fwd_kernel (the grid is nslab * D's C_out split);
-// nslab <= tiles of the kernel taken.  D96 only: ops, the x operand's
-// addressing (int[11]: plane, row, tap[9] bytes; anything but this
-// source's layout is refused), and cycles, null or [nslab][12] int64
-// stamps; a tensor map that fails to encode returns TMAP_ERR + its
-// CUresult.
+// grid is nslab; ops, the x operand's addressing, int[11]: plane, row,
+// tap[9] bytes, anything but this source's layout refused; cycles, null or
+// [nslab][12] (D96) / [nslab][13] (D48) int64 stamps; a tensor map that
+// fails to encode returns TMAP_ERR + its CUresult), 0 conv_fwd_kernel (the
+// grid is nslab * D's C_out split); nslab <= tiles of the kernel taken.
 extern "C" int branch_conv_fwd(const void* x, const void* w, const void* mul, const void* add,
                                void* y, void* partial, void* sums, void* wpack, void* cycles,
                                const int* ops, int N, int C, int H, int W, int pre, int stats,
@@ -2556,17 +2567,14 @@ extern "C" int branch_conv_dx_post(const void* dY, const void* w, const void* x,
   return run_fwd(dY, w, mul, add, x, dx, partial, sums, N, C, H, W, 0, 0, 1, 1, nslab, stream);
 }
 
-// The weight pack alone from w [C,C,3,3] f32: C padding to 96, wpack
-// [9][12][96][8] bf16 (pack_w96_kernel); to 48, [9][48][56].
+// The weight pack alone from w [C,C,3,3] f32: C padding to 96 or 48, wpack
+// [9][Cp / 8][Cp][8] bf16 (pack_wg_kernel).
 extern "C" int branch_conv_pack(const void* w, void* wpack, int C, int flip, void* stream) {
   const int cp = (C + 15) / 16 * 16;
   if (C < 1 || (cp != CP96 && cp != CP48)) return (int)cudaErrorInvalidValue;
-  if (cp == CP96) {
-    pack_w96_kernel<<<(9 * D96_SLAB / 2 + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-        (const float*)w, (bf16*)wpack, C, flip);
-    return (int)cudaGetLastError();
-  }
-  return (int)launch_pack48(w, wpack, C, flip, (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(cp == CP96 ? launch_pack_wg<CP96>(w, wpack, C, flip, s)
+                          : launch_pack_wg<CP48>(w, wpack, C, flip, s));
 }
 
 template <int K16>

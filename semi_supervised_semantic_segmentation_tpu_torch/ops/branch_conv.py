@@ -44,15 +44,16 @@ tensor map that fails to encode, raises; nothing gives way to another
 kernel.  D has three kernels, picked before the
 launch by :func:`fwd_kernel`, where W % 8 == 0 and the activations are
 16-byte aligned: at channels padded to 96 (C = 81..96) D96
-(``conv_d96_kernel``: one persistent CTA per SM of a producer and two
-consumer warpgroups, 4 x 64-pixel tiles of all 96 output channels, wgmma
-m64n96k16 on shared-memory descriptors; x by one TMA box a tile,
-transformed into the operand whose addressing :func:`d96_operand_plan`
-gives; the weights packed once per call and streamed per tap; stamps on
-request, :data:`D96_PHASES`); at channels padded to 48 (C = 33..48) D48
-(``conv_fwd48_kernel``: one block per SM, 8 x 32-pixel tiles of all 48
-output channels, the packed weights resident in shared memory, x staged two
-tiles ahead); else ``conv_fwd_kernel``.  Counters:
+(``conv_d96_kernel``) and at channels padded to 48 (C = 33..48) D48
+(``conv_d48_kernel``), each one persistent CTA per SM of a producer and
+two consumer warpgroups on tiles of 4 rows x 64 pixels of all output
+channels, wgmma (m64n96k16, m64n48k16) on shared-memory descriptors, x by
+one TMA box a tile transformed into the operand whose addressing
+:func:`operand_plan` gives, the weights packed once per call; D96 streams
+the weights per tap through a ring and holds one x operand buffer, D48
+keeps all nine weight slabs resident and double-buffers x (two boxes, two
+operand buffers); stamps on request (:data:`D96_PHASES`,
+:data:`D48_PHASES`); else ``conv_fwd_kernel``.  Counters:
 ``conv3x3_dw_cuda.launches`` (every E launch), ``launches_c96`` (E96's)
 and ``launches_async`` (``conv_dw_kernel``'s ring alone),
 ``conv3x3_fwd_cuda.launches_post`` (D's post-mode launches),
@@ -146,53 +147,56 @@ def _padded(c: int) -> int:
 
 
 def pack_weights_plain(w: torch.Tensor, flip: bool = False) -> torch.Tensor:
-    """The packed weights of D96 and D48, bf16, tap-major, with w' = w or
-    :func:`flip_weight` (w) and 0 for co or ci >= C.  D96 (C padding to 96):
-    [9, 12, 96, 8], wp[kh*3 + kw, ci // 8, co, ci % 8] = bf16(w'[co, ci, kh,
-    kw]) -- a tap's slab is wgmma's B operand in core matrices of 8 C_out x 8
-    ci (:func:`d96_operand_plan`).  D48: [9, 48, 56], wp[kh*3 + kw, co, ci] =
-    bf16(w'[co, ci, kh, kw]), 0 in the 8-column skew."""
+    """The packed weights of D96 and D48 (C padding to 96 or 48), bf16,
+    tap-major: [9, Cp // 8, Cp, 8], wp[kh*3 + kw, ci // 8, co, ci % 8] =
+    bf16(w'[co, ci, kh, kw]) with w' = w or :func:`flip_weight` (w), 0 for co
+    or ci >= C -- a tap's slab is wgmma's B operand in core matrices of 8
+    C_out x 8 ci (:func:`operand_plan`)."""
     c = w.shape[0]
     cp = _padded(c)
     wf = (flip_weight(w) if flip else w).to(torch.bfloat16)
-    if cp == C96:
-        full = torch.zeros((9, cp, cp), dtype=torch.bfloat16, device=w.device)
-        full[:, :c, :c] = wf.permute(2, 3, 0, 1).reshape(9, c, c)
-        return full.reshape(9, cp, cp // 8, 8).permute(0, 2, 1, 3).contiguous()
-    out = torch.zeros((9, cp, cp + 8), dtype=torch.bfloat16, device=w.device)
-    out[:, :c, :c] = wf.permute(2, 3, 0, 1).reshape(9, c, c)
-    return out
+    full = torch.zeros((9, cp, cp), dtype=torch.bfloat16, device=w.device)
+    full[:, :c, :c] = wf.permute(2, 3, 0, 1).reshape(9, c, c)
+    return full.reshape(9, cp, cp // 8, 8).permute(0, 2, 1, 3).contiguous()
 
 
-# D96's tile: output rows, and pixels of a row (one wgmma's M); the x
-# operand's halo rows are padded to an odd pitch of pixels
+# The tile of D96 and D48: output rows, and pixels of a row (one wgmma's
+# M); the x operand's halo rows are padded to an odd pitch of pixels
 D96_TILE = (4, 64)
 D96_ROW_PIXELS = 67
 
 
-def d96_operand_plan() -> dict:
-    """D96's x operand as its wgmma reads it, in bytes (the kernel takes
-    these and checks them against its buffers).  The producer writes the
-    transformed, halo'd tile of channel group g (8 channels), halo row r,
-    column c at ``g * plane + r * row + c * 16``: one 16-byte pixel vector of
-    8 channels, so 8 consecutive pixels are one core matrix (K-major, no
-    swizzle: ``sbo`` between 8-pixel groups, ``lbo`` = plane between the two
-    8-channel halves of a k16 step).  Tile row rr's product at tap (kh, kw)
-    and k16 step s reads the 64 pixels from ``tap[kh*3 + kw] + rr * row + 2 *
-    s * plane``: a tap is a start offset, no im2col and no shifted copy.
-    ``w_lbo`` is the same step for the packed weights
-    (:func:`pack_weights_plain`: 96 C_out of 16 bytes per channel group)."""
+def operand_plan(cp: int) -> dict:
+    """The x operand of D96 (cp = 96) or D48 (cp = 48) as its wgmma reads
+    it, in bytes (the kernel takes these and checks them against its
+    buffers).  The producer writes the transformed, halo'd tile of channel
+    group g (8 channels), halo row r, column c at ``g * plane + r * row + c *
+    16``: one 16-byte pixel vector of 8 channels, so 8 consecutive pixels
+    are one core matrix (K-major, no swizzle: ``sbo`` between 8-pixel
+    groups, ``lbo`` = plane between the two 8-channel halves of a k16 step).
+    Tile row rr's product at tap (kh, kw) and k16 step s reads the 64 pixels
+    from ``tap[kh*3 + kw] + rr * row + 2 * s * plane``: a tap is a start
+    offset, no im2col and no shifted copy.  ``w_lbo`` is the same step for
+    the packed weights (:func:`pack_weights_plain`: cp C_out of 16 bytes per
+    channel group).  Only ``channel_groups`` and ``w_lbo`` depend on cp."""
+    _check(cp in (C96, C48), f"the wgmma kernels take Cp = {C96} or {C48}, got {cp}")
     rows, cols = D96_TILE
     row = D96_ROW_PIXELS * 16
     plane = (rows + 2) * row
     tap = tuple(kh * row + kw * 16 for kh in range(3) for kw in range(3))
     return {"pixel": 16, "row": row, "plane": plane, "lbo": plane, "sbo": 128, "tap": tap,
-            "channel_groups": C96 // 8, "halo": (rows + 2, cols + 2), "w_lbo": C96 * 16}
+            "channel_groups": cp // 8, "halo": (rows + 2, cols + 2), "w_lbo": cp * 16}
+
+
+def d96_operand_plan() -> dict:
+    """D96's x operand: :func:`operand_plan` at Cp = 96."""
+    return operand_plan(C96)
 
 
 def _d96_ops():
-    """The kernel's int[11] of :func:`d96_operand_plan`: plane, row, tap[9]."""
-    p = d96_operand_plan()
+    """The kernel's int[11] of :func:`operand_plan`: plane, row, tap[9] (the
+    same at both widths)."""
+    p = operand_plan(C96)
     return (ctypes.c_int * 11)(p["plane"], p["row"], *p["tap"])
 
 
@@ -293,7 +297,10 @@ def dw_async(shape, ptrs) -> bool:
     return shape[3] % 8 == 0 and all(p % 16 == 0 for p in ptrs)
 
 
+# the plans of D96 and D48, in the kernel source's order (wgd_plan)
 FWD96_PLAN_KEYS = ("smem", "x_buffers", "w_stages", "tile_rows", "tile_pixels", "warpgroups",
+                   "ctas_per_sm", "tiles", "wpack", "row_pixels", "raw_bytes")
+FWD48_PLAN_KEYS = ("smem", "x_buffers", "w_slabs", "tile_rows", "tile_pixels", "warpgroups",
                    "ctas_per_sm", "tiles", "wpack", "row_pixels", "raw_bytes")
 
 
@@ -307,24 +314,37 @@ def fwd96_plan(c: int, h: int, w: int) -> dict:
     return _plan_dict(FWD96_PLAN_KEYS, "branch_conv_fwd96_plan", c, h, w)
 
 
-# D96's stamps per CTA, in the kernel's order (csrc/branch_conv.cu,
-# conv_d96_kernel): clock64 sums of one thread of each role (the x
+# the stamps of D96 and D48 per CTA, in the kernels' order
+# (csrc/branch_conv.cu, conv_d96_kernel and conv_d48_kernel): clock64 sums
+# of one thread of each role, then global-timer marks.  D96: the x
 # producer's lane 0 of warp 1, the weight producer's lane 0 of warp 0, the
-# first consumer warpgroup's thread 0), then global-timer marks
+# first consumer warpgroup's thread 0
 D96_PHASES = ("x producer: wait for the raw box and the operand", "x producer: fill",
               "weights: wait for an empty slab", "consumer: wait for x",
               "consumer: wait for a slab", "consumer: products", "consumer: epilogue",
               "consumer: tile loop", "start (global ns)", "loop start (global ns)",
               "loop end (global ns)", "end (global ns)")
-
-
-FWD48_PLAN_KEYS = ("smem", "x_stages", "tile_rows", "blocks_per_sm", "tiles", "wpack")
+# D48: the producers' thread 0 (the fill ends at the producers' barrier, so
+# it is the slowest producer warp's), the first consumer warpgroup's thread
+# 0; its tile loop holds the weights' wait and the four phases after it.
+# "issue the products" is the wgmma instructions' issue, which stalls while
+# the tensor cores' queue is full: it holds most of the products' time;
+# "wait for the products" is what they take beyond it
+D48_PHASES = ("x producer: wait for the raw box", "x producer: wait for an empty operand",
+              "x producer: fill", "consumer: wait for the weights", "consumer: wait for x",
+              "consumer: issue the products", "consumer: wait for the products",
+              "consumer: epilogue", "consumer: tile loop", "start (global ns)",
+              "loop start (global ns)", "loop end (global ns)", "end (global ns)")
 
 
 def fwd48_plan(c: int, h: int, w: int) -> dict:
     """D48's plan for C channels (padded to 48) at H x W, from the kernel
-    source: shared bytes, x stages, tile rows, blocks per SM (the occupancy
-    calculator's), tiles per image, packed weight elements."""
+    source: shared bytes, x buffers (two raw TMA stages and two operand
+    buffers), weight slabs in shared memory (all nine, resident), tile rows
+    and pixels per row, warpgroups (one producer, two consumers), CTAs per
+    SM (the occupancy calculator's: 0 where the plan does not fit), tiles
+    per image, packed weight elements, the x operand's halo row pitch, one
+    raw x stage's bytes (one TMA box a tile)."""
     return _plan_dict(FWD48_PLAN_KEYS, "branch_conv_fwd48_plan", c, h, w)
 
 
@@ -414,16 +434,17 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _stamps(device, kern: int, nslab: int, cycles: bool) -> Optional[torch.Tensor]:
-    _check(not cycles or kern == C96, "stamps are D96's")
-    return torch.zeros((nslab, len(D96_PHASES)), dtype=torch.int64,
+    _check(not cycles or kern in (C96, C48), "stamps are D96's and D48's")
+    phases = D96_PHASES if kern == C96 else D48_PHASES
+    return torch.zeros((nslab, len(phases)), dtype=torch.int64,
                        device=device) if cycles else None
 
 
 def conv3x3_fwd_cuda(x: torch.Tensor, w: torch.Tensor, mul=None, add=None, stats: bool = True,
                      flip: bool = False, cycles: bool = False):
     """Kernel D: x bf16 NCHW, w f32 OIHW -> (y bf16, [2,C] f32 or None);
-    with ``cycles`` (D96 only) also an int64 [CTAs, 12] tensor of each
-    CTA's stamps (:data:`D96_PHASES`)."""
+    with ``cycles`` (D96 and D48 only) also an int64 [CTAs, 12 or 13]
+    tensor of each CTA's stamps (:data:`D96_PHASES`, :data:`D48_PHASES`)."""
     n, c, h, wd = _geometry(x, w)
     if mul is not None:
         _check_vec("mul", mul, (c,), x.device)
@@ -471,11 +492,10 @@ def _fwd_launch_plan(device, n: int, c: int, h: int, wd: int, kern: int, post: b
     for D's kernel ``kern`` at [n, c, h, wd]."""
     if kern:
         plan = (fwd96_plan if kern == C96 else fwd48_plan)(c, h, wd)
-        per_sm = plan["blocks_per_sm"] if kern == C48 else plan["ctas_per_sm"]
-        _check(per_sm > 0, f"{'D96' if kern == C96 else 'D48'}'s plan ({plan['smem']} shared "
-               f"bytes) does not fit on this card")
+        _check(plan["ctas_per_sm"] > 0, f"{'D96' if kern == C96 else 'D48'}'s plan "
+               f"({plan['smem']} shared bytes) does not fit on this card")
         wpack = torch.empty(plan["wpack"], dtype=torch.bfloat16, device=device)
-        return _slabs(device, per_sm, 1, n * plan["tiles"]), wpack
+        return _slabs(device, plan["ctas_per_sm"], 1, n * plan["tiles"]), wpack
     smem, nmt, _, _, tiles, smem_post = _plan(c, h, wd)
     return _fwd_slabs(device, smem_post if post else smem, nmt, n * tiles), None
 
@@ -488,8 +508,7 @@ def pack_weights_cuda(w: torch.Tensor, flip: bool = False) -> torch.Tensor:
     cp = _padded(c)
     _check_vec("w", w, (c, c, 3, 3), w.device)
     _check(w.is_cuda and cp in (C96, C48), f"needs a CUDA w with C padding to {C96} or {C48}")
-    shape = (9, cp // 8, cp, 8) if cp == C96 else (9, cp, cp + 8)
-    out = torch.empty(shape, dtype=torch.bfloat16, device=w.device)
+    out = torch.empty((9, cp // 8, cp, 8), dtype=torch.bfloat16, device=w.device)
     err = _lib().branch_conv_pack(w.data_ptr(), out.data_ptr(), c, int(flip),
                                   torch.cuda.current_stream(w.device).cuda_stream)
     _raise_on(err, "branch_conv_pack")
@@ -500,7 +519,8 @@ def conv3x3_dx_post_cuda(dY: torch.Tensor, w: torch.Tensor, x: torch.Tensor, mul
                          add: torch.Tensor, cycles: bool = False):
     """Kernel D's post mode: dY, x bf16 NCHW, w f32 OIHW (the forward conv's),
     mul, add f32 [C] (raw) -> (dx bf16, [2,C] f32 (dmul, dadd)); with
-    ``cycles`` (D96 only) also the CTAs' stamps, as :func:`conv3x3_fwd_cuda`."""
+    ``cycles`` (D96 and D48 only) also the CTAs' stamps, as
+    :func:`conv3x3_fwd_cuda`."""
     n, c, h, wd = _geometry(dY, w)
     _check_act("x", x, dY.shape)
     _check_vec("mul", mul, (c,), dY.device)

@@ -185,39 +185,35 @@ def test_fwd48_kernel_choice(shape, ptrs, kern):
     assert bc.fwd_kernel(shape, ptrs) == kern
 
 
-def _d96_slab_matrix(slab: torch.Tensor) -> torch.Tensor:
-    """One tap's packed D96 slab read as wgmma reads B through its
-    descriptor (K-major core matrices, no swizzle): element (n = co, k = ci)
-    at byte (ci // 8) * w_lbo + (co // 8) * sbo + (co % 8) * 16 + (ci % 8) * 2.
-    -> [co, ci]."""
-    p = bc.d96_operand_plan()
+def _d96_slab_matrix(slab: torch.Tensor, cp: int = 96) -> torch.Tensor:
+    """One tap's packed slab of D96 (cp = 96) or D48 (cp = 48) read as wgmma
+    reads B through its descriptor (K-major core matrices, no swizzle):
+    element (n = co, k = ci) at byte (ci // 8) * w_lbo + (co // 8) * sbo +
+    (co % 8) * 16 + (ci % 8) * 2.  -> [co, ci]."""
+    p = bc.operand_plan(cp)
     flat = slab.reshape(-1)
-    co = torch.arange(96)[:, None]
-    ci = torch.arange(96)[None, :]
+    co = torch.arange(cp)[:, None]
+    ci = torch.arange(cp)[None, :]
     byte = (ci // 8) * p["w_lbo"] + (co // 8) * p["sbo"] + (co % 8) * 16 + (ci % 8) * 2
     return flat[byte // 2]
 
 
 @pytest.mark.parametrize("c,flip", [(96, False), (88, True), (48, False), (48, True), (40, True)])
 def test_packed_weights96_are_the_conv_as_tap_gemms(c, flip):
-    """The packed weights of D96 ([9, 12, 96, 8]: per tap, wgmma's B in core
-    matrices of 8 C_out x 8 ci, read here through its descriptor's strides)
-    and D48 ([9, 48, 56]) as nine per-tap GEMMs over shifted inputs give the
-    plain D (flipped: the dx conv) bit for bit in f32, and are 0 beyond C
-    (and, at 48, in the skew)."""
+    """The packed weights of D96 ([9, 12, 96, 8]) and D48 ([9, 6, 48, 8]):
+    per tap, wgmma's B in core matrices of 8 C_out x 8 ci, read here
+    through its descriptor's strides, as nine per-tap GEMMs over shifted
+    inputs give the plain D (flipped: the dx conv) bit for bit in f32, and
+    are 0 beyond C."""
     g = torch.Generator().manual_seed(c)
     x = torch.randn(1, c, 8, 16, generator=g).to(torch.bfloat16)
     w = torch.randn(c, c, 3, 3, generator=g) * 0.1
     wp = bc.pack_weights_plain(w, flip)
     assert wp.dtype == torch.bfloat16
-    if c > 48:
-        assert wp.shape == (9, 12, 96, 8)
-        mats = torch.stack([_d96_slab_matrix(wp[tap]) for tap in range(9)])
-        assert torch.equal(mats.reshape(-1).sort().values, wp.reshape(-1).sort().values)
-    else:
-        assert wp.shape == (9, 48, 56)
-        mats = wp[:, :, :48]
-        assert not wp[:, :, 48:].any()
+    cp = 96 if c > 48 else 48
+    assert wp.shape == (9, cp // 8, cp, 8)
+    mats = torch.stack([_d96_slab_matrix(wp[tap], cp) for tap in range(9)])
+    assert torch.equal(mats.reshape(-1).sort().values, wp.reshape(-1).sort().values)
     assert not mats[:, c:].any() and not mats[:, :, c:].any()
     xp = torch.nn.functional.pad(x.double(), (1, 1, 1, 1))
     acc = torch.zeros(c, 8, 16, dtype=torch.float64)

@@ -242,9 +242,10 @@ def test_d96_stamps(dev, post):
 
 @pytest.mark.cuda
 def test_d96_refuses_stamps_elsewhere(dev):
-    """Stamps are D96's: asking for them where another kernel runs (C = 48,
-    or a misaligned input at C = 96) raises before any launch."""
-    x, wt, mul, add, _ = _inputs(dev, 1, 48, 8, 64)
+    """Stamps are D96's and D48's: asking for them where conv_fwd_kernel
+    runs (C = 32, or a misaligned input at C = 96) raises before any
+    launch."""
+    x, wt, mul, add, _ = _inputs(dev, 1, 32, 8, 64)
     with pytest.raises(ValueError):
         bc.conv3x3_fwd_cuda(x, wt, cycles=True)
     x, wt, mul, add, _ = _inputs(dev, 1, 96, 8, 64)
