@@ -1038,6 +1038,11 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
                 del dkr, dYr
             else:
                 row["sync_fill_ms"] = time_ms(lambda: bc.conv3x3_dw_cuda(xm, dy, y, ds, *pre))
+                # the device's own pace: the ring and conv2d_weight back to
+                # back, in turns
+                row["b2b_ms"] = b2b_turns(torch, {
+                    "kernel": lambda: bc.conv3x3_dw_cuda(x, dy, y, ds, *pre),
+                    "library": lambda: torch.nn.grad.conv2d_weight(x, w.shape, dY_lib, padding=1)})
             nbytes = 4 * act + ds.numel() * 4 + (2 * c * 4 if pre else 0) + w.numel() * 4
             row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf16_peak)
             e_rows[f"{tag} {mode}"] = row
@@ -1052,7 +1057,7 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
                            f"loop {ph['share']}")
             else:
                 old_txt = (f"kernel {row['ms']:.3f} ms (synchronous fill "
-                           f"{row['sync_fill_ms']:.3f} ms)")
+                           f"{row['sync_fill_ms']:.3f} ms); back to back {b2b_text(row['b2b_ms'])}")
             print(f"[kernel E branch_conv_dw] {tag} {mode}: {ename} dY exact, max|ddk|={err:.3g} "
                   f"(max|dk| {dkp.abs().max().item():.3g}), two launches bit-equal  {old_txt}  "
                   f"plain {row['plain_ms']:.3f} ms  conv2d_weight {row['library_ms']:.3f} ms  "
