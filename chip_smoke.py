@@ -36,16 +36,17 @@ Phases; any failure exits non-zero and prints no result:
                 card, twice on the same inputs, with the times of
                 ``pre_backward`` alone and of that unfused chain; E also twice
                 on the same inputs (bit-equal), with its plan and the
-                registers ptxas gives it: at C = 48 on conv_dw_kernel's
-                asynchronous ring and through its synchronous fill (a
-                misaligned input), bit-equal; at C = 96 on E96
+                registers ptxas gives it: at C = 96 on E96
                 (``conv_dw96_kernel``: clusters of 3 CTAs, x by TMA
-                multicast; counted by ``launches_c96``), beside
-                conv_dw_kernel<6> through the misaligned copy (its
-                synchronous fill, "old_kernel_ms") and on its ring
-                ("old_ring_ms"), dY bit-equal and dk within 1e-3 of E96's,
-                both also back to back in turns ("b2b_ms"), and E96's
-                stamps (``dw96_phases``);
+                multicast; counted by ``launches_c96``) and at C = 48 on
+                E48 (``conv_dw48_kernel``: wgmma, x, dy and y by TMA;
+                counted by ``launches_c48``), each beside conv_dw_kernel
+                through the misaligned copy (its synchronous fill,
+                "old_kernel_ms") and on its ring ("old_ring_ms"), dY
+                bit-equal and dk within 1e-3 of the new kernel's, both
+                also back to back in turns ("b2b_ms": new, ring, ring,
+                new) beside ``conv2d_weight`` back to back, with E96's
+                stamps (``dw96_phases``) and E48's (``dw48_phases``);
  2b. D at eval -- D in ``pre`` mode at every shape config 5's shipped eval
                 gives it (each scale's windows of both views in one
                 batch: branch 0 at C = 48, branch 1 at C = 96), against its
@@ -75,7 +76,8 @@ Phases; any failure exits non-zero and prints no result:
                 few steps each: losses finite, each path's kernels launched
                 the derived number of times at every step (config 5's C =
                 96 branch convs on D96 and E96, its C = 48 ones on D48 and
-                E's ring, post mode included, none on conv_fwd_kernel; E's
+                E48, post mode included, none on conv_fwd_kernel or
+                conv_dw_kernel; E's
                 counts derived from the model by ``e_launches``), time per step,
                 peak memory and a profile.  Each run ends in ``Trainer.fit``'s
                 evaluation (``train.epochs=1``), counted and measured apart
@@ -135,7 +137,7 @@ Phases; any failure exits non-zero and prints no result:
                 of three planted faults (``planted_faults``), outside it;
                 the ranks' states bit-equal (sha256), A 1 / B 2 / C 1
                 (config 3) and D 160 / E 48 (config 5 at that depth: D96
-                80, D48 80, 12 post each; E96 24, the ring 24; from
+                80, D48 80, 12 post each; E96 24, E48 24; from
                 ``d_launches`` and ``e_launches``) per rank and step,
                 collectives and bytes reduced, stream, kernel and wall ms
                 per step, kernel A with the other rank's partner row
@@ -428,7 +430,7 @@ def main() -> None:
     kernels["branch_conv_dx_post_c48"] = d_rows["N8_C48_256x256 post"]
     kernels["branch_conv_fwd_c96"] = d_rows["N8_C96_128x128 pre+stats"]
     kernels["branch_conv_dx_post_c96"] = d_rows["N8_C96_128x128 post"]
-    kernels["branch_conv_dw"] = e_rows["N8_C48_256x256 fuse+pre"]
+    kernels["branch_conv_dw_c48"] = e_rows["N8_C48_256x256 fuse+pre"]
     kernels["branch_conv_dw_c96"] = e_rows["N8_C96_128x128 fuse+pre"]
     lap("kernels D, E")
 
@@ -464,8 +466,8 @@ def main() -> None:
     # the convs with the input transform (each block's second) run in D's
     # post mode; the half of each at C = 96 (branch 1, W = 128) on D96, the
     # other half at C = 48 (branch 0, W = 256) on D48; E: one per conv of
-    # the student's backward, at C = 96 on E96 and at C = 48 on the ring
-    # (e_launches: 64 and 64).
+    # the student's backward, at C = 96 on E96 and at C = 48 on E48
+    # (e_launches: 64 and 64, none on conv_dw_kernel).
     # eval (8 val images, one batch, 6 scales, flip, sliding): each scale's
     # windows of both views in one forward, 128 D launches each, on the
     # kernel fwd_kernel picks for each eligible branch shape (phase 2b)
@@ -616,23 +618,19 @@ def main() -> None:
                                 "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:328"),
         "branch_conv_dx_post_c96": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
                                     "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:223"),
-        "branch_conv_dw": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
-                           "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:536"),
+        "branch_conv_dw_c48": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
+                               "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:536"),
         "branch_conv_dw_c96": ("cuda", "semi_supervised_semantic_segmentation_tpu_torch/csrc/branch_conv.cu",
                                "semi_supervised_semantic_segmentation_tpu/ops/pallas_conv.py:536"),
     }
-    # the record's counter: branch_conv_dw is E at C = 48, conv_dw_kernel,
-    # which the path launches on its ring alone
-    counter = {"branch_conv_dw": "branch_conv_dw_async"}
     records = []
     for kname, (route, source, replaces) in meta.items():
         k = kernels[kname]
-        ck = counter.get(kname, kname)
         records.append({
             "name": kname, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[ck],
-            "launches_per_val_pass": sum(r[1][ck] for r in runs.values()),
-            "launches_by_config": by_config[ck],
+            "launches": launches[kname],
+            "launches_per_val_pass": sum(r[1][kname] for r in runs.values()),
+            "launches_by_config": by_config[kname],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
@@ -816,10 +814,12 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
     cotangent fused, without and with the input transform.  Each against
     its plain version on the same inputs: y within one bf16 ulp, stats
     within 1e-3 of each row's max, dk within 1e-3 of max|dk|, dY exact.
-    E also: on its asynchronous ring (counted), bit-equal over two launches,
-    and through its synchronous fill (x at a 2-byte offset), which must give
-    the ring's bits, with its own time.  D's post mode (dY = dy, the
-    forward conv's x, mul and add): dx bit-equal to D's dx conv followed by
+    E also: on E96 at C = 96 and E48 at C = 48 (counted), bit-equal over
+    two launches, beside conv_dw_kernel's synchronous fill (x at a 2-byte
+    offset) and its ring (named to the launcher), each giving the same dY
+    and dk within 1e-3, with their times, back to back too, and the
+    stamps.  D's post mode (dY = dy, the forward conv's x, mul and add): dx
+    bit-equal to D's dx conv followed by
     ``pre_backward`` on the card and over two launches; against the plain
     version dx within one bf16 ulp of dt carried through the scale plus
     dx's own rounding (2^-6 relative: the plain dt may sit one ulp away,
@@ -946,32 +946,40 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
         y, _ = bc.conv3x3_fwd_cuda(x, w)
         dY_lib = bc.fold_stats_cotangent(dy, y, ds)
         lib_dw = time_ms(lambda: torch.nn.grad.conv2d_weight(x, w.shape, dY_lib, padding=1))
-        e96 = bc.dw_c96(x.shape, (x.data_ptr(), dy.data_ptr(), y.data_ptr()))
-        check(e96 == (c == 96), f"E {tag}: dw_c96 is {e96}")
+        ekern = bc.dw_kernel(x.shape, (x.data_ptr(), dy.data_ptr(), y.data_ptr()))
+        check(ekern == {96: "e96", 48: "e48"}[c], f"E {tag}: dw_kernel chose {ekern}")
         old_name = f"conv_dw_kernel<{(c + 15) // 16}>"
-        ename = "conv_dw96_kernel" if e96 else old_name
-        plan = bc.dw96_plan(c, h, h) if e96 else bc.dw_plan(c, h, h)
+        ename = {"e96": "conv_dw96_kernel", "e48": "conv_dw48_kernel"}.get(ekern, old_name)
+        label = {"e96": "E96", "e48": "E48"}.get(ekern, ekern)
+        plan = (bc.dw96_plan if ekern == "e96" else bc.dw48_plan)(c, h, h)
         plan["ptxas"] = ptxas.get(ename, "not in the log")
         e_plans[tag] = plan
-        if e96:
+        if ekern == "e96":
             print(f"[kernel E96 plan] {tag}: clusters of {plan['cluster']} CTAs x "
                   f"{plan['threads']} threads, {plan['clusters']} clusters at once, "
                   f"{plan['stages']} ring stages, tiles of {plan['tile_rows']}x32 pixels, x boxes "
                   f"of {plan['x_box_cols']} columns, {plan['smem']} shared bytes, ptxas "
                   f"{plan['ptxas']}", flush=True)
         else:
-            print(f"[kernel E plan] {tag}: {plan['rows']} dk rows per block, {plan['row_blocks']} "
-                  f"block(s) per slab, tiles of {plan['tile_rows']}x32 pixels, "
-                  f"{plan['stages']} ring stages, {plan['smem']} shared bytes, ptxas "
-                  f"{plan['ptxas']}", flush=True)
+            print(f"[kernel E48 plan] {tag}: {plan['warpgroups']} warpgroups, "
+                  f"{plan['ctas_per_sm']} CTA(s) per SM, tiles of {plan['tile_rows']}x"
+                  f"{plan['tile_pixels']} pixels, {plan['x_stages']} x stages of "
+                  f"{plan['x_box_cols']} columns, {plan['x_buffers']} x operands, "
+                  f"{plan['dy_stages']} dy stages, {plan['y_stages']} y stage, "
+                  f"{plan['taps_wg0']} + {9 - plan['taps_wg0']} taps, {plan['smem']} shared "
+                  f"bytes, ptxas {plan['ptxas']}", flush=True)
         xm = _misaligned(torch, x)
         fe = bc.conv3x3_dw_cuda
+
+        def counts():
+            return (fe.launches_async, fe.launches_c96, fe.launches_c48)
+
         for mode, pre in (("fuse", ()), ("fuse+pre", (mul, add))):
-            counts0 = (fe.launches_async, fe.launches_c96)
+            counts0 = counts()
             dk, dY = bc.conv3x3_dw_cuda(x, dy, y, ds, *pre)
-            check((fe.launches_async - counts0[0], fe.launches_c96 - counts0[1])
-                  == ((0, 1) if e96 else (1, 0)),
-                  f"E {tag} {mode}: did not take {'E96' if e96 else 'the asynchronous ring'}")
+            check(tuple(a - b for a, b in zip(counts(), counts0))
+                  == (0, int(ekern == "e96"), int(ekern == "e48")),
+                  f"E {tag} {mode}: did not take {label}")
             dk2, dY2 = bc.conv3x3_dw_cuda(x, dy, y, ds, *pre)
             torch.cuda.synchronize()
             check(torch.equal(dk, dk2) and torch.equal(dY, dY2),
@@ -982,23 +990,23 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
             err = (dk - dkp).abs().max().item()
             check(err <= 1e-3 * dkp.abs().max().item(),
                   f"E {tag} {mode}: dk differs by {err} (max|dk| {dkp.abs().max().item()})")
-            counts0 = (fe.launches_async, fe.launches_c96)
+            counts0 = counts()
             dks, dYs = bc.conv3x3_dw_cuda(xm, dy, y, ds, *pre)
             torch.cuda.synchronize()
-            check((fe.launches_async, fe.launches_c96) == counts0,
-                  f"E {tag} {mode}: a misaligned input took {'E96' if e96 else 'the ring'}")
-            if e96:
-                # conv_dw_kernel<6>'s synchronous fill, on its own slabs: the
-                # same dY, dk within f32 reordering
-                err_o = (dks - dk).abs().max().item()
-                check(torch.equal(dYs, dY) and err_o <= 1e-3 * dk.abs().max().item(),
-                      f"E {tag} {mode}: {old_name} on the misaligned copy differs from E96 (dk "
-                      f"by {err_o})")
-            else:
-                # the same tiles through the same products: the same bits
-                check(torch.equal(dYs, dY) and torch.equal(dks, dk),
-                      f"E {tag} {mode}: the synchronous fill differs from the ring (dk by "
-                      f"{(dks - dk).abs().max().item()})")
+            check(counts() == counts0, f"E {tag} {mode}: a misaligned input took {label} or the ring")
+            # conv_dw_kernel's synchronous fill, on its own slabs: the same
+            # dY, dk within f32 reordering
+            err_o = (dks - dk).abs().max().item()
+            check(torch.equal(dYs, dY) and err_o <= 1e-3 * dk.abs().max().item(),
+                  f"E {tag} {mode}: {old_name} on the misaligned copy differs from {label} (dk by "
+                  f"{err_o})")
+            # conv_dw_kernel's ring on the same aligned inputs, named to the
+            # launcher (the wrapper never takes it at these widths)
+            dkr, dYr, _ = bc.conv3x3_dw_launch(x, dy, y, ds, *pre, kernel="ring")
+            torch.cuda.synchronize()
+            err_r = (dkr - dk).abs().max().item()
+            check(torch.equal(dYr, dY) and err_r <= 1e-3 * dk.abs().max().item(),
+                  f"E {tag} {mode}: {old_name}'s ring differs from {label} (dk by {err_r})")
             row = {
                 "kernel": ename,
                 "ms": time_ms(lambda: bc.conv3x3_dw_cuda(x, dy, y, ds, *pre)),
@@ -1008,60 +1016,44 @@ def branch_kernels(torch, dev, bc, time_ms, bound, bf16_peak, ptxas):
                 "max_abs_err": err,
                 "plan": {k: v for k, v in plan.items() if k != "ptxas"},
                 "ptxas": plan["ptxas"],
+                "old_kernel": old_name,
+                # conv_dw_kernel beside it: its synchronous fill through the
+                # misaligned copy (the path's kernel for such an input), and
+                # its ring on the same aligned inputs
+                "old_kernel_ms": time_ms(lambda: bc.conv3x3_dw_cuda(xm, dy, y, ds, *pre)),
+                "old_ring_ms": time_ms(lambda: bc.conv3x3_dw_launch(x, dy, y, ds, *pre,
+                                                                   kernel="ring")),
+                # the device's own pace: launches queued back to back, in
+                # turns (the single calls above carry the host's work)
+                "b2b_ms": [back_to_back_ms(torch, lambda k=k: bc.conv3x3_dw_launch(
+                    x, dy, y, ds, *pre, kernel=k)) for k in (ekern, "ring", "ring", ekern)],
+                "library_b2b_ms": [back_to_back_ms(torch, lambda: torch.nn.grad.conv2d_weight(
+                    x, w.shape, dY_lib, padding=1)) for _ in range(2)],
+                "old_dk_rel": err_o / dk.abs().max().item(),
+                "ring_dk_rel": err_r / dk.abs().max().item(),
+                "phases": (dw96_phases if ekern == "e96" else dw48_phases)(
+                    torch, bc, x, dy, y, ds, pre),
             }
-            if e96:
-                # conv_dw_kernel<6> beside it: its synchronous fill through the
-                # misaligned copy (the path's old kernel for such an input),
-                # and its ring on the same aligned inputs, named to the
-                # launcher (the wrapper never takes it at C = 96)
-                dkr, dYr, _ = bc.conv3x3_dw_launch(x, dy, y, ds, *pre, kernel="ring")
-                torch.cuda.synchronize()
-                err_r = (dkr - dk).abs().max().item()
-                check(torch.equal(dYr, dY) and err_r <= 1e-3 * dk.abs().max().item(),
-                      f"E {tag} {mode}: {old_name}'s ring differs from E96 (dk by {err_r})")
-                row.update({
-                    "old_kernel": old_name,
-                    "old_kernel_ms": time_ms(lambda: bc.conv3x3_dw_cuda(xm, dy, y, ds, *pre)),
-                    "old_ring_ms": time_ms(lambda: bc.conv3x3_dw_launch(x, dy, y, ds, *pre,
-                                                                       kernel="ring")),
-                    # the device's own pace: launches queued back to back, in
-                    # turns (the single calls above carry the host's work)
-                    "b2b_ms": [back_to_back_ms(torch, lambda: bc.conv3x3_dw_launch(
-                        x, dy, y, ds, *pre, kernel=k)) for k in ("e96", "ring", "ring", "e96")],
-                    "old_dk_rel": err_o / dk.abs().max().item(),
-                    "phases": dw96_phases(torch, bc, x, dy, y, ds, pre),
-                })
-                bb = row["b2b_ms"]
-                row["faster_than_old"] = {
-                    "single call": row["ms"] < min(row["old_kernel_ms"], row["old_ring_ms"]),
-                    "back to back": max(bb[0], bb[3]) < min(bb[1], bb[2])}
-                del dkr, dYr
-            else:
-                row["sync_fill_ms"] = time_ms(lambda: bc.conv3x3_dw_cuda(xm, dy, y, ds, *pre))
-                # the device's own pace: the ring and conv2d_weight back to
-                # back, in turns
-                row["b2b_ms"] = b2b_turns(torch, {
-                    "kernel": lambda: bc.conv3x3_dw_cuda(x, dy, y, ds, *pre),
-                    "library": lambda: torch.nn.grad.conv2d_weight(x, w.shape, dY_lib, padding=1)})
+            bb = row["b2b_ms"]
+            row["faster_than_old"] = {
+                "single call": row["ms"] < min(row["old_kernel_ms"], row["old_ring_ms"]),
+                "back to back": max(bb[0], bb[3]) < min(bb[1], bb[2])}
+            del dkr, dYr
             nbytes = 4 * act + ds.numel() * 4 + (2 * c * 4 if pre else 0) + w.numel() * 4
             row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf16_peak)
             e_rows[f"{tag} {mode}"] = row
-            if e96:
-                ph = row["phases"]
-                bb = row["b2b_ms"]
-                old_txt = (f"E96 {row['ms']:.3f} ms  {old_name}: ring {row['old_ring_ms']:.3f} ms, "
-                           f"back to back E96 {bb[0]:.4f}/{bb[3]:.4f} ms, ring {bb[1]:.4f}/"
-                           f"{bb[2]:.4f} ms, "
-                           f"synchronous fill (misaligned copy) {row['old_kernel_ms']:.3f} ms "
-                           f"(dk within {row['old_dk_rel']:.2g} of max|dk|); phases of the tile "
-                           f"loop {ph['share']}")
-            else:
-                old_txt = (f"kernel {row['ms']:.3f} ms (synchronous fill "
-                           f"{row['sync_fill_ms']:.3f} ms); back to back {b2b_text(row['b2b_ms'])}")
+            ph = row["phases"]
+            lb = row["library_b2b_ms"]
             print(f"[kernel E branch_conv_dw] {tag} {mode}: {ename} dY exact, max|ddk|={err:.3g} "
-                  f"(max|dk| {dkp.abs().max().item():.3g}), two launches bit-equal  {old_txt}  "
-                  f"plain {row['plain_ms']:.3f} ms  conv2d_weight {row['library_ms']:.3f} ms  "
-                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+                  f"(max|dk| {dkp.abs().max().item():.3g}), two launches bit-equal  {label} "
+                  f"{row['ms']:.3f} ms  {old_name}: ring {row['old_ring_ms']:.3f} ms, back to back "
+                  f"{label} {bb[0]:.4f}/{bb[3]:.4f} ms, ring {bb[1]:.4f}/{bb[2]:.4f} ms, "
+                  f"synchronous fill (misaligned copy) {row['old_kernel_ms']:.3f} ms (dk within "
+                  f"{row['old_dk_rel']:.2g} of max|dk|, the ring's within "
+                  f"{row['ring_dk_rel']:.2g}); phases of the tile loop {ph['share']}  plain "
+                  f"{row['plain_ms']:.3f} ms  conv2d_weight {row['library_ms']:.3f} ms, back to "
+                  f"back {lb[0]:.4f}/{lb[1]:.4f} ms  bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']})", flush=True)
             del dk, dY, dk2, dY2, dkp, dYp, dks, dYs
         del x, xm, dy, y, dY_lib, old
     return d_rows, e_rows, e_plans, d_plans
@@ -1135,6 +1127,26 @@ def dw96_phases(torch, bc, x, dy, y, ds, pre) -> dict:
             "us_per_cta": dict(zip(("before the loop", "tile loop", "partial out", "exit barrier"),
                                    [round(v, 2) for v in gaps])),
             "end_spread_us": round((ns[:, 4].max() - ns[:, 4].min()).item(), 2)}
+
+
+def dw48_phases(torch, bc, x, dy, y, ds, pre) -> dict:
+    """E48's phases in one launch, from its stamps (``bc.DW48_PHASES``): the
+    producers' waits for the x boxes and for an empty operand, their
+    transform and the next boxes' issue; the consumer's waits for a
+    transformed tile and for dy and y, the compose, the products' issue and
+    the wait for them, the release of the tile's stage and the epilogue
+    (:func:`_wgd_phases`), with the main phases per tile."""
+    def launch():
+        return bc.conv3x3_dw_launch(x, dy, y, ds, *pre, kernel="e48", cycles=True)[2]
+
+    out = _wgd_phases(torch, bc.DW48_PHASES, launch)
+    tiles = x.shape[0] * (x.shape[2] // 4) * ((x.shape[3] + 63) // 64) / out["ctas"]
+    m = out["mean_cycles"]
+    out["tiles_per_cta"] = tiles
+    out["per_tile_cycles"] = {k: round(m[k] / tiles) for k in (
+        "producer: transform", "consumer: compose", "consumer: issue the products",
+        "consumer: wait for the products", "consumer: tile loop")}
+    return out
 
 
 def _wgd_phases(torch, names, launch) -> dict:
@@ -2491,6 +2503,7 @@ def synthetic_canvas_hw(hw):
 # lower-cased kernel-name fragments -> group, first match wins
 GROUPS = [
     ("E at C = 96 (E96)", ("conv_dw96_kernel",)),
+    ("E at C = 48 (E48)", ("conv_dw48_kernel",)),
     ("D at C = 96 (D96 and its weight pack)", ("conv_d96_kernel", "pack_wg_kernel<96>")),
     ("D at C = 48 (D48 and its weight pack)", ("conv_d48_kernel", "pack_wg_kernel<48>")),
     ("stem kernels (B, C)", ("stem_fwd_kernel", "stem_dw_kernel", "reduce_partials_kernel")),
@@ -2572,8 +2585,8 @@ def ddp_counters(stem, branch_conv, cmn) -> dict:
     """name -> (wrapper, counter attribute); "branch_conv_dx_post" counts D's
     post-mode launches (also in D's "launches"), "..._c96" / "..._c48" those
     of them on D96 / D48, "branch_conv_dw_async" E's launches on
-    conv_dw_kernel's asynchronous ring, "branch_conv_dw_c96" E's on E96
-    (both also in E's "launches")."""
+    conv_dw_kernel's asynchronous ring, "branch_conv_dw_c96" E's on E96,
+    "branch_conv_dw_c48" E's on E48 (each also in E's "launches")."""
     return {"cutmix_normalize": (cmn.cutmix_normalize_triton, "launches"),
             "stem_fwd": (stem.stem_fwd_cuda, "launches"),
             "stem_dw": (stem.stem_dw_cuda, "launches"),
@@ -2585,7 +2598,8 @@ def ddp_counters(stem, branch_conv, cmn) -> dict:
             "branch_conv_dx_post_c48": (branch_conv.conv3x3_fwd_cuda, "launches_c48_post"),
             "branch_conv_dw": (branch_conv.conv3x3_dw_cuda, "launches"),
             "branch_conv_dw_async": (branch_conv.conv3x3_dw_cuda, "launches_async"),
-            "branch_conv_dw_c96": (branch_conv.conv3x3_dw_cuda, "launches_c96")}
+            "branch_conv_dw_c96": (branch_conv.conv3x3_dw_cuda, "launches_c96"),
+            "branch_conv_dw_c48": (branch_conv.conv3x3_dw_cuda, "launches_c48")}
 
 
 # expected launches per training step of each slice the ddp phase runs
@@ -2605,8 +2619,9 @@ def e_launches(cfg, bc) -> dict:
     branch's side for the training crop: the stem's stride 4, then 2 per
     branch), and the student's one backward a step launches E once per
     conv (the teacher's forward and the checkpoint's re-run launch none).
-    Each runs on E96 where ``bc.dw_c96`` takes the branch's shape (torch's
-    allocations are 16-byte aligned), else on conv_dw_kernel's ring.  The
+    Each runs on the kernel ``bc.dw_kernel`` takes for the branch's shape
+    (torch's allocations are 16-byte aligned): E96 at C = 96, E48 at C =
+    48, conv_dw_kernel's ring for any other width.  The
     batch and a model axis (which shards the stem alone) change neither."""
     import inspect
 
@@ -2614,17 +2629,18 @@ def e_launches(cfg, bc) -> dict:
 
     blocks = inspect.signature(HRModule).parameters["num_blocks"].default
     widths = [cfg.model.hrnet_width * 2 ** i for i in range(4)]
-    out = {"branch_conv_dw": 0, "branch_conv_dw_async": 0, "branch_conv_dw_c96": 0}
+    out = {"branch_conv_dw": 0, "branch_conv_dw_async": 0, "branch_conv_dw_c96": 0,
+           "branch_conv_dw_c48": 0}
+    key = {"e96": "branch_conv_dw_c96", "e48": "branch_conv_dw_c48", "ring": "branch_conv_dw_async"}
     for stage, modules in zip((2, 3, 4), cfg.model.hrnet_modules):
         for i in range(stage):
             side = cfg.data.crop_size // 4 // 2 ** i
             shape = (1, widths[i], side, side)
             if not bc.supported(shape, widths[i], widths[i]):
                 continue
-            kern = "branch_conv_dw_c96" if bc.dw_c96(shape, (0, 0, 0, 0)) else \
-                "branch_conv_dw_async"
-            out[kern] += modules * blocks * 2
-            out["branch_conv_dw"] += modules * blocks * 2
+            kern = key.get(bc.dw_kernel(shape, (0, 0, 0, 0)))  # the fill has no counter
+            for k in ("branch_conv_dw",) + ((kern,) if kern else ()):
+                out[k] += modules * blocks * 2
     return out
 
 

@@ -198,6 +198,47 @@
 //      not fit beside the two operand buffers.  Bound per [8,96,128,128]
 //      call: ~101 MB (x, dy, y read, dY written; ~30 us) against 21.7 GFLOP
 //      (~22 us): bytes.
+//   E48 (conv_dw48_kernel, E at Cp = 48 under E96's conditions, every mode;
+//      the wrapper picks it, conv_dw_kernel serves every other shape): E on
+//      D48's tiles (4 output rows x 64 pixels) and x operand, the products on
+//      wgmma.  M = 64 C_out (rows 48-63 zero, dropped), N = a tap's 48 ci, K
+//      = the tile's 256 pixels: per k16 step one dY fragment in registers
+//      (A: ldmatrix.x4 through the 128-byte swizzle, conflict-free; warp 3
+//      of a warpgroup holds the zero rows) serves all the warpgroup's taps,
+//      and each tap's B is D48's x operand read MN-major (8 ci a 16-byte
+//      pixel vector, channel groups a plane apart, 8-pixel groups 128 bytes
+//      apart) at the tap's start offset: no im2col.  wgmma.mma_async
+//      m64n48k16, 144 a tile; consumer warpgroup 0 takes taps 0-4 (120 f32
+//      accumulators a thread), 1 taps 5-8, summed over all the CTA's tiles.
+//      One persistent CTA of 384 threads per SM.  Loads, all by TMA on
+//      mbarriers, issued by the producers' thread 0 after its share of the
+//      transform (an issue can hold its thread): x by D48's box {72, 6, 48}
+//      and the left halo column by a side box {8, 6, 48} at ox0 - 8 (one
+//      raw stage); dy and y each by one box {64, 48, 4} of a map whose dims
+//      are ordered (W, C, H, N), so a tile's four rows land as [row][C_out]
+//      [64 px] in the 128-byte swizzle (two dy stages, one y stage).  Roles:
+//      the producer warpgroup transforms x into one of two operand buffers
+//      (D48's wgd_oct and wgd_singles) under the products of the tile
+//      before; the consumer warpgroups compose dY in place in the dy stage
+//      (fold2's roundings, positions past C and W 0), meet at a named
+//      barrier, write the stage out as dY by one TMA store (clipped at the
+//      tensor's edges) and multiply; setmaxnreg 96 / 200.  The CTA's
+//      [48][432] partial goes to reduce_dk_kernel (fixed order, no
+//      atomics).  Shared bytes: 2 x 24,576 (dy) + 24,576 (y) + 41,472 (x
+//      box) + 4,608 (side box) + 2 x 38,592 (operand) + 888 (ds, pre,
+//      barriers, stamps) + 1,024 (alignment) = 198,792.  Bound per
+//      [8,48,256,256] call: ~201 MB (x, dy, y read, dY written; ~60 us)
+//      against ~29 GFLOP of tensor work with the padding (~29 us): bytes.
+//      Tried on the card and dropped: the halo columns by plain 2-byte loads
+//      (their issue stalled the warp for ~40 % of a tile), L2 prefetches of
+//      later tiles' boxes and TMA issues from the consumers (both held
+//      their threads), 64-column x boxes in two stages (no room beside the
+//      side box), a second y stage and an uneven share of the compose (both
+//      slower), dY by 16-byte stores from the compose (slower than the TMA
+//      store), A by descriptor (level in time; 504 KB of shared reads a
+//      tile against ~264 KB).  What holds it above its bound: the loads'
+//      latency with one raw x stage and the compose in series with the
+//      products; a tile takes ~9.3k cycles against ~7k at the bound.
 // What bounds it: D moves ~100 MB and does 21.7 GFLOP per [8,48,256,256]
 // call (bound ~30 us, bytes).  E reads x, dy, y and writes dY: ~201 MB per
 // [8,48,256,256] call (~60 us) and ~101 MB per [8,96,128,128] call (~30
@@ -2283,6 +2324,465 @@ conv_d48_kernel(const __grid_constant__ CUtensorMap tmx, const bf16* __restrict_
 }
 
 // ---------------------------------------------------------------------------
+// E48: kernel E at Cp = 48, wgmma, warp-specialised, persistent
+// ---------------------------------------------------------------------------
+//
+// Replaces, at channels that pad to 48 (HRNet-W48's branch 0), the TPU
+// kernel E replaces: pallas_conv.py:536 _conv3x3_dw_impl (-> _dw_kernel_dyroll).
+// The design and its shared-memory budget are in the note at the top (E48).
+
+#define DW48_NT 384                          // threads: a producer warpgroup, two consumer warpgroups
+#define DW48_SIDEC 8                         // the left halo box's columns: ox0-8 .. ox0-1
+#define DW48_SIDE (CP48 * WGD_XR * DW48_SIDEC * 2)  // the left halo box, bytes
+#define DW48_LINE (WGD_TC * 2)               // a dy line: 64 pixels of one C_out, 128 bytes
+#define DW48_ROWBOX (CP48 * DW48_LINE)       // one output row's dy (or y) box [48][64], bytes
+#define DW48_DYST (WGD_TR * DW48_ROWBOX)     // a tile's dy (dY in place) or y stage, bytes
+#define DW48_TAPS0 5                         // taps of consumer warpgroup 0; 1 takes the other 4
+#define DW48_NCY 16                          // stamps per CTA
+#define DW48_SMEM_BYTES                                                                       \
+  (1024 + 3 * DW48_DYST + D48_RAW + DW48_SIDE + 2 * D48_XBUF + 2 * CP48 * 4 + 2 * CP48 * 2 + \
+   9 * 8 + DW48_NCY * 8)
+
+// A wgmma descriptor of an MN-major operand without swizzle at shared
+// address addr: core matrices of 8 K rows x 16 bytes (8 N elements), the
+// 8-row K groups 128 bytes apart (the leading byte offset), the 8-element
+// N groups sbo bytes apart.
+__device__ __forceinline__ uint64_t wg_desc_mn(uint32_t addr, uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// d += A * B, m64n48k16, bf16 in, f32 accumulators, A from registers (a
+// warp's 16 rows in mma.sync's A fragment layout), B MN-major.
+__device__ __forceinline__ void wgmma48_rs(float (&d)[24], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// A tensor map's descriptor into the TMA unit's cache, ahead of its first box.
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// The left halo column (x column ox0 - 1) of (group, row) plane idx from
+// E48's side box [48][6][8] (columns ox0-8 .. ox0-1, zero outside the
+// image), one value a word as wgd_singles takes it.
+__device__ __forceinline__ void dw48_left(uint32_t (&h)[8], const unsigned char* side, int idx) {
+  const int grp = idx / WGD_XR, r = idx - grp * WGD_XR;
+  const uint16_t* src = reinterpret_cast<const uint16_t*>(side) + (grp * 8 * WGD_XR + r) *
+                        DW48_SIDEC + DW48_SIDEC - 1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) h[j] = src[j * WGD_XR * DW48_SIDEC];
+}
+
+// fold2's dY (the same f32 roundings and bits), both halves rounded to
+// bf16 by one cvt.rn.bf16x2.f32.
+__device__ __forceinline__ uint32_t dw48_fold2(uint32_t d, uint32_t yv, float s0, float s1) {
+  const float lo = __fadd_rn(__fadd_rn(__uint_as_float(d << 16), s0),
+                             __fmul_rn(__fmul_rn(2.f, __uint_as_float(yv << 16)), s1));
+  const float hi = __fadd_rn(__fadd_rn(__uint_as_float(d & 0xffff0000u), s0),
+                             __fmul_rn(__fmul_rn(2.f, __uint_as_float(yv & 0xffff0000u)), s1));
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// A tile's dY in place in its dy stage: four row boxes [48 C_out][64 px]
+// as TMA's 128-byte swizzle lands them (chunk q of line l = 48 rr + co
+// holds pixels 8 (q ^ co % 8) .. + 7 of output row oy0 + rr), the stats
+// cotangent folded in from the y stage (the same layout); one TMA store
+// writes the stage out as dY (dw48_consumer).  By position: pixels at ox >=
+// W and rows co >= C are 0 in the operand (the zero-filled dy would give
+// ds0; the store leaves them out, past the tensor).  Thread tid of the 256
+// consumer threads takes chunks tid, tid + 256, ..., two at a time, their
+// loads first.
+__device__ __forceinline__ void dw48_compose(unsigned char* dys, const unsigned char* ys,
+                                             const float* dss, const Geo& g, int ox0, int tid) {
+  constexpr int NCH = WGD_TR * CP48 * 8, PER = NCH / 256;  // 1536 chunks, 6 a thread
+  static_assert(NCH % 256 == 0 && PER % 2 == 0, "E48's compose: two chunks at a time");
+#pragma unroll 1
+  for (int u0 = 0; u0 < PER; u0 += 2) {
+    uint4 v[2], yv[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = tid + 256 * (u0 + u);
+      v[u] = *reinterpret_cast<const uint4*>(dys + e * 16);
+      yv[u] = *reinterpret_cast<const uint4*>(ys + e * 16);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = tid + 256 * (u0 + u), q = e & 7, line = e >> 3;
+      const int co = line % CP48;
+      uint4 o = make_uint4(0, 0, 0, 0);
+      if (co < g.C && ox0 + 8 * (q ^ (co & 7)) < g.W) {
+        const float s0 = dss[co], s1 = dss[CP48 + co];
+        o = make_uint4(dw48_fold2(v[u].x, yv[u].x, s0, s1), dw48_fold2(v[u].y, yv[u].y, s0, s1),
+                       dw48_fold2(v[u].z, yv[u].z, s0, s1), dw48_fold2(v[u].w, yv[u].w, s0, s1));
+      }
+      *reinterpret_cast<uint4*>(dys + e * 16) = o;
+    }
+  }
+}
+
+// Tile tile's dy (or y) into stage st by one TMA box of map, a map over
+// the activation with its dims ordered (W, C, H, N) (encode_rows): the box
+// {64, 48, 4, 1} lands as the four row boxes [rr][co][64 px], completing
+// on bar.
+__device__ __forceinline__ void dw48_issue_rows(unsigned char* st, uint64_t* bar,
+                                                const CUtensorMap* map, const Geo& g, int tile) {
+  int n, oy0, ox0;
+  wgd_tile(g, tile, n, oy0, ox0);
+  mbar_arrive_expect_tx(bar, DW48_DYST);
+  tma_load_4d(st, map, bar, ox0, 0, oy0, n);
+}
+
+// Stage st as tile tile's dY through map (encode_rows over dY): one TMA
+// store, its elements past the tensor left out; a bulk group of its own.
+__device__ __forceinline__ void dw48_store_rows(const unsigned char* st, const CUtensorMap* map,
+                                                const Geo& g, int tile) {
+  int n, oy0, ox0;
+  wgd_tile(g, tile, n, oy0, ox0);
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      "cp.async.bulk.commit_group;\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(st)), "r"(ox0), "r"(0), "r"(oy0),
+         "r"(n) : "memory");
+}
+
+// This thread's bulk stores have read their shared memory (READ) or are
+// complete.
+template <bool READ>
+__device__ __forceinline__ void bulk_store_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// A consumer warpgroup's tiles.  Per tile: once the producers have
+// transformed its x and its dy (and y) have landed, both consumer
+// warpgroups compose its dY in place (fuse; 6 chunks a thread) and meet at
+// a named barrier, after which warpgroup 0's thread 0 releases the y stage
+// and warpgroup 1's writes the stage out as dY by one TMA store (tmdYo),
+// waiting for the store's read of it before it releases the stage;
+// then this warpgroup's taps TAP0 .. TAP0 + NTAP - 1: per k16 step s (tile
+// row s / 4, pixels 16 (s % 4) ..) one dY fragment (A, M = 64 C_out, loaded
+// from registers: warp w of the warpgroup takes rows 16 w .. by one
+// ldmatrix.x4 through the 128-byte swizzle, conflict-free; warp 3's rows
+// 48-63 are zeros), loaded while the step before runs, serves all the
+// warpgroup's taps, and per tap the x operand's descriptor (B, MN-major, N
+// = the 48 ci, K = pixels, at the tap's start offset); the accumulators
+// (NTAP x 24 f32) are summed over all the CTA's tiles.  After the products
+// thread 0 releases the tile's stage.  At the end: the CTA's partial[slab][co][tap * 48 + ci]
+// (rows co < 48: warps 0-2 of the warpgroup).
+template <int TAP0, int NTAP>
+__device__ __forceinline__ void dw48_consumer(unsigned char* dyst, const unsigned char* yst,
+                                              const unsigned char* xbuf, const float* dss,
+                                              const CUtensorMap* tmdYo, uint64_t* ready,
+                                              uint64_t* empty, uint64_t* dyfull, uint64_t* yfull,
+                                              uint64_t* yempty, float* __restrict__ partial,
+                                              long long* cyc, const Geo& g, const WgdOps& ops,
+                                              int fuse, int slab, int nslab, int ntl, int wq,
+                                              int lane, int wt, bool st0) {
+  float acc[NTAP][24];
+#pragma unroll
+  for (int k = 0; k < NTAP; ++k)
+#pragma unroll
+    for (int i = 0; i < 24; ++i) acc[k][i] = 0.f;
+  const uint32_t xbuf_s = smem_addr(xbuf), dy_s = smem_addr(dyst);
+  if (st0) {
+    cyc[11] = -clock64();
+    cyc[13] = globaltimer_ns();
+  }
+  for (int i = 0; i < ntl; ++i) {
+    const int b = i & 1;
+    int n, oy0, ox0;
+    wgd_tile(g, slab + i * nslab, n, oy0, ox0);
+    const long long c0 = st0 ? clock64() : 0;
+    mbar_wait_bounded<false>(&ready[b], (i >> 1) & 1);  // tile i's x operand is staged
+    const long long c1 = st0 ? clock64() : 0;
+    mbar_wait_bounded<false>(&dyfull[b], (i >> 1) & 1);  // tile i's dy has landed
+    if (fuse) mbar_wait_bounded<false>(yfull, i & 1);     // ... and its y
+    const long long c2 = st0 ? clock64() : 0;
+    if (fuse) {
+      dw48_compose(dyst + b * DW48_DYST, yst, dss, g, ox0, wt + (TAP0 ? 128 : 0));
+      fence_async_shared();  // dY's stores before the TMA store's reads, the next load's writes
+      // both warpgroups' dY is stored and the y stage read
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      if (wt == 0) {
+        if (TAP0 == 0)
+          mbar_arrive(yempty);
+        else
+          dw48_store_rows(dyst + b * DW48_DYST, tmdYo, g, slab + i * nslab);
+      }
+      __syncwarp();
+    }
+    const long long c3 = st0 ? clock64() : 0;
+    // the bases go through opaque moves each tile, so the descriptors built
+    // from them are not hoisted out of the tile loop (and spilled)
+    uint32_t ya, xk[NTAP];
+    // this lane's ldmatrix row: C_out 16 wq + lane % 16, chunk half lane / 16
+    asm volatile("mov.b32 %0, %1;\n" : "=r"(ya)
+                 : "r"(dy_s + b * DW48_DYST + (16 * wq + (lane & 15)) * DW48_LINE));
+#pragma unroll
+    for (int k = 0; k < NTAP; ++k)
+      asm volatile("mov.b32 %0, %1;\n" : "=r"(xk[k])
+                   : "r"(xbuf_s + b * D48_XBUF + ops.tap[TAP0 + k]));
+    // step s's fragment: pixels 16 (s % 4) + 8 (lane / 16) .. of row s / 4,
+    // in chunk (2 (s % 4) + lane / 16) ^ (C_out % 8) of the swizzled line
+    uint32_t afr[2][4];
+    auto load_a = [&](int s, uint32_t (&a)[4]) {
+      if (wq < 3)
+        ldsm_x4(a, ya + (s >> 2) * DW48_ROWBOX + (((2 * (s & 3) + (lane >> 4)) ^ (lane & 7)) << 4));
+      else
+        a[0] = a[1] = a[2] = a[3] = 0u;
+    };
+    load_a(0, afr[0]);
+#pragma unroll
+    for (int s = 0; s < 4 * WGD_TR; ++s) {
+      const int rr = s >> 2, sp = s & 3;
+      wg_fence();  // this step's fragment is in its registers
+#pragma unroll
+      for (int k = 0; k < NTAP; ++k)
+        wgmma48_rs(acc[k], afr[s & 1],
+                   wg_desc_mn(xk[k] + rr * (WGD_XP * 16) + 256 * sp, WGD_PLANE));
+      wg_commit();
+      if (s + 1 < 4 * WGD_TR) {
+        wg_wait<1>();  // step s - 1's products are done: its fragment's registers are free
+        load_a(s + 1, afr[(s + 1) & 1]);
+      }
+    }
+    const long long c4 = st0 ? clock64() : 0;
+    wg_wait<0>();
+#pragma unroll
+    for (int k = 0; k < NTAP; ++k) wg_hold(acc[k]);
+    const long long c5 = st0 ? clock64() : 0;
+    if (wt == 0) {
+      if (TAP0 != 0 && fuse) bulk_store_wait<true>();  // the dY store has read the stage
+      mbar_arrive(&empty[b]);
+    }
+    __syncwarp();
+    if (st0) {
+      cyc[4] += c1 - c0;
+      cyc[5] += c2 - c1;
+      cyc[6] += c3 - c2;
+      cyc[7] += c4 - c3;
+      cyc[8] += c5 - c4;
+      cyc[9] += clock64() - c5;
+    }
+  }
+  if (TAP0 != 0 && fuse && wt == 0) bulk_store_wait<false>();  // the last dY is written
+  const long long c6 = st0 ? clock64() : 0;
+  if (st0) {
+    cyc[11] += c6;
+    cyc[14] = globaltimer_ns();
+  }
+  if (wq < 3) {
+    const int row = 16 * wq + (lane >> 2);
+#pragma unroll
+    for (int k = 0; k < NTAP; ++k)
+#pragma unroll
+      for (int j = 0; j < 6; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = (TAP0 + k) * CP48 + 8 * j + 2 * (lane & 3);
+          *reinterpret_cast<float2*>(
+              &partial[((size_t)slab * CP48 + row + 8 * h) * (9 * CP48) + col]) =
+              make_float2(acc[k][4 * j + 2 * h], acc[k][4 * j + 2 * h + 1]);
+        }
+  }
+  if (st0) cyc[10] += clock64() - c6;
+}
+
+// The CTAs walk D48's tiles (4 output rows x 64 pixels), slab, slab +
+// nslab, ...  Tile j goes through the raw x stage (D48's box, tmx [N,C,H,W]
+// {72, 6, 48, 1}, and the left halo's side box, tmxs {8, 6, 48, 1} at ox0 -
+// 8, both without swizzle), x operand buffer and dy stage b = j % 2, and
+// the y stage.  The producer warpgroup transforms tile j's x into operand
+// buffer b once tile j - 2's products are done (warps 1-3 the octs, warp 0
+// the halo's single columns, as D48).  Its thread 0 issues every load, each
+// after its own share of the transform, so a TMA issue that holds it
+// delays no one: tile j's dy into stage b (tmdy, a (W, C, H, N) map, box
+// {64, 48, 4, 1}, 128-byte swizzle; stage b was freed by tile j - 2's
+// products), tile j + 1's x and side boxes once every producer has read
+// tile j's out of the raw stage, and tile j's y (tmy, as tmdy) once the
+// consumers have composed tile j - 1's.  The consumer warpgroups compose
+// tile j's dY in place in dy stage b and store it out as dY (tmdYo, as
+// tmdy) (dw48_consumer).  Barriers: rawfull,
+// dyfull[b], yfull (the boxes' bytes), ready[b] (the 128 producer threads,
+// after their stores), empty[b] (one thread per consumer warpgroup, after
+// its products), yempty (consumer warpgroup 0's thread 0, after the
+// consumers' named barrier that ends the compose).  (A second y stage, or
+// an uneven share of the compose, measured slower.)  cycles (or null):
+// [gridDim.x][DW48_NCY] (ops/branch_conv.py, DW48_PHASES).
+__global__ void __launch_bounds__(DW48_NT, 1)
+conv_dw48_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmxs,
+                 const __grid_constant__ CUtensorMap tmdy, const __grid_constant__ CUtensorMap tmy,
+                 const __grid_constant__ CUtensorMap tmdYo, const float* __restrict__ ds,
+                 const float* __restrict__ mul, const float* __restrict__ add,
+                 float* __restrict__ partial, long long* __restrict__ cycles, Geo g, WgdOps ops,
+                 int pre, int fuse) {
+  static_assert(DW48_SMEM_BYTES <= SMEM_MAX, "E48's shared memory");
+  constexpr int NPL = D48_CG * WGD_XR;  // (group, row) planes of a tile: 36
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the swizzled dy and y boxes sit on 1024-byte atoms; dy stage 1's last
+  // row box is followed by the y stage, so the dropped rows 48-63 of its A
+  // read stay in shared memory
+  unsigned char* dyst = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);  // [2][4][48][64]
+  unsigned char* yst = dyst + 2 * DW48_DYST;                          // [4][48][64]
+  unsigned char* raw = yst + DW48_DYST;                               // [48][6][72]
+  unsigned char* side = raw + D48_RAW;                                // [48][6][8]
+  unsigned char* xbuf = side + DW48_SIDE;                             // [2][the x operand]
+  float* dss = reinterpret_cast<float*>(xbuf + 2 * D48_XBUF);         // [2][48]
+  bf16* pmb = reinterpret_cast<bf16*>(dss + 2 * CP48);                // pre: [2][48]
+  uint64_t* rawfull = reinterpret_cast<uint64_t*>(pmb + 2 * CP48);
+  uint64_t* dyfull = rawfull + 1;                                     // [2]
+  uint64_t* yfull = dyfull + 2;
+  uint64_t* ready = yfull + 1;                                        // [2]
+  uint64_t* empty = ready + 2;                                        // [2]
+  uint64_t* yempty = empty + 2;
+  long long* cyc = reinterpret_cast<long long*>(yempty + 1);          // [DW48_NCY]
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const long long t_start = globaltimer_ns();
+  const int C = g.C, slab = blockIdx.x, nslab = gridDim.x;
+  const bool stamp = cycles != nullptr;
+  for (int e = t; e < 2 * CP48; e += DW48_NT) {
+    const int which = e / CP48, c = e - which * CP48;
+    dss[e] = (fuse && c < C) ? ds[which * C + c] : 0.f;
+    pmb[e] = __float2bfloat16((pre && c < C) ? (which ? add : mul)[c] : 0.f);
+  }
+  if (t < DW48_NCY) cyc[t] = 0;
+  if (t == 0) {
+    mbar_init(rawfull);           // the issuing thread (+ the x and side boxes' bytes)
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&dyfull[b]);      // the issuing thread (+ the box's bytes)
+      mbar_init(&ready[b], 128);  // every producer thread, after its stores
+      mbar_init(&empty[b], 2);    // each consumer warpgroup, after its products
+    }
+    mbar_init(yfull);             // the issuing thread (+ the box's bytes)
+    mbar_init(yempty);            // consumer warpgroup 0's thread 0, after the compose
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int ntl = (g.ntiles - slab + nslab - 1) / nslab;  // this CTA's tiles (>= 1)
+
+  // The roles never meet again before the end: the producer warpgroup hands
+  // registers to the consumers' accumulators, and each role writes its own
+  // stamps.
+  long long* out = stamp ? cycles + (size_t)blockIdx.x * DW48_NCY : nullptr;
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 96;\n" ::: "memory");
+    auto issue_x = [&](int j) {  // tile j's x and side boxes into the raw stage
+      int n, oy0, ox0;
+      wgd_tile(g, slab + j * nslab, n, oy0, ox0);
+      mbar_arrive_expect_tx(rawfull, D48_RAW + DW48_SIDE);
+      tma_load_4d(raw, &tmx, rawfull, ox0, oy0 - 1, 0, n);
+      tma_load_4d(side, &tmxs, rawfull, ox0 - DW48_SIDEC, oy0 - 1, 0, n);
+    };
+    if (t == 0) {
+      tma_prefetch_map(&tmx);
+      tma_prefetch_map(&tmxs);
+      tma_prefetch_map(&tmdy);
+      if (fuse) {
+        tma_prefetch_map(&tmy);
+        tma_prefetch_map(&tmdYo);
+      }
+      issue_x(0);
+      for (int j = 0; j < 2 && j < ntl; ++j)
+        dw48_issue_rows(dyst + j * DW48_DYST, &dyfull[j], &tmdy, g, slab + j * nslab);
+      if (fuse) dw48_issue_rows(yst, yfull, &tmy, g, slab);
+    }
+    for (int j = 0; j < ntl; ++j) {
+      const int b = j & 1;
+      int n, oy0, ox0;
+      wgd_tile(g, slab + j * nslab, n, oy0, ox0);
+      unsigned char* xop = xbuf + b * D48_XBUF;
+      const long long c0 = stamp ? clock64() : 0;
+      mbar_wait_bounded<false>(rawfull, j & 1);  // tile j's x and side boxes have landed
+      const long long c1 = stamp ? clock64() : 0;
+      if (j >= 2)  // tile j - 2's products are done: operand buffer b is free
+        mbar_wait_bounded<false>(&empty[b], ((j - 2) >> 1) & 1);
+      const long long c2 = stamp ? clock64() : 0;
+      fence_async_shared();  // wgmma's reads of the operand before these writes
+      if (warp == 0) {
+        // the single columns of planes lane and lane + 32
+        uint32_t h[8];
+        dw48_left(h, side, lane);
+        wgd_singles<CP48>(xop, raw, h, pmb, pre != 0, g, ops, oy0, ox0, lane);
+        if (lane + 32 < NPL) {
+          dw48_left(h, side, lane + 32);
+          wgd_singles<CP48>(xop, raw, h, pmb, pre != 0, g, ops, oy0, ox0, lane + 32);
+        }
+      } else {
+        // D48's octs: o = 32 wi + lane of plane o % 36 and chunk k = o / 36 + 1
+#pragma unroll 1
+        for (int u = 0; u < 3; ++u) {
+          const int o = 32 * (3 * (warp - 1) + u) + lane;
+          wgd_oct<CP48>(xop, raw, pmb, pre != 0, g, ops, oy0, ox0, o % NPL, o / NPL + 1);
+        }
+      }
+      fence_async_shared();  // these writes before wgmma's reads
+      mbar_arrive(&ready[b]);
+      const long long c3 = stamp ? clock64() : 0;
+      if (t == 0 && j >= 2) {  // tile j - 2's products freed dy stage b (waited for above)
+        fence_async_shared();
+        dw48_issue_rows(dyst + b * DW48_DYST, &dyfull[b], &tmdy, g, slab + j * nslab);
+      }
+      // every producer thread is past its reads of the raw stage
+      asm volatile("bar.sync 2, 128;\n" ::: "memory");
+      if (t == 0) {
+        if (j + 1 < ntl) {
+          fence_async_shared();
+          issue_x(j + 1);
+        }
+        if (fuse && j >= 1) {  // the consumers have composed tile j - 1: the y stage is free
+          mbar_wait_bounded<false>(yempty, (j - 1) & 1);
+          fence_async_shared();
+          dw48_issue_rows(yst, yfull, &tmy, g, slab + j * nslab);
+        }
+      }
+      if (stamp && t == 0) {
+        cyc[0] += c1 - c0;
+        cyc[1] += c2 - c1;
+        cyc[2] += c3 - c2;
+        cyc[3] += clock64() - c3;
+      }
+    }
+    if (stamp && t == 0)
+      for (int k = 0; k < 4; ++k) out[k] = cyc[k];
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n" ::: "memory");
+    const int cw = warp - 4, wq = cw & 3, wt = t & 127;
+    const bool st0 = stamp && t == 128;
+    if (cw < 4)
+      dw48_consumer<0, DW48_TAPS0>(dyst, yst, xbuf, dss, &tmdYo, ready, empty, dyfull, yfull,
+                                   yempty, partial, cyc, g, ops, fuse, slab, nslab, ntl, wq, lane,
+                                   wt, st0);
+    else
+      dw48_consumer<DW48_TAPS0, 9 - DW48_TAPS0>(dyst, yst, xbuf, dss, &tmdYo, ready, empty,
+                                                dyfull, yfull, yempty, partial, cyc, g, ops, fuse,
+                                                slab, nslab, ntl, wq, lane, wt, false);
+    if (stamp) {
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // every partial stored
+      if (st0) {
+        cyc[12] = t_start;
+        cyc[15] = globaltimer_ns();
+        for (int k = 4; k < DW48_NCY; ++k) out[k] = cyc[k];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fixed-order reductions of the per-block partials
 // ---------------------------------------------------------------------------
 
@@ -2634,6 +3134,24 @@ static int encode_act(CUtensorMap* map, const void* p, const Geo& g, int bw, int
   return r == CUDA_SUCCESS ? 0 : TMAP_ERR + (int)r;
 }
 
+// E48's map over an activation [N,C,H,W] bf16 with its dims ordered (W, C,
+// H, N), box {64, 48, 4, 1} in the 128-byte swizzle: one box is a tile's
+// four output rows as [row][C][64 px]; 0 or TMAP_ERR + the CUresult.
+static int encode_rows(CUtensorMap* map, const void* p, const Geo& g) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return TMAP_ERR + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)g.W, (cuuint64_t)g.C, (cuuint64_t)g.H, (cuuint64_t)g.N};
+  const cuuint64_t strides[3] = {(cuuint64_t)g.H * g.W * 2, (cuuint64_t)g.W * 2,
+                                 (cuuint64_t)g.C * g.H * g.W * 2};
+  const cuuint32_t box[4] = {WGD_TC, CP48, WGD_TR, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TMAP_ERR + (int)r;
+}
+
 static cudaLaunchConfig_t dw96_config(int nslab, cudaStream_t s, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(CL96 * nslab);
@@ -2694,32 +3212,104 @@ extern "C" int branch_conv_dw96_plan(int C, int H, int W, int* out) {
   return 0;
 }
 
+// E48's host side: x's maps (D48's box {72, 6, 48, 1} and the left halo's
+// {8, 6, 48, 1}), dy's, y's and dY's (encode_rows, in the 128-byte swizzle
+// the dY fragments are read through; without fuse y's and dY's maps are
+// dy's, never used), the persistent CTAs (grid nslab <= tiles, one per SM).
+static int launch_dw48(const void* x, const void* dy, const void* y, const void* ds,
+                       const void* mul, const void* add, void* dY, void* partial, void* cycles,
+                       const int* ops, const Geo& g, int pre, int fuse, int nslab,
+                       cudaStream_t s) {
+  WgdOps o;
+  if (!wgd_ops_ok(ops, o)) return (int)cudaErrorInvalidValue;
+  CUtensorMap tmx, tmxs, tmdy, tmy, tmdYo;
+  int e = encode_act(&tmx, x, g, WGD_RAWC, WGD_XR, CP48);
+  if (!e) e = encode_act(&tmxs, x, g, DW48_SIDEC, WGD_XR, CP48);
+  if (!e) e = encode_rows(&tmdy, dy, g);
+  if (!e) e = encode_rows(&tmy, fuse ? y : dy, g);
+  if (!e) e = encode_rows(&tmdYo, fuse ? dY : dy, g);
+  if (e) return e;
+  cudaError_t err = cudaFuncSetAttribute(conv_dw48_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         DW48_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  conv_dw48_kernel<<<nslab, DW48_NT, DW48_SMEM_BYTES, s>>>(
+      tmx, tmxs, tmdy, tmy, tmdYo, (const float*)ds, (const float*)mul, (const float*)add,
+      (float*)partial, (long long*)cycles, g, o, pre, fuse);
+  return (int)cudaGetLastError();
+}
+
+// E48's plan: out[0] = shared bytes, out[1] = raw x stages (a box and
+// the left halo's side box each), out[2] = x
+// operand buffers, out[3] = dy stages (dY composed in place), out[4] = y
+// stages, out[5] = tile rows, out[6] = tile pixels per row, out[7] =
+// warpgroups (one producer, two consumers), out[8] = CTAs per SM (the
+// occupancy calculator's: 0 if the plan does not fit), out[9] = tiles per
+// image plane (for the grid), out[10] = x box columns, out[11] = taps of
+// consumer warpgroup 0 (warpgroup 1 takes the rest).
+extern "C" int branch_conv_dw48_plan(int C, int H, int W, int* out) {
+  const Geo g = make_wgd_geo(1, C, H, W);
+  if (C < 1 || g.Cp != CP48) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(conv_dw48_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         DW48_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  int bps = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, conv_dw48_kernel, DW48_NT,
+                                                      DW48_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = DW48_SMEM_BYTES;
+  out[1] = 1;
+  out[2] = 2;
+  out[3] = 2;
+  out[4] = 1;
+  out[5] = WGD_TR;
+  out[6] = WGD_TC;
+  out[7] = DW48_NT / 128;
+  out[8] = bps;
+  out[9] = g.ntiles;
+  out[10] = WGD_RAWC;
+  out[11] = DW48_TAPS0;
+  return 0;
+}
+
 // Kernel E.  x, dy [N,C,H,W] bf16; y [N,C,H,W] bf16 and ds [2][C] f32 (fuse);
 // mul, add [C] f32 (pre); dY [N,C,H,W] bf16 (fuse); partial [nslab][Cp][9*Cp]
 // f32; dk [C,C,3,3] f32 (OIHW).  The grid is nslab * (E's row split).
 // async_copy = 1 stages through the cp.async ring, which needs W % 8 == 0
 // and x, dy (y, dY with fuse) 16-byte aligned; 0 the synchronous fill.
-// c96 = 1 takes E96 (conv_dw96_kernel; partial [nslab][96][864], the grid
-// nslab clusters of 3, cycles null or [3 * nslab][6] int64), which needs C
+// kern = 96 takes E96 (conv_dw96_kernel; partial [nslab][96][864], the grid
+// nslab clusters of 3, cycles null or [3 * nslab][11] int64), which needs C
 // padding to 96 and the ring's conditions; a cluster launch the card
 // refuses returns its error, a tensor map that fails to encode TMAP_ERR +
-// its CUresult.
+// its CUresult.  kern = 48 takes E48 (conv_dw48_kernel; partial
+// [nslab][48][432], the grid nslab <= its 4 x 64 tiles, cycles null or
+// [nslab][15] int64; ops, the x operand's addressing as branch_conv_fwd's),
+// which needs C padding to 48 and the ring's conditions; 0 conv_dw_kernel.
 extern "C" int branch_conv_dw(const void* x, const void* dy, const void* y, const void* ds,
                               const void* mul, const void* add, void* dY, void* partial,
-                              void* dk, void* cycles, int N, int C, int H, int W, int pre,
-                              int fuse, int nslab, int async_copy, int c96, void* stream) {
+                              void* dk, void* cycles, const int* ops, int N, int C, int H, int W,
+                              int pre, int fuse, int nslab, int async_copy, int kern,
+                              void* stream) {
   if (!geo_ok(N, C, H, W) || nslab < 1) return (int)cudaErrorInvalidValue;
-  const Geo g = make_dw_geo(N, C, H, W);
-  if (nslab > g.ntiles) return (int)cudaErrorInvalidValue;
-  if ((async_copy || c96) && (W % 8 != 0 || !aligned16(x) || !aligned16(dy) ||
-                              (fuse && (!aligned16(y) || !aligned16(dY)))))
+  const Geo g = make_dw_geo(N, C, H, W), g48 = make_wgd_geo(N, C, H, W);
+  if (nslab > (kern == CP48 ? g48.ntiles : g.ntiles)) return (int)cudaErrorInvalidValue;
+  if ((async_copy || kern) && (W % 8 != 0 || !aligned16(x) || !aligned16(dy) ||
+                               (fuse && (!aligned16(y) || !aligned16(dY)))))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
-  if (c96) {
+  if (kern == CP96) {
     if (g.Cp != CP96) return (int)cudaErrorInvalidValue;
     const int e = launch_dw96(x, dy, y, ds, mul, add, dY, partial, cycles, g, pre, fuse, nslab, s);
     if (e != 0) return e;
+  } else if (kern == CP48) {
+    if (g.Cp != CP48) return (int)cudaErrorInvalidValue;
+    const int e = launch_dw48(x, dy, y, ds, mul, add, dY, partial, cycles, ops, g48, pre, fuse,
+                              nslab, s);
+    if (e != 0) return e;
+  } else if (kern) {
+    return (int)cudaErrorInvalidValue;
   } else {
     const int k16 = g.Cp / 16;
     const int grid = nslab * (k16 / dw_mt(k16));

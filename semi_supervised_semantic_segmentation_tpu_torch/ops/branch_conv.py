@@ -31,12 +31,19 @@ so the port reads no such variable.
 
 On a CUDA tensor the wrappers launch the hand-written kernels of
 ``csrc/branch_conv.cu`` (bf16, C <= 128, H % 8 == 0; anything else raises).
-E has two kernels, picked before the launch from the shape and the
-pointers: at channels padded to 96 (C = 81..96) with W % 8 == 0 and x, dy
-(and y, dY with fuse) 16-byte aligned, E96 (``conv_dw96_kernel``,
+E has three kernels, picked before the launch from the shape and the
+pointers, where W % 8 == 0 and x, dy (and y, dY with fuse) are 16-byte
+aligned: at channels padded to 96 (C = 81..96) E96 (``conv_dw96_kernel``,
 :func:`dw_c96`: one cluster of 3 CTAs per slab, each owning 32 of dk's
 rows, x loaded once per cluster by a TMA multicast, dy by TMA per CTA, a
-2-stage ring on mbarriers fed by one producer thread); else
+2-stage ring on mbarriers fed by one producer thread); at channels padded
+to 48 (C = 33..48) E48 (``conv_dw48_kernel``, :func:`dw_c48`: one
+persistent CTA per SM of a producer and two consumer warpgroups on D48's
+4 x 64 tiles, x, dy and y by TMA on mbarriers, x transformed into D48's
+operand and dY composed in place in dy's 128-byte-swizzled box and
+written out by one TMA store, the products on wgmma m64n48k16 with dY as A
+from registers and the x operand as B read MN-major at each tap's offset,
+:func:`dw48_operand_plan`); else
 ``conv_dw_kernel``, which stages its tiles through an asynchronous ring
 where the shape and the pointers allow it (:func:`dw_async`) and fills
 them synchronously otherwise.  A cluster launch the card refuses, or a
@@ -54,8 +61,9 @@ the weights per tap through a ring and holds one x operand buffer, D48
 keeps all nine weight slabs resident and double-buffers x (two boxes, two
 operand buffers); stamps on request (:data:`D96_PHASES`,
 :data:`D48_PHASES`); else ``conv_fwd_kernel``.  Counters:
-``conv3x3_dw_cuda.launches`` (every E launch), ``launches_c96`` (E96's)
-and ``launches_async`` (``conv_dw_kernel``'s ring alone),
+``conv3x3_dw_cuda.launches`` (every E launch), ``launches_c96`` (E96's),
+``launches_c48`` (E48's) and ``launches_async`` (``conv_dw_kernel``'s ring
+alone),
 ``conv3x3_fwd_cuda.launches_post`` (D's post-mode launches),
 ``launches_c96`` / ``launches_c48`` (D96's / D48's launches, every mode)
 and ``launches_c96_post`` / ``launches_c48_post`` (their post-mode
@@ -231,9 +239,11 @@ def _lib() -> ctypes.CDLL:
         lib.branch_conv_pack.restype = i
         lib.branch_conv_dw_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.branch_conv_dw_plan.restype = i
-        lib.branch_conv_dw.argtypes = [vp] * 10 + [i] * 9 + [vp]
+        lib.branch_conv_dw.argtypes = [vp] * 11 + [i] * 9 + [vp]
         lib.branch_conv_dw96_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.branch_conv_dw96_plan.restype = i
+        lib.branch_conv_dw48_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
+        lib.branch_conv_dw48_plan.restype = i
         lib.branch_conv_dw.restype = i
         lib._typed = True
     return lib
@@ -287,6 +297,59 @@ def dw96_plan(c: int, h: int, w: int) -> dict:
     at once (the occupancy calculator's: the grid), ring stages, tile rows,
     tiles per image, x box columns, threads per CTA."""
     return _plan_dict(DW96_PLAN_KEYS, "branch_conv_dw96_plan", c, h, w)
+
+
+# E48's stamps per CTA, in the kernel's order (csrc/branch_conv.cu,
+# conv_dw48_kernel): clock64 sums of the producers' thread 0, which issues
+# every load after its share of the transform ("issue the next boxes" holds
+# the producers' barrier, the x, dy and y boxes' issue and the wait for the
+# y stage), and of the first consumer warpgroup's thread 0 (the compose
+# ends at the consumers' barrier); its tile loop holds the six phases
+# before the epilogue; then global-timer marks.  "issue the products" is
+# the wgmma instructions' issue, which stalls while the tensor cores' queue
+# is full
+DW48_PHASES = ("producer: wait for the x boxes", "producer: wait for an empty operand",
+               "producer: transform", "producer: issue the next boxes",
+               "consumer: wait for a transformed tile", "consumer: wait for dy and y",
+               "consumer: compose", "consumer: issue the products",
+               "consumer: wait for the products", "consumer: release the stage",
+               "consumer: epilogue", "consumer: tile loop", "start (global ns)",
+               "loop start (global ns)", "loop end (global ns)", "end (global ns)")
+
+DW48_PLAN_KEYS = ("smem", "x_stages", "x_buffers", "dy_stages", "y_stages", "tile_rows",
+                  "tile_pixels", "warpgroups", "ctas_per_sm", "tiles", "x_box_cols", "taps_wg0")
+
+
+def dw48_plan(c: int, h: int, w: int) -> dict:
+    """E48's plan for C channels (padded to 48) at H x W, from the kernel
+    source: shared bytes, raw x stages (D48's box and the left halo's side
+    box), x operand buffers, dy stages (dY composed in place), y stages,
+    tile rows and pixels per row, warpgroups (one producer, two consumers),
+    CTAs per SM (the occupancy calculator's: 0 where the plan does not fit),
+    tiles per image, x box columns, and the taps of consumer warpgroup 0
+    (warpgroup 1 takes the rest)."""
+    return _plan_dict(DW48_PLAN_KEYS, "branch_conv_dw48_plan", c, h, w)
+
+
+def dw48_operand_plan() -> dict:
+    """E48's operands as its products read them, in bytes (the kernel
+    source's constants; ``tests/test_torch_dw48.py`` reads a tile through
+    them).  A is dY, M = 64 C_out (rows 48-63 are zeros), K = pixels, read
+    into registers by ldmatrix from the dy stage as TMA's 128-byte swizzle
+    lands it: output row rr's box [48 C_out][64 px] starts at ``rr *
+    a_row_box`` and C_out co's line at ``co * a_line``, whose 16-byte chunk
+    q holds pixels 8 (q ^ co % 8) ..; k16 step s of the row takes pixels 16
+    s .. 16 s + 15.  B is :func:`operand_plan` (48)'s x operand read by a
+    wgmma descriptor MN-major (N = the 48 ci, 8 to a 16-byte pixel vector,
+    ``b_sbo`` between channel groups; K = pixels, ``b_lbo`` between groups
+    of 8): tap (kh, kw) of row rr and step s starts at ``tap[kh*3 + kw] + rr
+    * row + s * b_kstep``.  Consumer warpgroup 0 takes taps 0 ..
+    ``taps_wg0`` - 1, warpgroup 1 the rest."""
+    p = operand_plan(C48)
+    rows, cols = D96_TILE
+    return {"a_line": cols * 2, "a_row_box": C48 * cols * 2, "a_swizzle": 128, "a_rows": 64,
+            "b_lbo": 128, "b_sbo": p["plane"], "b_kstep": 16 * p["pixel"], "tap": p["tap"],
+            "row": p["row"], "tile": (rows, cols), "k_steps": rows * cols // 16, "taps_wg0": 5}
 
 
 def dw_async(shape, ptrs) -> bool:
@@ -371,6 +434,13 @@ def dw_c96(shape, ptrs) -> bool:
     16-byte aligned -- also TMA's conditions (global strides in multiples of
     16 bytes, a 16-byte aligned base)."""
     return _packed_ok(shape, ptrs, C96)
+
+
+def dw_c48(shape, ptrs) -> bool:
+    """E48 for x's shape [N,C,H,W] and the addresses of x, dy (and y, dY
+    with fuse): channels that pad to 48, W % 8 == 0 and every pointer
+    16-byte aligned -- also TMA's conditions."""
+    return _packed_ok(shape, ptrs, C48)
 
 
 def fwd_kernel(shape, ptrs) -> int:
@@ -542,28 +612,38 @@ def conv3x3_dx_post_cuda(dY: torch.Tensor, w: torch.Tensor, x: torch.Tensor, mul
     return (dx, sums, cyc) if cycles else (dx, sums)
 
 
+def dw_kernel(shape, ptrs) -> str:
+    """E's kernel, decided before the launch from x's shape and the
+    addresses of x, dy (and y): "e96", "e48", "ring" or "fill"."""
+    if dw_c96(shape, ptrs):
+        return "e96"
+    if dw_c48(shape, ptrs):
+        return "e48"
+    return "ring" if dw_async(shape, ptrs) else "fill"
+
+
 def conv3x3_dw_cuda(x: torch.Tensor, dy: torch.Tensor, y=None, ds=None, mul=None, add=None):
     """Kernel E: -> (dk f32 OIHW [C,C,3,3], dY bf16 or None), on E96 where
-    :func:`dw_c96` holds, else on ``conv_dw_kernel``."""
+    :func:`dw_c96` holds, on E48 where :func:`dw_c48` holds, else on
+    ``conv_dw_kernel``."""
     # dY, when fused, is a fresh allocation: aligned like every tensor torch makes
     ptrs = [t.data_ptr() for t in (x, dy, y) if t is not None]
-    if dw_c96(x.shape, ptrs):
-        kernel = "e96"
-    else:
-        kernel = "ring" if dw_async(x.shape, ptrs) else "fill"
-    return conv3x3_dw_launch(x, dy, y, ds, mul, add, kernel)[:2]
+    return conv3x3_dw_launch(x, dy, y, ds, mul, add, dw_kernel(x.shape, ptrs))[:2]
 
 
 def conv3x3_dw_launch(x: torch.Tensor, dy: torch.Tensor, y=None, ds=None, mul=None, add=None,
                       kernel: str = "e96", cycles: bool = False):
-    """Kernel E on the kernel named: "e96" (``conv_dw96_kernel``), "ring"
-    or "fill" (``conv_dw_kernel`` through its asynchronous ring or its
-    synchronous fill).  :func:`conv3x3_dw_cuda` names the one the shape and
-    the pointers take; a caller naming another one (``chip_smoke.py`` times
-    ``conv_dw_kernel``'s ring beside E96) gets it, or ValueError where it
-    cannot take them.  -> (dk, dY or None, cycles or None): with
-    ``cycles`` (E96 only) an int64 [3 * clusters, 11] tensor of each CTA's
-    stamps (:data:`DW96_PHASES`)."""
+    """Kernel E on the kernel named: "e96" (``conv_dw96_kernel``), "e48"
+    (``conv_dw48_kernel``), "ring" or "fill" (``conv_dw_kernel`` through its
+    asynchronous ring or its synchronous fill).  :func:`conv3x3_dw_cuda`
+    names the one the shape and the pointers take; a caller naming another
+    one (``chip_smoke.py`` times ``conv_dw_kernel``'s ring beside E96 and
+    E48) gets it, or ValueError where it cannot take them.  -> (dk, dY or
+    None, cycles or None): with ``cycles`` (E96 and E48 only) an int64
+    tensor of each CTA's stamps: E96 [3 * clusters, 11]
+    (:data:`DW96_PHASES`), E48 [CTAs, 16] (:data:`DW48_PHASES`)."""
+    _check(kernel in ("e96", "e48", "ring", "fill"), f"unknown E kernel {kernel!r}")
+    _check(not cycles or kernel in ("e96", "e48"), "stamps are E96's and E48's")
     dk = torch.empty((x.shape[1], x.shape[1], 3, 3), dtype=torch.float32, device=x.device)
     n, c, h, wd = _geometry(x, dk)
     _check_act("dy", dy, x.shape)
@@ -574,8 +654,6 @@ def conv3x3_dw_launch(x: torch.Tensor, dy: torch.Tensor, y=None, ds=None, mul=No
     if mul is not None:
         _check_vec("mul", mul, (c,), x.device)
         _check_vec("add", add, (c,), x.device)
-    _check(kernel in ("e96", "ring", "fill"), f"unknown E kernel {kernel!r}")
-    _check(not cycles or kernel == "e96", "cycles are E96's")
     cp = _padded(c)
     dY = torch.empty_like(x) if fuse else None
     ptrs = [t.data_ptr() for t in (x, dy, y, dY) if t is not None]
@@ -586,6 +664,13 @@ def conv3x3_dw_launch(x: torch.Tensor, dy: torch.Tensor, y=None, ds=None, mul=No
         _check(plan["clusters"] > 0, f"no cluster of {plan['cluster']} CTAs with "
                f"{plan['smem']} shared bytes fits on this card")
         nslab = max(1, min(n * plan["tiles"], plan["clusters"]))
+    elif kernel == "e48":
+        _check(dw_c48(x.shape, ptrs), f"E48 needs C padding to {C48}, W % 8 == 0 and 16-byte "
+               f"aligned tensors, got {tuple(x.shape)}")
+        plan = dw48_plan(c, h, wd)
+        _check(plan["ctas_per_sm"] > 0, f"E48's plan ({plan['smem']} shared bytes) does not fit "
+               f"on this card")
+        nslab = _slabs(x.device, plan["ctas_per_sm"], 1, n * plan["tiles"])
     else:
         _check(kernel == "fill" or dw_async(x.shape, ptrs),
                "E's ring needs W % 8 == 0 and 16-byte aligned tensors")
@@ -593,24 +678,30 @@ def conv3x3_dw_launch(x: torch.Tensor, dy: torch.Tensor, y=None, ds=None, mul=No
         # one block per SM (its f32 partial fills the registers)
         nslab = _slabs(x.device, 1, plan["row_blocks"], n * plan["tiles"])
     partial = torch.empty((nslab, cp, 9 * cp), dtype=torch.float32, device=x.device)
-    cyc = torch.zeros((3 * nslab, len(DW96_PHASES)), dtype=torch.int64,
-                      device=x.device) if cycles else None
+    cyc = None
+    if cycles:
+        shape = (3 * nslab, len(DW96_PHASES)) if kernel == "e96" else (nslab, len(DW48_PHASES))
+        cyc = torch.zeros(shape, dtype=torch.int64, device=x.device)
+    ops = _d96_ops()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().branch_conv_dw(x.data_ptr(), dy.data_ptr(), _ptr(y), _ptr(ds), _ptr(mul),
                                 _ptr(add), _ptr(dY), partial.data_ptr(), dk.data_ptr(), _ptr(cyc),
-                                n, c, h, wd, int(mul is not None), int(fuse), nslab,
-                                int(kernel == "ring"), int(kernel == "e96"), stream)
+                                ctypes.addressof(ops), n, c, h, wd, int(mul is not None),
+                                int(fuse), nslab, int(kernel == "ring"),
+                                {"e96": C96, "e48": C48}.get(kernel, 0), stream)
     _raise_on(err, "branch_conv_dw")
     f = conv3x3_dw_cuda
     f.launches += 1
     f.launches_async += int(kernel == "ring")
     f.launches_c96 += int(kernel == "e96")
+    f.launches_c48 += int(kernel == "e48")
     return dk, dY, cyc
 
 
 conv3x3_dw_cuda.launches = 0
 conv3x3_dw_cuda.launches_async = 0
 conv3x3_dw_cuda.launches_c96 = 0
+conv3x3_dw_cuda.launches_c48 = 0
 
 
 # ---------------------------------------------------------------------------

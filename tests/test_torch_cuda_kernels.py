@@ -141,23 +141,26 @@ def test_branch_conv_kernels_match_plain(dev, n, c, h, w):
     """D (plain, pre, flipped dx conv) and E (fused dY with ds != 0, with and
     without pre; unfused) against their plain versions, at widths that pad
     to the MMA's 16 and at W not a multiple of the 32-pixel tile.  E takes
-    E96 at C = 96 with W % 8 == 0, else its asynchronous ring exactly when
-    W % 8 == 0: W = 40 and 72 end in a ragged column tile (dY beyond W must
-    stay 0, not ds0), and C = 96 at H = 32 with pre puts the input's zero
-    halo (not relu(add)) at both the top and the bottom of the image."""
+    E96 at C = 96 and E48 at C = 48 with W % 8 == 0, else its asynchronous
+    ring exactly when W % 8 == 0: W = 40 and 72 end in a ragged column tile
+    (dY beyond W must stay 0, not ds0), and C = 96 at H = 32 with pre puts
+    the input's zero halo (not relu(add)) at both the top and the bottom of
+    the image."""
     x, wt, mul, add, dy, ds = _branch_inputs(dev, n, c, h, w)
     e96 = bc.dw_c96(x.shape, (x.data_ptr(), dy.data_ptr()))
-    ring = w % 8 == 0 and not e96
+    e48 = bc.dw_c48(x.shape, (x.data_ptr(), dy.data_ptr()))
+    ring = w % 8 == 0 and not e96 and not e48
     for pre in ((), (mul, add)):
         y, s = bc.conv3x3_fwd(x, wt, *pre)
         yp, sp = bc.conv3x3_fwd_plain(x, wt, *pre)
         torch.cuda.synchronize()
         assert _within_one_ulp(y, yp), (pre != (), (y.float() - yp.float()).abs().max().item())
         assert bool(((s - sp).abs() <= 1e-3 * sp.abs().amax(dim=1, keepdim=True)).all())
-        before = (bc.conv3x3_dw_cuda.launches_async, bc.conv3x3_dw_cuda.launches_c96)
+        f = bc.conv3x3_dw_cuda
+        before = (f.launches_async, f.launches_c96, f.launches_c48)
         dk, dY = bc.conv3x3_dw(x, dy, y, ds, *pre)
-        assert (bc.conv3x3_dw_cuda.launches_async - before[0],
-                bc.conv3x3_dw_cuda.launches_c96 - before[1]) == (int(ring), int(e96))
+        assert (f.launches_async - before[0], f.launches_c96 - before[1],
+                f.launches_c48 - before[2]) == (int(ring), int(e96), int(e48))
         dkp, dYp = bc.conv3x3_dw_plain(x, dy, y, ds, *pre)
         assert torch.equal(dY, dYp)
         assert (dk - dkp).abs().max().item() <= 1e-3 * dkp.abs().max().item()
@@ -180,23 +183,25 @@ def _misaligned(t):
 
 def test_branch_conv_dw_misaligned_input_takes_the_synchronous_fill(dev):
     """W % 8 == 0, but x starts off a 16-byte boundary: E fills its tiles
-    synchronously (the ring's counter stays put), matches the plain
-    version, and gives the ring's bits."""
+    synchronously (neither E48's counter nor the ring's moves), matches the
+    plain version, and gives the ring's bits."""
     x, wt, mul, add, dy, ds = _branch_inputs(dev, 2, 48, 32, 64)
     y = bc.conv3x3_fwd(x, wt, mul, add)[0]
     xm = _misaligned(x)
-    before, before_async = bc.conv3x3_dw_cuda.launches, bc.conv3x3_dw_cuda.launches_async
+    f = bc.conv3x3_dw_cuda
+    before, before_async, before_c48 = f.launches, f.launches_async, f.launches_c48
     dk, dY = bc.conv3x3_dw(xm, dy, y, ds, mul, add)
     torch.cuda.synchronize()
-    assert bc.conv3x3_dw_cuda.launches == before + 1
-    assert bc.conv3x3_dw_cuda.launches_async == before_async
+    assert f.launches == before + 1
+    assert (f.launches_async, f.launches_c48) == (before_async, before_c48)
     dkp, dYp = bc.conv3x3_dw_plain(x, dy, y, ds, mul, add)
     assert torch.equal(dY, dYp)
     assert (dk - dkp).abs().max().item() <= 1e-3 * dkp.abs().max().item()
-    # the ring on the aligned input walks the same tiles through the same
-    # products, so its staging must give the same bits of dk and dY
-    dk2, dY2 = bc.conv3x3_dw(x, dy, y, ds, mul, add)
-    assert bc.conv3x3_dw_cuda.launches_async == before_async + 1
+    # the ring on the aligned input (named: the wrapper takes E48 there)
+    # walks the same tiles through the same products, so its staging must
+    # give the same bits of dk and dY
+    dk2, dY2, _ = bc.conv3x3_dw_launch(x, dy, y, ds, mul, add, kernel="ring")
+    assert f.launches_async == before_async + 1
     assert torch.equal(dY2, dYp) and torch.equal(dk2, dk)
 
 

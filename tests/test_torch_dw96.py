@@ -92,18 +92,23 @@ def _chip_smoke():
 @pytest.mark.parametrize("overrides,want", [
     # config 5 as shipped (crop 1024): branch 0 (48 ch at 256^2) and branch 1
     # (96 ch at 128^2) in all 8 modules, 4 blocks of 2 convs each
-    ({}, {"branch_conv_dw": 128, "branch_conv_dw_async": 64, "branch_conv_dw_c96": 64}),
+    ({}, {"branch_conv_dw": 128, "branch_conv_dw_async": 0, "branch_conv_dw_c96": 64,
+          "branch_conv_dw_c48": 64}),
     # crop 512: branch 1 at 64^2 is still eligible (H % 32 == 0)
     ({"data.crop_size": 512},
-     {"branch_conv_dw": 128, "branch_conv_dw_async": 64, "branch_conv_dw_c96": 64}),
-    # a width-8 HRNet at crop 512: no branch pads to 96; branches 0-2 (sides
-    # 128, 64, 32) eligible, branch 3 (16) not: 2 + 3 + 3 branches x 8 convs
+     {"branch_conv_dw": 128, "branch_conv_dw_async": 0, "branch_conv_dw_c96": 64,
+      "branch_conv_dw_c48": 64}),
+    # a width-8 HRNet at crop 512: no branch pads to 96 or 48; branches 0-2
+    # (sides 128, 64, 32) eligible, branch 3 (16) not: 2 + 3 + 3 branches x
+    # 8 convs, all on the ring
     ({"model.hrnet_width": 8, "model.hrnet_modules": [1, 1, 1], "data.crop_size": 512},
-     {"branch_conv_dw": 64, "branch_conv_dw_async": 64, "branch_conv_dw_c96": 0}),
+     {"branch_conv_dw": 64, "branch_conv_dw_async": 64, "branch_conv_dw_c96": 0,
+      "branch_conv_dw_c48": 0}),
 ])
 def test_chip_smoke_derives_e_launches_from_the_model(overrides, want):
     """chip_smoke.py holds config 5's step to E's launches per kernel,
-    counted from the model's modules, blocks and branch shapes."""
+    counted from the model's modules, blocks and branch shapes: at C = 96
+    on E96, at C = 48 on E48, none on conv_dw_kernel's ring."""
     from semi_supervised_semantic_segmentation_tpu_torch.config import load_config
 
     cs = _chip_smoke()
