@@ -44,7 +44,13 @@ scalars, ``train.log`` and the checkpoints; the eval's confusion matrix is
 global.
 
 ``train.profile_steps = n`` traces the first epoch's steps 2 .. 2 + n with
-``torch.profiler`` into ``<work_dir>/profile/`` (a Chrome trace).
+``torch.profiler`` into ``<work_dir>/profile/`` (a Chrome trace), with the
+program's spans recording (``utils/spans.py``: ``fixmatch.*``,
+``branch_conv.*``, ``data.wait``).  Counters for a profiler or a harness to
+read: the prefetcher's (``trainer._prefetch``: ``gets``, ``empty_gets``,
+``waited_ns``) and the collector's (``trainer.collector``:
+``gc_full_collections``, ``gc_pause_ns``, from a ``gc.callbacks`` hook that
+``__init__`` adds and :meth:`close` removes).
 ``train.debug_nans`` runs each step under autograd's anomaly mode (a
 backward function that returns NaN raises) and raises when a step's scalars
 are not finite.  That is weaker than the reference's ``jax_debug_nans``,
@@ -53,6 +59,8 @@ which checks the output of every op, forward ones included.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import logging
 import math
@@ -89,6 +97,7 @@ from semi_supervised_semantic_segmentation_tpu_torch.parallel.mesh import (
     broadcast_from_rank0,
     make_mesh,
 )
+from semi_supervised_semantic_segmentation_tpu_torch.utils import spans
 from semi_supervised_semantic_segmentation_tpu_torch.utils.logging import (
     MetricLogger,
     log_to_file,
@@ -103,7 +112,9 @@ class _Prefetcher:
     a side stream; ``get`` makes the current stream wait for them.
     ``close`` ends the thread, which would otherwise wait on the full queue
     forever and keep the trainer (its model, optimizer state and batches)
-    alive."""
+    alive.  Counters (plain ints, read by whoever holds the prefetcher):
+    ``gets``, ``empty_gets`` (gets that found the queue empty) and
+    ``waited_ns`` (time in ``get``'s queue wait, the span ``data.wait``)."""
 
     def __init__(self, pairs: Iterator, device: torch.device, depth: int = 2):
         self.device = device
@@ -111,6 +122,7 @@ class _Prefetcher:
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         self._sentinel = object()
         self._stop = threading.Event()
+        self.gets = self.empty_gets = self.waited_ns = 0
         self._thread = threading.Thread(target=self._produce, args=(pairs,), daemon=True)
         self._thread.start()
 
@@ -137,7 +149,15 @@ class _Prefetcher:
             self.q.put(self._sentinel)
 
     def get(self):
-        item = self.q.get()
+        t0 = time.perf_counter_ns()
+        with spans.span("data.wait"):
+            try:
+                item = self.q.get_nowait()
+            except queue.Empty:
+                self.empty_gets += 1
+                item = self.q.get()
+        self.waited_ns += time.perf_counter_ns() - t0
+        self.gets += 1
         if item is self._sentinel:
             raise StopIteration
         if isinstance(item, Exception):
@@ -159,6 +179,26 @@ class _Prefetcher:
                 self.q.get(timeout=0.1)
             except queue.Empty:
                 pass
+
+
+class _Collector:
+    """A ``gc.callbacks`` hook that counts the collector's full (generation
+    2) collections, ``gc_full_collections``, and their pause, ``gc_pause_ns``.
+    It makes no torch call: it runs inside the collection, on whichever
+    thread triggered it."""
+
+    def __init__(self):
+        self.gc_full_collections = self.gc_pause_ns = 0
+        self._t0 = 0
+
+    def __call__(self, phase: str, info: Dict[str, int]) -> None:
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter_ns()
+        else:
+            self.gc_full_collections += 1
+            self.gc_pause_ns += time.perf_counter_ns() - self._t0
 
 
 class Trainer:
@@ -228,6 +268,8 @@ class Trainer:
             self._resume(t.resume)
         # every rank starts from rank 0's state, bit for bit
         broadcast_from_rank0(self._state_tensors(), mesh)
+        self.collector = _Collector()
+        gc.callbacks.append(self.collector)
 
     def _state_tensors(self):
         """The nets (teacher included) and the optimizer's momentum."""
@@ -305,7 +347,9 @@ class Trainer:
         if self.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
-        prof.start()
+        self._profiling = contextlib.ExitStack()
+        self._profiling.enter_context(spans.recording())
+        self._profiling.enter_context(prof)
         return prof
 
     def _stop_profile(self, prof, epoch: int, last: int) -> None:
@@ -313,7 +357,7 @@ class Trainer:
         to ``<work_dir>/profile/trace_epoch<epoch>_steps2-<last>.json``."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        prof.stop()
+        self._profiling.close()  # the profiler stops, then the spans
         out = os.path.join(self.cfg.train.work_dir, "profile")
         os.makedirs(out, exist_ok=True)
         path = os.path.join(out, f"trace_epoch{epoch}_steps2-{last}.json")
@@ -365,7 +409,9 @@ class Trainer:
 
     def close(self) -> None:
         """Stop the prefetch thread and the loaders, finish the checkpoint
-        writes in flight and close the records."""
+        writes in flight, close the records and remove the collector's hook."""
+        if self.collector in gc.callbacks:
+            gc.callbacks.remove(self.collector)
         if self._prefetch is not None:
             self._prefetch.close()
             self._prefetch = None

@@ -19,6 +19,11 @@ batches) the draws are the global batch's rows (``common``), row 0's CutMix
 partner is the previous rank's last row (``parallel.mesh.partner_rows``),
 BatchNorm and the losses reduce over the global batch, the gradients are
 summed over ranks before SGD, and the returned scalars are global.
+
+The step and its phases are ranges of ``utils/spans.py`` (``fixmatch.step``
+around ``fixmatch.draw``, ``.views``, ``.teacher``, ``.cutmix``,
+``.student``, ``.loss``, ``.backward``, ``.optimizer`` and ``.ema``), no-ops
+unless spans are recording.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from semi_supervised_semantic_segmentation_tpu_torch.ops import augment, losses
 from semi_supervised_semantic_segmentation_tpu_torch.ops.cutmix_normalize import cutmix_normalize
 from semi_supervised_semantic_segmentation_tpu_torch.ops.schedules import consistency_weight
 from semi_supervised_semantic_segmentation_tpu_torch.parallel.mesh import Mesh, partner_rows
+from semi_supervised_semantic_segmentation_tpu_torch.utils.spans import span
 
 uses_unlabeled = True
 uses_ema = True
@@ -76,46 +82,60 @@ def make_train_step(cfg: Config, total_steps: int, mesh: Optional[Mesh] = None):
 
     def train_step(state: TrainState, labeled: common.Batch, unlabeled: common.Batch,
                    draws: Optional[Draws] = None) -> Dict[str, object]:
+        with span("fixmatch.step"):
+            return _train_step(state, labeled, unlabeled, draws)
+
+    def _train_step(state, labeled, unlabeled, draws):
         model, teacher = state.model, state.ema_model
         dtype = model.compute_dtype
-        if draws is None:
-            g = common.step_generator(cfg.train.seed, state.step, unlabeled["image"].device)
-            draws = draw(cfg, labeled, unlabeled, g, model, mesh)
-        xl01, y, _ = common.weak_view(cfg, labeled, draws.weak_l)
-        xu01, _, uvalid = common.weak_view(cfg, unlabeled, draws.weak_u)
-        xu_strong01 = common.strong_view(cfg, xu01, draws.strong)
+        with span("fixmatch.draw"):
+            if draws is None:
+                g = common.step_generator(cfg.train.seed, state.step, unlabeled["image"].device)
+                draws = draw(cfg, labeled, unlabeled, g, model, mesh)
+        with span("fixmatch.views"):
+            xl01, y, _ = common.weak_view(cfg, labeled, draws.weak_l)
+            xu01, _, uvalid = common.weak_view(cfg, unlabeled, draws.weak_u)
+            xu_strong01 = common.strong_view(cfg, xu01, draws.strong)
 
-        teacher.eval()
-        with torch.no_grad():
-            teacher_logits = teacher(common.normalize(cfg, xu01, dtype))
-        pseudo, conf = losses.pseudo_labels_from_logits(teacher_logits, m.conf_thresh)
-        # Mean-fill padding is fake imagery: ignore it before CutMix so mixed-in
-        # padding stays out of the unsupervised loss.
-        pseudo = torch.where(uvalid, pseudo, torch.full_like(pseudo, ignore))
+        with span("fixmatch.teacher"):
+            teacher.eval()
+            with torch.no_grad():
+                teacher_logits = teacher(common.normalize(cfg, xu01, dtype))
+            pseudo, conf = losses.pseudo_labels_from_logits(teacher_logits, m.conf_thresh)
+            # Mean-fill padding is fake imagery: ignore it before CutMix so mixed-in
+            # padding stays out of the unsupervised loss.
+            pseudo = torch.where(uvalid, pseudo, torch.full_like(pseudo, ignore))
 
-        xl = common.normalize(cfg, xl01, dtype)
-        xu_strong01, pseudo, conf = (t.contiguous() for t in (xu_strong01, pseudo, conf))
-        partner = partner_rows((xu_strong01, pseudo, conf), mesh)
-        if cfg.data.cutmix_impl == "pallas":
-            xu_s, pseudo, conf = cutmix_normalize(
-                xu_strong01, pseudo, conf, draws.boxes.contiguous(), mean, std, dtype, partner)
-        else:
-            mixed, pseudo, conf = augment.cutmix_batch(xu_strong01, pseudo, conf, draws.boxes,
-                                                       partner)
-            xu_s = common.normalize(cfg, mixed, dtype)
+        with span("fixmatch.cutmix"):
+            xl = common.normalize(cfg, xl01, dtype)
+            xu_strong01, pseudo, conf = (t.contiguous() for t in (xu_strong01, pseudo, conf))
+            partner = partner_rows((xu_strong01, pseudo, conf), mesh)
+            if cfg.data.cutmix_impl == "pallas":
+                xu_s, pseudo, conf = cutmix_normalize(
+                    xu_strong01, pseudo, conf, draws.boxes.contiguous(), mean, std, dtype,
+                    partner)
+            else:
+                mixed, pseudo, conf = augment.cutmix_batch(xu_strong01, pseudo, conf,
+                                                           draws.boxes, partner)
+                xu_s = common.normalize(cfg, mixed, dtype)
         nl = xl.shape[0]
         lam = consistency_weight(state.step, m.consistency_weight, m.rampup_iters, m.rampup_kind)
 
-        model.train()
-        logits = model(torch.cat([xl, xu_s], dim=0), draws.dropout)
-        sup = sup_fn(logits[:nl], y)
-        unsup = losses.confidence_masked_ce(logits[nl:], pseudo, conf, ignore, normalize="all",
-                                            mesh=mesh)
-        loss = sup + lam * unsup
-        state.optimizer.zero_grad()
-        loss.backward()
-        lr = state.optimizer.step(state.step, mesh)
-        ema_update(teacher, model, m.ema_alpha)
+        with span("fixmatch.student"):
+            model.train()
+            logits = model(torch.cat([xl, xu_s], dim=0), draws.dropout)
+        with span("fixmatch.loss"):
+            sup = sup_fn(logits[:nl], y)
+            unsup = losses.confidence_masked_ce(logits[nl:], pseudo, conf, ignore,
+                                                normalize="all", mesh=mesh)
+            loss = sup + lam * unsup
+        with span("fixmatch.backward"):
+            state.optimizer.zero_grad()
+            loss.backward()
+        with span("fixmatch.optimizer"):
+            lr = state.optimizer.step(state.step, mesh)
+        with span("fixmatch.ema"):
+            ema_update(teacher, model, m.ema_alpha)
         state.step += 1
         return common.global_scalars({
             "loss": loss.detach(),

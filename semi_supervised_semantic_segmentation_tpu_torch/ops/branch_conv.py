@@ -69,7 +69,10 @@ alone),
 and ``launches_c96_post`` / ``launches_c48_post`` (their post-mode
 launches); each D launch is also counted in ``conv3x3_fwd_cuda.launches``.
 On a CPU tensor they run the plain versions below, which the kernels are
-tested against.
+tested against.  The three entry points, :func:`conv3x3_fwd`,
+:func:`conv3x3_dx_post` and :func:`conv3x3_dw`, are the spans
+``branch_conv.d``, ``branch_conv.d_post`` and ``branch_conv.e`` of
+``utils/spans.py``.
 """
 
 from __future__ import annotations
@@ -84,6 +87,7 @@ import torch.nn.functional as F
 from semi_supervised_semantic_segmentation_tpu_torch.ops import cuda_build
 from semi_supervised_semantic_segmentation_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 from semi_supervised_semantic_segmentation_tpu_torch.ops.stem import fold_stats_cotangent
+from semi_supervised_semantic_segmentation_tpu_torch.utils.spans import span
 
 SOURCE = "branch_conv.cu"
 MAX_C = 128
@@ -723,24 +727,28 @@ def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def conv3x3_fwd(x, w, mul=None, add=None, stats: bool = True, flip: bool = False):
     """Kernel D on CUDA tensors, the plain version on CPU tensors."""
-    if _on_cpu(x):
-        return conv3x3_fwd_plain(x, w, mul, add, stats, flip)
-    return conv3x3_fwd_cuda(x.contiguous(), _f32(w), _f32(mul), _f32(add), stats, flip)
+    with span("branch_conv.d"):
+        if _on_cpu(x):
+            return conv3x3_fwd_plain(x, w, mul, add, stats, flip)
+        return conv3x3_fwd_cuda(x.contiguous(), _f32(w), _f32(mul), _f32(add), stats, flip)
 
 
 def conv3x3_dx_post(dY, w, x, mul, add):
     """Kernel D's post mode on CUDA tensors, the plain version on CPU tensors."""
-    if _on_cpu(dY):
-        return conv3x3_dx_post_plain(dY, w, x, mul, add)
-    return conv3x3_dx_post_cuda(dY.contiguous(), _f32(w), x.contiguous(), _f32(mul), _f32(add))
+    with span("branch_conv.d_post"):
+        if _on_cpu(dY):
+            return conv3x3_dx_post_plain(dY, w, x, mul, add)
+        return conv3x3_dx_post_cuda(dY.contiguous(), _f32(w), x.contiguous(), _f32(mul),
+                                    _f32(add))
 
 
 def conv3x3_dw(x, dy, y=None, ds=None, mul=None, add=None):
     """Kernel E on CUDA tensors, the plain version on CPU tensors."""
-    if _on_cpu(x):
-        return conv3x3_dw_plain(x, dy, y, ds, mul, add)
-    return conv3x3_dw_cuda(x.contiguous(), dy.to(x.dtype).contiguous(), y, _f32(ds), _f32(mul),
-                           _f32(add))
+    with span("branch_conv.e"):
+        if _on_cpu(x):
+            return conv3x3_dw_plain(x, dy, y, ds, mul, add)
+        return conv3x3_dw_cuda(x.contiguous(), dy.to(x.dtype).contiguous(), y, _f32(ds),
+                               _f32(mul), _f32(add))
 
 
 def _cotangents(dy, ds, y):

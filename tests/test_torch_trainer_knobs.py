@@ -3,7 +3,7 @@
 32:
 
 - ``profile_steps`` writes a ``torch.profiler`` trace under
-  ``<work_dir>/profile``;
+  ``<work_dir>/profile``, with the program's spans (a FixMatch run);
 - ``debug_nans`` raises on an injected NaN (and without it the same run
   ends with a NaN loss);
 - ``resume`` with no checkpoint logs it and trains from step 0;
@@ -27,6 +27,7 @@ import torch
 
 from semi_supervised_semantic_segmentation_tpu_torch import config, train
 from semi_supervised_semantic_segmentation_tpu_torch.engine.trainer import Trainer
+from semi_supervised_semantic_segmentation_tpu_torch.utils import spans
 from tests.torch_port_helpers import one_torch_thread
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,14 +52,20 @@ def _cfg(tmp_path, **over):
 
 def test_profile_steps_writes_a_trace(tmp_path):
     trainer = Trainer(_cfg(tmp_path, **{"train.epochs": 1, "train.iters_per_epoch": 4,
-                                        "train.profile_steps": 1}), device="cpu")
+                                        "train.profile_steps": 1,
+                                        "method.name": "fixmatch_cutmix",
+                                        "train.unlabeled_batch_size": 2}), device="cpu")
     trainer.fit()
     names = os.listdir(tmp_path / "profile")
     assert names == ["trace_epoch0_steps2-3.json"]
     with open(tmp_path / "profile" / names[0]) as f:
         trace = json.load(f)
-    ops = {e.get("name") for e in trace["traceEvents"]}
+    ops = [e.get("name") for e in trace["traceEvents"]]
     assert "aten::convolution" in ops or "aten::conv2d" in ops
+    # the program's spans record while the trainer profiles, and only then
+    assert ops.count("fixmatch.step") == 2 and "fixmatch.backward" in ops
+    assert "data.wait" in ops
+    assert not spans._recording
 
 
 def _nan_run(tmp_path, debug_nans):
